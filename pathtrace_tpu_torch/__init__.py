@@ -1,0 +1,25 @@
+"""pathtrace_tpu_torch: the path tracer in PyTorch and CUDA for NVIDIA Hopper.
+
+The port of ``pathtrace_tpu`` (JAX/Pallas on a TPU), which stays the
+reference. It renders the 14-channel AOV buffer of sphere scenes (colour,
+normal, albedo, depth means and four luminance variances) with a
+hand-written CUDA kernel (``csrc/trace_kernel.cu``) or a plain PyTorch
+wavefront, and writes EXR and bitmaps. It imports torch and numpy, never
+jax.
+"""
+
+__version__ = "0.1.0"
+
+from pathtrace_tpu_torch.camera import Camera
+from pathtrace_tpu_torch.config import RenderConfig
+from pathtrace_tpu_torch.render import render_aovs, render_channels
+from pathtrace_tpu_torch.scene import Scene, cornell_box
+
+__all__ = [
+    "RenderConfig",
+    "Scene",
+    "cornell_box",
+    "Camera",
+    "render_aovs",
+    "render_channels",
+]

@@ -1,0 +1,106 @@
+"""The port's CLI: flags, the single-frame render on the CPU, and that the
+port never imports JAX."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pathtrace_tpu import cli as jax_cli
+from pathtrace_tpu.io.exr import load_aovs_exr, read_exr
+from pathtrace_tpu_torch import cli
+from pathtrace_tpu_torch.io.bmp import read_bmp
+from test_torch_trace_kernel import assert_channels_close
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _pack(aovs):
+    return np.concatenate(
+        [aovs["color"], aovs["normal"], aovs["albedo"]]
+        + [aovs[k][..., None] for k in
+           ("depth", "color_var", "normal_var", "albedo_var", "depth_var")],
+        axis=-1,
+    )
+
+
+def test_defaults_match_reference():
+    args = cli.build_parser().parse_args([])
+    assert args.size == 512
+    assert args.samples == 4
+    assert args.threads_per_block == 8
+    assert args.device == 0
+    assert args.output == "output/out"
+    assert (args.camera_x, args.camera_y, args.camera_z) == (50.0, 52.0, 295.6)
+    assert (args.camera_yaw, args.camera_pitch) == (-90.0, 0.0)
+    assert not args.denoising and not args.interactive and not args.nobitmap
+    assert cli.build_parser().parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_single_frame_on_cpu_matches_jax_cli(tmp_path, capsys):
+    out, ref = tmp_path / "port", tmp_path / "jax"
+    flags = ["--size", "32", "-s", "2", "--nobitmap"]
+    assert cli.main(flags + ["--device", "cpu", "-o", str(out)]) == 0
+    assert "Render completed in" in capsys.readouterr().out
+    assert jax_cli.main(flags + ["--backend", "jnp", "-o", str(ref)]) == 0
+    got_raw, ref_raw = read_exr(str(out) + ".exr"), read_exr(str(ref) + ".exr")
+    assert sorted(got_raw) == sorted(ref_raw)
+    got, want = load_aovs_exr(str(out) + ".exr"), load_aovs_exr(str(ref) + ".exr")
+    assert got["color"].shape == (32, 32, 3)
+    assert_channels_close(_pack(got), _pack(want))
+    assert not list(tmp_path.glob("*.bmp"))
+
+
+def test_single_frame_writes_bitmaps(tmp_path):
+    assert cli.main(["--size", "16", "-s", "1", "--device", "cpu", "-o",
+                     str(tmp_path / "bm")]) == 0
+    names = ("color", "normal", "albedo", "depth", "color_var", "normal_var",
+             "albedo_var", "depth_var")
+    for n in names:
+        img = read_bmp(tmp_path / f"bm_{n}.bmp")
+        assert img.shape == (16, 16, 3) and img.dtype == np.uint8
+    assert read_bmp(tmp_path / "bm_albedo.bmp").max() > 0
+
+
+@pytest.mark.parametrize("flag", ["-d", "-i", "--viewer"])
+def test_unported_modes_exit_nonzero(tmp_path, flag, capsys):
+    assert cli.main([flag, "--device", "cpu", "-o", str(tmp_path / "x")]) != 0
+    assert "not ported yet" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("block", ["0", "17", "32"])
+def test_block_edge_outside_the_kernels_bounds_is_refused(block, capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.build_parser().parse_args(["-t", block])
+    assert exc.value.code != 0
+    assert "block edge must be 1..16" in capsys.readouterr().err
+
+
+def test_no_cuda_without_device_cpu_exits_nonzero(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(["--size", "8", "-o", str(tmp_path / "x")]) != 0
+    assert "--device cpu" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys\n"
+        "import pathtrace_tpu_torch, pathtrace_tpu_torch.cli, pathtrace_tpu_torch.ops.trace_kernel\n"
+        "import pathtrace_tpu_torch.convert, pathtrace_tpu_torch.utils.timing\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pathtrace_tpu.')) or m == 'pathtrace_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    banned = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pathtrace_tpu)(\.|\s|$)", re.M)
+    for path in (REPO / "pathtrace_tpu_torch").rglob("*.py"):
+        assert not banned.search(path.read_text()), path
