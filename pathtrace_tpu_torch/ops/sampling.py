@@ -25,6 +25,23 @@ def _normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v / torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True) + eps)
 
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, 1) with ``jnp.clip``'s subgradient: 1/2 at x == 0 and at
+    x == 1, where max/min split a tie (``torch.clamp`` gives 1 there). The
+    Cornell box's walls have emission 0 and its albedos include 0 and 1, so
+    the gradients of the first-bounce emission clamp and of the inverse
+    step's albedo clip sit on that boundary."""
+    return torch.minimum(torch.maximum(x, torch.zeros_like(x)), torch.ones_like(x))
+
+
+def clip01_grad(x: torch.Tensor) -> torch.Tensor:
+    """d clip01(x) / dx, written out for the kernels' hand-derived chains:
+    1 inside (0, 1), 1/2 at 0 and 1, 0 outside."""
+    inside = ((x >= 0.0) & (x <= 1.0)).to(x.dtype)
+    edge = ((x == 0.0) | (x == 1.0)).to(x.dtype)
+    return inside - 0.5 * edge
+
+
 def ortho_vector(v: torch.Tensor) -> torch.Tensor:
     """A vector orthogonal to v (reference ``orthoVector``,
     ``pathtrace.cu:121-124``): (-y, x, 0) if |x| > |z| else (0, -z, y)."""
@@ -72,7 +89,7 @@ def direct_lighting(scene, normal, position, light_index: int, push: float):
     light_bottom = scene.position[light_index] - torch.stack(
         [torch.zeros_like(r), r, torch.zeros_like(r)])
     light_dir = _normalize(light_bottom - position)
-    diffuse = torch.clamp(torch.sum(light_dir * normal, dim=-1), 0.0, 1.0)
+    diffuse = clip01(torch.sum(light_dir * normal, dim=-1))
     shadow_origin = position + normal * push
     vis = shadow_visibility(shadow_origin, light_dir, scene, light_index)
     return (diffuse * vis)[..., None] * scene.emission[light_index]

@@ -23,6 +23,7 @@ import torch
 
 from pathtrace_tpu_torch.ops.intersect import intersect_scene_select
 from pathtrace_tpu_torch.ops.sampling import (
+    clip01,
     cosine_weighted_direction,
     direct_lighting,
     glossy_direction,
@@ -92,7 +93,7 @@ def trace_paths(
 
         contrib = mask * hitdata.emission
         if n == 0:
-            contrib = torch.clamp(contrib, 0.0, 1.0)  # pathtrace.cu:170-174
+            contrib = clip01(contrib)  # pathtrace.cu:170-174
         if nee_light_index is not None:
             dl = direct_lighting(scene, normal, pos, nee_light_index, push_ray_origin)
             contrib = contrib + mask * dl * hitdata.color * 0.5

@@ -20,19 +20,13 @@ reads nothing back from the device.
 channel, under the tolerances stated with it.
 
 The kernel is built with nvcc at first use into ``pathtrace_tpu_torch/
-build/`` (rebuilt when the source or the flags change) and bound with
-ctypes. Both versions draw the lattice of ``rng.py``.
+build/`` (``ops/build.py``: rebuilt when the source, a header it includes or
+the flags change) and bound with ctypes. Both versions draw the lattice of ``rng.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
@@ -40,6 +34,7 @@ import torch
 
 from pathtrace_tpu_torch import rng
 from pathtrace_tpu_torch.config import MAX_BLOCK, RenderConfig
+from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.variance import LUMA, Moments
 from pathtrace_tpu_torch.render import FEATURES, unpack_channels
 
@@ -54,17 +49,7 @@ STAT_CHANNELS = {
     "color": (),
 }
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "trace_kernel.cu"
-BUILD_DIR = _PKG / "build"
-# No --use_fast_math: IEEE sqrt and division, full-range sinf/cosf.
-# -fmad=false: with nvcc's default FMA contraction 1.1% of pixels of a 4-spp
-# NEE frame flipped a hit decision against the plain version on an H100;
-# without it the kernel matched the plain version bit for bit in every mode.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = CSRC / "trace_kernel.cu"
 
 SeedBlock = Tuple[int, int, int, int, int]
 
@@ -89,11 +74,14 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig):
+def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None):
     """ONE sample's trajectory over [h, W] tensors: ``trace_tile_sample``
     term for term. ``sc`` holds per-sphere Python floats (exact f32 values)
     with the f32 products ``rad * rad`` and ``py - rad`` precomputed, since
-    a product of two Python floats would be taken in double."""
+    a product of two Python floats would be taken in double. A list given as
+    ``tape`` receives one (hit, sphere index, throughput, emission, albedo)
+    entry a bounce, the throughput as it was before the bounce: the forward
+    tape of the gradient kernels' reverse sweep (``ops/grad_kernel.py``)."""
     zeros = torch.zeros_like(rows)
     spb = cfg.slots_per_bounce
     push = cfg.push_ray_origin
@@ -133,10 +121,11 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig):
 
         t_best = torch.full_like(rows, T_BIG)
         hit = torch.zeros_like(active)
+        s_idx = torch.zeros_like(rows, dtype=torch.int64)
         s_p = [zeros, zeros, zeros]
         s_e = [zeros, zeros, zeros]
         s_c = [zeros, zeros, zeros]
-        for s in sc:
+        for i, s in enumerate(sc):
             rel_x, rel_y, rel_z = s["px"] - ox, s["py"] - oy, s["pz"] - oz
             tca = _dot3(rel_x, rel_y, rel_z, dnx, dny, dnz)
             qx, qy, qz = rel_x - tca * dnx, rel_y - tca * dny, rel_z - tca * dnz
@@ -150,6 +139,8 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig):
             closer = (det >= 0.0) & (t > 0.0) & (t < T_BIG) & (t < t_best)
             t_best = torch.where(closer, t, t_best)
             hit = hit | closer
+            if tape is not None:
+                s_idx = torch.where(closer, i, s_idx)
             s_p = [torch.where(closer, s[k], x) for k, x in zip(("px", "py", "pz"), s_p)]
             s_e = [torch.where(closer, s[k], x) for k, x in zip(("er", "eg", "eb"), s_e)]
             s_c = [torch.where(closer, s[k], x) for k, x in zip(("cr", "cg", "cb"), s_c)]
@@ -191,6 +182,8 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig):
             e = [x + m * dl * lt[k] * sc_ for x, m, k, sc_ in
                  zip(e, mask, ("er", "eg", "eb"), s_c)]
         col = [cc + torch.where(hit_now, x, zeros) for cc, x in zip(col, e)]
+        if tape is not None:
+            tape.append((hit_now, s_idx, mask, s_e, s_c))
         mask = [torch.where(hit_now, m * c_, m) for m, c_ in zip(mask, s_c)]
 
         if bounce == 0:
@@ -279,35 +272,52 @@ def _luma(x, y, z):
     return LUMA[0] * x + LUMA[1] * y + LUMA[2] * z
 
 
+class PlainLattice:
+    """What the plain versions of the kernels share for one launch: the
+    per-sphere scalars, eye and corner rays, the absolute pixel coordinates
+    [local_h, W] of the slab and its keys on the lattice, on ``device``
+    (default: the blocks')."""
+
+    def __init__(self, scene_block, cam_block, seed: SeedBlock, cfg: RenderConfig,
+                 local_h: int, device=None):
+        dev = scene_block.device if device is None else torch.device(device)
+        self.sc = _scene_scalars(scene_block)
+        cam = cam_block.detach().to("cpu", torch.float32).numpy()
+        self.eye = [float(x) for x in cam[0]]
+        self.basis = [[float(x) for x in b] for b in cam[1:5]]
+        seed_v, frame, self.sample_offset, row_offset, col_offset = seed
+        rows_i = torch.arange(local_h, device=dev)[:, None] + row_offset
+        cols_i = torch.arange(cfg.width, device=dev)[None, :] + col_offset
+        rows_i, cols_i = torch.broadcast_tensors(rows_i, cols_i)
+        self.rows, self.cols = rows_i.to(torch.float32), cols_i.to(torch.float32)
+        self.pix_key = rng.pixel_keys(local_h, cfg.width, row_offset, col_offset, device=dev)
+        self.bkey = rng.base_key(seed_v, frame, device=dev)
+        self.n_slots = rng.JITTER_SLOTS + cfg.slots_per_bounce * cfg.max_bounces
+
+    def sample(self, s: int, cfg: RenderConfig, tape=None):
+        """``_sample_plain`` of the launch's sample ``s`` (sample offset
+        added)."""
+        s_u = self.sample_offset + s
+
+        def draw(slot):
+            return rng.uniform_from_keys(self.pix_key,
+                                         rng.draw_key(self.bkey, s_u, slot, self.n_slots))
+
+        return _sample_plain(self.sc, self.eye, self.basis, self.rows, self.cols, draw, cfg,
+                             tape)
+
+
 def trace_plain(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
                 cfg: RenderConfig, *, local_h: int, spp: int, mode: str,
                 device=None) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on ``device`` (default: the
     blocks') -> [local_h, W, C] float32 (C from ``mode``)."""
-    dev = scene_block.device if device is None else torch.device(device)
-    sc = _scene_scalars(scene_block)
-    cam = cam_block.detach().to("cpu", torch.float32).numpy()
-    eye = [float(x) for x in cam[0]]
-    basis = [[float(x) for x in b] for b in cam[1:5]]
-    seed_v, frame, sample_offset, row_offset, col_offset = seed
-    rows_i = torch.arange(local_h, device=dev)[:, None] + row_offset
-    cols_i = torch.arange(cfg.width, device=dev)[None, :] + col_offset
-    rows_i, cols_i = torch.broadcast_tensors(rows_i, cols_i)
-    rows, cols = rows_i.to(torch.float32), cols_i.to(torch.float32)
-    pix_key = rng.pixel_keys(local_h, cfg.width, row_offset, col_offset, device=dev)
-    bkey = rng.base_key(seed_v, frame, device=dev)
-    n_slots = rng.JITTER_SLOTS + cfg.slots_per_bounce * cfg.max_bounces
-
-    zeros = torch.zeros_like(rows)
+    lat = PlainLattice(scene_block, cam_block, seed, cfg, local_h, device)
+    zeros = torch.zeros_like(lat.rows)
     sums = [zeros] * 10
     w = [_Welford(zeros) for _ in range(4)]
     for s in range(spp):
-        s_u = sample_offset + s
-
-        def draw(slot, s_u=s_u):
-            return rng.uniform_from_keys(pix_key, rng.draw_key(bkey, s_u, slot, n_slots))
-
-        col, fn, fa, f_d, hit0, active = _sample_plain(sc, eye, basis, rows, cols, draw, cfg)
+        col, fn, fa, f_d, hit0, active = lat.sample(s, cfg)
         sums = [a + b for a, b in zip(sums, col + fn + fa + [f_d])]
         if mode == "color":
             continue
@@ -328,38 +338,14 @@ def trace_plain(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBl
 
 # -- the CUDA kernel -----------------------------------------------------------
 
-def find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        candidate = os.path.join(home, "bin", "nvcc")
-        nvcc = candidate if os.path.exists(candidate) else None
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return nvcc
-
-
-def build_library() -> Path:
-    """Compile ``csrc/trace_kernel.cu`` into a shared library named by the
-    hash of its source and flags; reuse it when it already exists."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libtrace_kernel-{digest}.so"
-    if lib.exists():
-        return lib
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+def host_arrays(scene_block, cam_block, seed: SeedBlock):
+    """A launch's by-value inputs as contiguous host arrays: scene [N, 10] and
+    camera [5, 3] float32, seed [5] uint32. The kernels copy them into their
+    parameter struct: host blocks cost no device round trip, device blocks
+    are read back first."""
+    return (np.ascontiguousarray(scene_block.detach().cpu().numpy(), np.float32),
+            np.ascontiguousarray(cam_block.detach().cpu().numpy(), np.float32),
+            np.array([x & 0xFFFFFFFF for x in seed], np.uint32))
 
 
 class CudaTraceKernel:
@@ -373,29 +359,21 @@ class CudaTraceKernel:
 
     def _function(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.pt_trace_launch
-            fn.argtypes = [
+            self._lib, self._fn = load_function(SOURCE, "pt_trace_launch", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            self._lib, self._fn = lib, fn
+            ])
         return self._fn
 
     def launch(self, scene_block, cam_block, seed: SeedBlock, cfg: RenderConfig, *,
                local_h: int, spp: int, mode: str, device: torch.device) -> torch.Tensor:
         """Launch on the current stream of ``device`` -> [local_h, W, C]
-        float32 (asynchronous, like any CUDA op). The blocks are copied into
-        the by-value parameter struct: host blocks cost no device
-        round trip, device blocks are read back first."""
+        float32 (asynchronous, like any CUDA op)."""
         fn = self._function()
-        scene_np = np.ascontiguousarray(scene_block.detach().cpu().numpy(), np.float32)
-        cam_np = np.ascontiguousarray(cam_block.detach().cpu().numpy(), np.float32)
-        seed_np = np.array([x & 0xFFFFFFFF for x in seed], np.uint32)
+        scene_np, cam_np, seed_np = host_arrays(scene_block, cam_block, seed)
         n_ch = MODES[mode]
         out = torch.empty((local_h, cfg.width, n_ch), dtype=torch.float32, device=device)
         with torch.cuda.device(device):
@@ -417,9 +395,8 @@ class CudaTraceKernel:
 CUDA_KERNEL = CudaTraceKernel()
 
 
-def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, mode):
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+def check_blocks(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp):
+    """Raise ValueError on blocks, seed or sizes that no kernel takes."""
     for name, t, cols in (("scene", scene_block, 10), ("camera", cam_block, 3)):
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != cols:
             raise ValueError(f"{name} block must be float32 [*, {cols}], got "
@@ -449,7 +426,9 @@ def trace(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
     """The kernel wrapper -> [local_h, W, C] float32 on ``device`` (default:
     the blocks' device). CPU: the plain version. CUDA: the kernel, or an
     exception."""
-    _check(scene_block, cam_block, seed, cfg, local_h, spp, mode)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    check_blocks(scene_block, cam_block, seed, cfg, local_h, spp)
     dev = scene_block.device if device is None else torch.device(device)
     if dev.type == "cpu":
         return trace_plain(scene_block, cam_block, seed, cfg, local_h=local_h, spp=spp,
@@ -506,7 +485,7 @@ def agreement(got: torch.Tensor, ref: torch.Tensor, mode: str, spp: int):
 
 # -- entry points (the JAX package's signatures, plus a device) ---------------
 
-def _blocks(scene, cam, cfg, device):
+def host_blocks(scene, cam, cfg, device):
     """(scene block, camera block, device): the blocks are built on the host,
     since the kernel takes them by value."""
     device = scene.device if device is None else torch.device(device)
@@ -516,7 +495,7 @@ def _blocks(scene, cam, cfg, device):
 
 def render_channels(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:
     """Render via the kernel -> packed [H, W, 14] buffer."""
-    sb, cb, device = _blocks(scene, cam, cfg, device)
+    sb, cb, device = host_blocks(scene, cam, cfg, device)
     return trace(sb, cb, make_seed_block(cfg, frame), cfg, local_h=cfg.height,
                  spp=cfg.spp, mode="channels", device=device)
 
@@ -529,7 +508,7 @@ def render_color_sums(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_
                       spp=None, sample_offset=0, device=None) -> torch.Tensor:
     """RAW colour sums [local_h, W, 3] over samples [sample_offset,
     sample_offset + spp) of rows [row_offset, row_offset + local_h)."""
-    sb, cb, device = _blocks(scene, cam, cfg, device)
+    sb, cb, device = host_blocks(scene, cam, cfg, device)
     return trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                  local_h=cfg.height if local_h is None else local_h,
                  spp=cfg.spp if spp is None else spp, mode="color", device=device)
@@ -555,7 +534,7 @@ def accumulate_frame_kernel(scene, cam, cfg: RenderConfig, frame, row_offset=0,
                             local_h=None, spp=None, sample_offset=0, device=None):
     """Kernel slab pass -> (sums, moments) partials: rows [row_offset,
     row_offset + local_h), samples [sample_offset, sample_offset + spp)."""
-    sb, cb, device = _blocks(scene, cam, cfg, device)
+    sb, cb, device = host_blocks(scene, cam, cfg, device)
     out = trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                 local_h=cfg.height if local_h is None else local_h,
                 spp=cfg.spp if spp is None else spp, mode="partials", device=device)
