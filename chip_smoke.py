@@ -3,12 +3,13 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs eight phases, each printing its own lines; any failure raises and
+and runs twelve phases, each printing its own lines; any failure raises and
 exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
    and Triton versions.
-2. A clean build of the kernel libraries (trace and grad), timed.
+2. A clean build of the four kernel libraries (trace, grad, NEE grad and
+   the f32 probes), timed.
 3. The trace kernel against its plain PyTorch version on the card, at
    128x64 and 4 spp with row and sample offsets, for diffuse, NEE and glossy
    in the 14-, 22- and 3-channel modes. Every channel is held to the rules
@@ -52,6 +53,56 @@ exits non-zero.
    loss and gradients as sums), so the kernels are also checked at the main
    paths' shapes, where the second pass sums thousands of block partials.
    The kernels line's max_abs_err is the largest of phases 6 and 8.
+9. The NEE grad kernel against its plain versions on the card at 128x64 and
+   4 spp, also at row offset 16 and sample offset 5, under
+   ``nee_grad_kernel.agreement``: every gradient sum within rtol 1e-4 plus
+   1e-6 of the largest of its kind, colour under the colour rule. Then:
+   the replay against the MSE cotangent equals fused (rtol 1e-4 plus 1e-4
+   of the largest of the kind: another order of operations on sums that
+   cancel); two fused launches give the same bits; the fused colour equals
+   the trace kernel's NEE colour bit for bit; and a 32-spp replay, 160
+   Kahan-compensated adds a geometry slot, must equal its plain version to
+   the bit: the compiler kept the compensation as written.
+10. The NEE gradient path at full size, launch counts set to 0 before each
+   part and read after: (a) ``grad.render_loss_grads`` at 512x512x32 spp
+   with NEE: exactly one fused launch, loss equal to the MSE of the trace
+   kernel's colour (rtol 1e-4), non-zero position, radius and camera
+   gradients; (b) the geometry recovery of scripts/inverse_demo.py through
+   ``inverse.make_inverse_step``: 256x256, 16 spp, NEE, 400 Adam steps,
+   sphere 6 displaced by (6, -4, 8) and shrunk 20%, learning rates 0.5 and
+   0.1 decaying to x0.02, gradients masked to sphere 6, target at 64 spp;
+   every step must launch the trace kernel twice and the NEE replay twice.
+   The case's target, radius and whole position error both below 70% of
+   their start, is printed as MET or NOT MET and does not stop the run:
+   along the view axis (z) this estimator, whose silhouette terms are
+   zero, does not pull the sphere back, on the kernel route and on
+   autograd through the wavefront alike (PERF.md). What stops the run: the
+   radius error or the position error across the view (x, y) not below
+   70% of its start, a masked sphere that moved, a non-finite loss, or a
+   whole position error more than a quarter above its start (a recovery
+   that diverges).
+11. The probe kernel's two probes against their plain versions: all six
+   modes at 1 chain and FMA and multiply at 8 chains on varied inputs for
+   64 steps, then at the shapes of the readings: FMA and multiply at 8
+   chains on 16.8 M elements for 8,192 steps, ``fma`` at 1 chain on 8,192
+   elements for 1,048,576 steps (the other five modes there for 2,048
+   steps); within 1e-6 of the largest value. The plain runs at full depth
+   are timed: the kernels line's ``plain_ms`` is for the kernel's own
+   work. Then the card's readings through ``roofline.measure_f32_peak``
+   and ``roofline.latency_probe``, then one line a kernel: time, launches
+   on its main path, bound and share of it. A bound is traced segments
+   (``roofline.count_segments``) x counted operations a segment (a
+   multiply and an add count as two) over the card's published f32 peak,
+   67 TFLOP/s with a fused multiply-add as two, or bytes over 3.35 TB/s,
+   whichever gives more. ``bound_ms_unfused_measured`` is the same count
+   over the multiply-only rate the probe measured in this run: the least
+   time for a build without FMA contraction, which these kernels are.
+12. Timing of the NEE grad kernel (fused and replay at 512x512x32, the
+   cross-estimator and the whole NEE inverse step at 256x256x16) against
+   the plain versions, each last kernel output held against the last plain
+   one under phase 9's rules; the trace kernel's NEE colour pass beside
+   them; and ``torch.profiler`` device times by kernel over 20 NEE inverse
+   steps.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -373,6 +424,404 @@ def grad_phase_8(dev, scene, cam, gk, tk):
     return out, err
 
 
+# ---- the NEE gradient path (phases 9, 10, 12) and the probes (phase 11) ------------
+
+PUBLISHED_F32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, FMA counted as 2
+PUBLISHED_BYTES_PER_S = 3.35e12
+NEE_INVERSE_STEPS = 400
+
+
+def nee_compare(label, got, ref, kind, cross=False):
+    """Hold ``got`` against ``ref`` under ``nee_grad_kernel.agreement`` (its
+    looser ``CROSS_ATOL`` where two orders of operations meet), print one
+    line per check and raise on a breach. -> max |diff|."""
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+    checks, max_err = nk.agreement(got, ref, kind, nk.CROSS_ATOL if cross else nk.SUMS_ATOL)
+    line = ", ".join(f"{name} {share:.4f}" for name, share, _, _ in checks)
+    print(f"  {label}: shares out of tolerance: {line}; max |diff| {max_err:.6g}")
+    failed = [name for name, _, _, ok in checks if not ok]
+    if failed:
+        raise RuntimeError(f"disagreement: {label}: {failed}")
+    return max_err
+
+
+def nee_phase_9(dev, scene, cam, nk, tk):
+    """The NEE grad kernel against its plain versions and its modes against
+    each other. -> {mode: max |kernel - plain|}."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig
+
+    phase(9, "NEE grad kernel vs plain on the card (128x64, 4 spp; also at row offset 16, "
+             "sample offset 5; replay at 32 spp to the bit)")
+    sb = scene.packed()
+    target = torch.from_numpy(
+        np.random.default_rng(0).uniform(size=(64, 128, 3)).astype(np.float32)).to(dev)
+    err = {"fused": 0.0, "replay": 0.0}
+    for height, seed_args in ((64, (3,)), (96, (0, 5, 16))):
+        cfg = RenderConfig(width=128, height=height, spp=4, nee=True)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg, *seed_args)
+        kw = dict(local_h=64, spp=4, device=dev)
+        tag = "" if height == 64 else " @offsets"
+        before = nk.CUDA_KERNEL.launches["fused"]
+        fused_sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
+        torch.cuda.synchronize()
+        if nk.CUDA_KERNEL.launches["fused"] != before + 1:
+            raise RuntimeError("the NEE fused launch counter did not move")
+        ref, ref_color = nk.fused_plain(sb, cb, seed, cfg, target, **kw)
+        err["fused"] = max(err["fused"],
+                           nee_compare(f"fused{tag}/sums", fused_sums, ref, "sums"),
+                           nee_compare(f"fused{tag}/colour", color, ref_color, "color"))
+        ct = (2.0 * (color - target) / cfg.spp).contiguous()
+        replayed = nk.replay(sb, cb, seed, cfg, ct, **kw)
+        torch.cuda.synchronize()
+        err["replay"] = max(err["replay"], nee_compare(
+            f"replay{tag}/sums", replayed, nk.replay_plain(sb, cb, seed, cfg, ct, **kw), "sums"))
+        nee_compare(f"replay (MSE cotangent) vs fused{tag}",
+                    torch.cat([replayed[:-1], fused_sums[-1:]]), fused_sums, "sums", cross=True)
+        if height == 64:
+            k1 = tk.trace(sb, cb, seed, cfg, mode="color", **kw)
+            if not torch.equal(color, k1 * tk._f32(1.0 / cfg.spp)):
+                raise RuntimeError("the fused colour is not the trace kernel's")
+            print("  fused colour == trace kernel's NEE colour sums / spp: identical bits")
+            again, _ = nk.fused(sb, cb, seed, cfg, target, **kw)
+            if not torch.equal(again, fused_sums):
+                raise RuntimeError("two NEE fused launches gave different bits")
+            print("  fused, launched twice: identical bits")
+
+    cfg = RenderConfig(width=128, height=64, spp=32, nee=True)
+    cb = tk.camera_block(cam, cfg)
+    seed = tk.make_seed_block(cfg, 3)
+    kw = dict(local_h=64, spp=32, device=dev)
+    ct = ((target - 0.5) / 32).contiguous()
+    got = nk.replay(sb, cb, seed, cfg, ct, **kw)
+    ref = nk.replay_plain(sb, cb, seed, cfg, ct, **kw)
+    err["replay"] = max(err["replay"], nee_compare("replay 32 spp/sums", got, ref, "sums"))
+    if not torch.equal(got, ref):
+        raise RuntimeError("the 32-spp replay is not its plain version to the bit: was the "
+                           "Kahan compensation compiled away?")
+    print("  replay 32 spp == plain version: identical bits (the compensation survived)")
+    return err
+
+
+def nee_phase_10(dev, scene, cam, gk, nk, tk):
+    """The NEE gradient path at full size through the user entry points.
+    -> ({mode: launches}, geometry errors)."""
+    import dataclasses
+
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, grad, inverse, render_aovs
+    from pathtrace_tpu_torch.scene import Scene
+
+    def zero_counts():
+        tk.CUDA_KERNEL.launches = 0
+        for k in (gk, nk):
+            for mode in k.MODES:
+                k.CUDA_KERNEL.launches[mode] = 0
+
+    phase(10, f"NEE gradient path at full size on cuda:0: (a) fused loss+grads 512x512x32; "
+              f"(b) geometry recovery 256x256, 16 spp, {NEE_INVERSE_STEPS} Adam steps")
+    pos_true, rad_true = scene.position.numpy(), scene.radius.numpy()
+    bad_pos, bad_rad = pos_true.copy(), rad_true.copy()
+    bad_pos[6] += np.array([6.0, -4.0, 8.0], np.float32)
+    bad_rad[6] *= 0.8
+    corrupted = Scene(bad_rad, bad_pos, scene.emission, scene.color)
+    launches = {}
+
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
+    target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                         device=dev)["color"]
+    zero_counts()
+    loss, (d_scene, d_cam) = grad.render_loss_grads(corrupted, cam, cfg, 0, target, device=dev)
+    torch.cuda.synchronize()
+    launches["fused"] = nk.CUDA_KERNEL.launches["fused"]
+    print(f"(a) launches: NEE fused {launches['fused']}, NEE replay "
+          f"{nk.CUDA_KERNEL.launches['replay']}, trace {tk.CUDA_KERNEL.launches}, "
+          f"product-chain {sum(gk.CUDA_KERNEL.launches.values())}")
+    if (launches["fused"], nk.CUDA_KERNEL.launches["replay"], tk.CUDA_KERNEL.launches,
+            sum(gk.CUDA_KERNEL.launches.values())) != (1, 0, 0, 0):
+        raise RuntimeError("render_loss_grads under NEE is not exactly one fused launch")
+    color = tk.render_color_sums(corrupted, cam, cfg, 0, device=dev) / cfg.spp
+    mse = torch.mean((color - target) ** 2)
+    print(f"(a) loss {float(loss):.8f}, MSE of the trace kernel's colour {float(mse):.8f}")
+    if abs(float(loss) - float(mse)) > 1e-4 * abs(float(mse)):
+        raise RuntimeError("the NEE fused loss is not the MSE of the rendered colour")
+    for name, g in (("d position", d_scene.position), ("d radius", d_scene.radius),
+                    ("d emission", d_scene.emission), ("d albedo", d_scene.color),
+                    ("d eye", d_cam.position), ("d yaw", d_cam.yaw), ("d pitch", d_cam.pitch)):
+        print(f"(a) {name}: max |g| {float(g.abs().max()):.6g}")
+        if g.device != dev or not torch.isfinite(g).all() or not float(g.abs().max()) > 0:
+            raise RuntimeError(f"{name} is not finite and non-zero on {dev}")
+
+    cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
+    zero_counts()
+    target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                         device=dev)["color"]
+    torch.cuda.synchronize()
+    tk.CUDA_KERNEL.launches = 0
+    pos_mask = torch.zeros(9, 1)
+    pos_mask[6] = 1.0
+    rad_mask = torch.zeros(9)
+    rad_mask[6] = 1.0
+    rates = {"position": inverse.exponential_decay(0.5, NEE_INVERSE_STEPS, 0.02),
+             "radius": inverse.exponential_decay(0.1, NEE_INVERSE_STEPS, 0.02)}
+    state, step_fn, _ = inverse.make_inverse_step(
+        corrupted, cam, cfg, target, ("position", "radius"), rates,
+        grad_mask={"position": pos_mask, "radius": rad_mask}, device=dev)
+    losses, step_ms = [], []
+    for i in range(NEE_INVERSE_STEPS):
+        before = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"])
+        t_step = time.perf_counter()
+        state, loss = step_fn(state)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t_step))
+        after = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"])
+        if (after[0] - before[0], after[1] - before[1]) != (2, 2):
+            raise RuntimeError(f"NEE inverse step {i} launched trace {after[0] - before[0]} and "
+                               f"replay {after[1] - before[1]} times, not 2 and 2")
+    launches["replay"] = nk.CUDA_KERNEL.launches["replay"]
+    launches["trace"] = tk.CUDA_KERNEL.launches
+    others = nk.CUDA_KERNEL.launches["fused"] + sum(gk.CUDA_KERNEL.launches.values())
+    print(f"(b) launches: trace {launches['trace']}, NEE replay {launches['replay']}, "
+          f"others {others}")
+    if others:
+        raise RuntimeError("the NEE inverse step launched another gradient kernel")
+    rec = inverse.apply_params(corrupted.to(dev), state.params)
+    pos_rec, rad_rec = rec.position.detach().cpu().numpy(), rec.radius.detach().cpu().numpy()
+    off_start, off_end = bad_pos[6] - pos_true[6], pos_rec[6] - pos_true[6]
+    errs = {"position": (float(np.linalg.norm(off_start)), float(np.linalg.norm(off_end))),
+            "position across the view (x, y)": (float(np.linalg.norm(off_start[:2])),
+                                                float(np.linalg.norm(off_end[:2]))),
+            "radius": (float(abs(bad_rad[6] - rad_true[6])),
+                       float(abs(rad_rec[6] - rad_true[6])))}
+    frozen = np.arange(9) != 6
+    if not (np.array_equal(pos_rec[frozen], pos_true[frozen])
+            and np.array_equal(rad_rec[frozen], rad_true[frozen])):
+        raise RuntimeError("a masked sphere moved")
+    print(f"(b) loss {losses[0]:.6f} (step 1) -> {losses[-1]:.6f} (step {NEE_INVERSE_STEPS}); "
+          f"sphere 6 position error {errs['position'][0]:.3f} -> {errs['position'][1]:.3f} "
+          f"(offset {np.round(off_start, 2).tolist()} -> {np.round(off_end, 2).tolist()}), "
+          f"radius error {errs['radius'][0]:.3f} -> {errs['radius'][1]:.3f}")
+    print(f"(b) host-clock step: first {step_ms[0]:.3f} ms, median "
+          f"{statistics.median(step_ms):.3f} ms, {NEE_INVERSE_STEPS} steps "
+          f"{sum(step_ms):.1f} ms")
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError("an NEE inverse step gave a non-finite loss")
+    met = all(errs[k][1] < 0.7 * errs[k][0] for k in ("position", "radius"))
+    print(f"(b) the case's target (position and radius errors both below x0.7 of their start): "
+          f"{'MET' if met else 'NOT MET'}: position "
+          f"x{errs['position'][1] / errs['position'][0]:.3f}, radius "
+          f"x{errs['radius'][1] / errs['radius'][0]:.3f}; offset along the view axis "
+          f"{off_start[2]:.2f} -> {off_end[2]:.2f}")
+    for name, (start, end) in errs.items():
+        limit = 1.25 if name == "position" else 0.7
+        print(f"(b) {name} error: {end:.3f} against {start:.3f}, x{end / start:.3f} "
+              f"(the run stops at x{limit})")
+        if not end < limit * start:
+            raise RuntimeError(f"{name} error {end:.3f} is not below {limit} x {start:.3f}")
+    return launches, errs
+
+
+def probe_phase_11(dev, rf):
+    """The probe kernel against its plain version, then the card's readings.
+    -> (peaks, latencies, {probe: record})."""
+    import torch
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(11, "f32 probes vs plain on the card, then the readings")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((1.0 + 0.1 * rng.uniform(size=(64, 128))).astype(np.float32)).to(dev)
+    a = torch.from_numpy((0.9999 + 1e-4 * rng.uniform(size=(64, 128))).astype(np.float32)).to(dev)
+    err = {"peak": 0.0, "latency": 0.0}
+
+    def held(probe, label, got, ref):
+        d = float((got - ref).abs().max())
+        tol = 1e-6 * float(ref.abs().max())
+        print(f"  {label}: max |diff| {d:.3g} (<= {tol:.3g}) {'ok' if d <= tol else 'FAIL'}")
+        if not d <= tol:
+            raise RuntimeError(f"probe kernel disagrees with its plain version: {label}")
+        err[probe] = max(err[probe], d)
+
+    for mode in rf.LATENCY_MODES:
+        held("latency", f"latency[{mode}] 1 chain, 64 steps, varied inputs",
+             rf.latency_chain(x, a, mode, 2), rf.chain_plain(x, a, mode, 2, 1))
+    for fma in (True, False):
+        held("peak", f"peak[{'fma' if fma else 'mul'}] 8 chains, 64 steps, varied inputs",
+             rf.peak_chain(x, a, fma, 2),
+             rf.chain_plain(x, a, "fma" if fma else "mul", 2, rf.PEAK_CHAINS))
+
+    # At the shapes of the readings, on their inputs: the kernel (median of 3
+    # timed launches) and the plain version of the same work (one timed run).
+    def at_depth(probe, mode, xs, as_, iters, chains):
+        if probe == "peak":
+            kernel_fn = lambda: rf.peak_chain(xs, as_, mode == "fma", iters)  # noqa: E731
+        else:
+            kernel_fn = lambda: rf.latency_chain(xs, as_, mode, iters)  # noqa: E731
+        ms, got = time_fn(kernel_fn, warmup=1, iters=3, device=dev)
+        pms, ref = time_fn(lambda: rf.chain_plain(xs, as_, mode, iters, chains), warmup=0,
+                           iters=1, device=dev)
+        held(probe, f"{probe}[{mode}] {chains} chain(s), {xs.numel()} elements, "
+                    f"{iters * rf.INNER} steps (kernel {statistics.median(ms):.4f} ms, plain "
+                    f"{pms[0]:.1f} ms)", got, ref)
+        return statistics.median(ms), pms[0]
+
+    rec = {}
+    xs, as_ = rf.probe_inputs(rf.PEAK_GRID * 64, dev)
+    for mode in ("fma", "mul"):
+        ms, pms = at_depth("peak", mode, xs, as_, rf.PEAK_ITERS, rf.PEAK_CHAINS)
+        if mode == "fma":
+            flops = 2.0 * xs.numel() * rf.PEAK_ITERS * rf.INNER * rf.PEAK_CHAINS
+            rec["peak"] = dict(ms=ms, plain_ms=pms, ops_ms=1e3 * flops / PUBLISHED_F32_FLOPS,
+                               bytes_ms=1e3 * 12.0 * xs.numel() / PUBLISHED_BYTES_PER_S)
+    xs, as_ = rf.probe_inputs(rf.LATENCY_GRID * 8, dev)
+    for mode in rf.LATENCY_MODES:
+        full = mode == "fma"  # the timed row; a plain run at full depth takes a minute
+        ms, pms = at_depth("latency", mode, xs, as_, rf.LATENCY_ITERS if full else 64, 1)
+        if full:
+            flops = 2.0 * xs.numel() * rf.LATENCY_ITERS * rf.INNER
+            rec["latency"] = dict(ms=ms, plain_ms=pms, ops_ms=1e3 * flops / PUBLISHED_F32_FLOPS,
+                                  bytes_ms=1e3 * 12.0 * xs.numel() / PUBLISHED_BYTES_PER_S)
+
+    for k in rf.CUDA_KERNEL.launches:
+        rf.CUDA_KERNEL.launches[k] = 0
+    peaks = rf.measure_f32_peak(device=dev)
+    lat = rf.latency_probe(device=dev)
+    launches = dict(rf.CUDA_KERNEL.launches)
+    print(f"f32 peak: FMA {peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s (2 a step), multiply "
+          f"only {peaks['peak_mul_flops'] / 1e12:.3f} T operations/s; published "
+          f"{PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s")
+    print("dependent-chain latency, ns a step: "
+          + ", ".join(f"{m} {lat[m]:.3f}" for m in rf.LATENCY_MODES))
+    print(f"launches: {launches}")
+    for probe, v in rec.items():
+        v.update(launches=launches[probe], err=err[probe])
+        if v["launches"] < 1:
+            raise RuntimeError("a probe's entry point did not launch its kernel")
+    return peaks, lat, rec
+
+
+def plain_nee_cross_grads(nk, tk, scene, cam, cfg, step, target, device):
+    """``grad_kernel.cross_grads`` under NEE with the plain versions."""
+    import torch
+
+    sb, cb, _ = tk.host_blocks(scene, cam, cfg, device)
+    kw = dict(local_h=cfg.height, spp=cfg.spp, device=device)
+    seeds = [tk.make_seed_block(cfg, 2 * step + k) for k in (0, 1)]
+    a, b = (tk.trace_plain(sb, cb, sd, cfg, mode="color", **kw) / cfg.spp for sd in seeds)
+    ra, rb = a - target, b - target
+    denom = a.numel()
+    sums = (nk.replay_plain(sb, cb, seeds[0], cfg, (rb / denom / cfg.spp).contiguous(), **kw)
+            + nk.replay_plain(sb, cb, seeds[1], cfg, (ra / denom / cfg.spp).contiguous(), **kw))
+    return torch.cat([sums[:-1], (torch.sum(ra * rb) / denom)[None]])
+
+
+def nee_phase_12(dev, scene, cam, gk, nk, tk):
+    """Kernel and plain times of the NEE grad kernel at the path's shapes,
+    each last output held against its plain version's. -> (times, errors)."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, inverse
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(12, f"NEE grad timing (kernel: median of {2 * TIMING_ITERS} CUDA-event-timed runs; "
+              f"plain: 2 single runs; turns plain, kernel, kernel, plain)")
+    sb = scene.packed()
+    out, err = {}, {"fused": 0.0, "replay": 0.0}
+
+    def turns(label, kernel_fn, plain_fn):
+        ms = {"kernel": [], "plain": []}
+        last = {}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            if name == "kernel":
+                t, last[name] = time_fn(kernel_fn, warmup=2, iters=TIMING_ITERS, device=dev)
+            else:
+                t, last[name] = time_fn(plain_fn, warmup=0, iters=1, device=dev)
+            ms[name].extend(t)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        print(f"{label}: kernel {med['kernel']:.4f} ms (runs {min(ms['kernel']):.4f}.."
+              f"{max(ms['kernel']):.4f}), plain {med['plain']:.1f} ms, plain/kernel "
+              f"{med['plain'] / med['kernel']:.1f}")
+        return med, last["kernel"], last["plain"]
+
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
+    cb = tk.camera_block(cam, cfg)
+    seed = tk.make_seed_block(cfg)
+    target = torch.full((512, 512, 3), 0.25, device=dev)
+    ct = torch.full((512, 512, 3), 1e-6, device=dev)
+    kw = dict(local_h=512, spp=32, device=dev)
+    ms, _ = time_fn(lambda: tk.trace(sb, cb, seed, cfg, mode="color", **kw), warmup=2,
+                    iters=2 * TIMING_ITERS, device=dev)
+    out["color_nee", "kernel"] = statistics.median(ms)
+    print(f"trace kernel, NEE colour sums 512x512x32 spp x5: {out['color_nee', 'kernel']:.4f} ms "
+          f"(runs {min(ms):.4f}..{max(ms):.4f})")
+    label = "NEE fused 512x512x32 spp x5"
+    med, got, ref = turns(label, lambda: nk.fused(sb, cb, seed, cfg, target, **kw),
+                          lambda: nk.fused_plain(sb, cb, seed, cfg, target, **kw))
+    err["fused"] = max(err["fused"], nee_compare(f"{label}/sums", got[0], ref[0], "sums"),
+                       nee_compare(f"{label}/colour", got[1], ref[1], "color"))
+    out["fused", "kernel"], out["fused", "plain"] = med["kernel"], med["plain"]
+    label = "NEE replay 512x512x32 spp x5"
+    med, got, ref = turns(label, lambda: nk.replay(sb, cb, seed, cfg, ct, **kw),
+                          lambda: nk.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    err["replay"] = max(err["replay"], nee_compare(f"{label}/sums", got, ref, "sums"))
+    out["replay", "kernel"], out["replay", "plain"] = med["kernel"], med["plain"]
+    print(f"the trace kernel's colour pass plus one replay launch: "
+          f"{out['color_nee', 'kernel'] + out['replay', 'kernel']:.4f} ms")
+
+    cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
+    target = torch.full((256, 256, 3), 0.25, device=dev)
+
+    def kernel_cross():
+        loss, d = gk.cross_grads(scene, cam, cfg, 0, target, device=dev)
+        return loss, d
+
+    label = "NEE cross-estimator loss+grads of one inverse step 256x256x16"
+    med, got, ref = turns(label, kernel_cross,
+                          lambda: plain_nee_cross_grads(nk, tk, scene, cam, cfg, 0, target, dev))
+    loss, d = got
+    n = scene.num_objects
+    flat = torch.cat([torch.cat([d["radius"][:, None], d["position"], d["emission"], d["color"]],
+                                dim=1).reshape(-1), ref[10 * n: 10 * n + 15], loss[None]])
+    err["replay"] = max(err["replay"], nee_compare(f"{label}/loss+grads", flat, ref, "sums"))
+    out["cross", "kernel"], out["cross", "plain"] = med["kernel"], med["plain"]
+    rates = {"position": inverse.exponential_decay(0.5, 400, 0.02),
+             "radius": inverse.exponential_decay(0.1, 400, 0.02)}
+    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target,
+                                                  ("position", "radius"), rates, device=dev)
+    ms, _ = time_fn(step_fn, state, warmup=2, iters=2 * TIMING_ITERS, device=dev)
+    out["step", "kernel"] = statistics.median(ms)
+    print(f"NEE inverse step 256x256x16 (kernel path, Adam included): "
+          f"{out['step', 'kernel']:.4f} ms (runs {min(ms):.4f}..{max(ms):.4f})")
+
+    # Device times by kernel over 20 steps; a profiler that sees no device
+    # time fails the run, since PERF.md's breakdown of the step reads this.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step_fn(state)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "#" not in e.key]  # no annotations
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    if not device_ms > 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    print(f"torch.profiler over {steps} NEE inverse steps: host wall {wall:.4f} ms a step "
+          f"(under the profiler), device {device_ms:.4f} ms a step; against the step's "
+          f"{out['step', 'kernel']:.4f} ms without the profiler the device is idle "
+          f"{1.0 - device_ms / out['step', 'kernel']:.3f} of a step")
+    for key, ms_ in rows[:6]:
+        print(f"  {ms_:.4f} ms a step  {key[:90]}")
+    return out, err
+
+
 def main() -> int:
     import torch
 
@@ -384,8 +833,10 @@ def main() -> int:
     from pathtrace_tpu_torch.io.exr import load_aovs_exr
     from pathtrace_tpu_torch.ops import build
     from pathtrace_tpu_torch.ops import grad_kernel as gk
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
     from pathtrace_tpu_torch.ops import trace_kernel as tk
     from pathtrace_tpu_torch.render import pack_channels
+    from pathtrace_tpu_torch.utils import roofline as rf
     from pathtrace_tpu_torch.utils.timing import mrays_per_sec, time_fn
 
     dev = torch.device("cuda", 0)
@@ -407,7 +858,7 @@ def main() -> int:
         print("triton: not installed")
 
     phase(2, "build")
-    sources = (tk.SOURCE, gk.SOURCE)
+    sources = (tk.SOURCE, gk.SOURCE, nk.SOURCE, rf.SOURCE)
     for src in sources:
         for old in build.BUILD_DIR.glob(f"lib{src.stem}-*.so"):
             old.unlink()
@@ -490,27 +941,81 @@ def main() -> int:
     grad_launches = grad_phase_7(dev, scene, cam, gk, tk)
     grad_times, grad_err_8 = grad_phase_8(dev, scene, cam, gk, tk)
 
-    kernels = [{
-        "name": "pathtrace_kernel",
-        "route": "cuda",
-        "source": "pathtrace_tpu_torch/csrc/trace_kernel.cu",
-        "replaces": "pathtrace_tpu/ops/pallas_trace.py:361",
-        "launches": launches,
-        "max_abs_err": worst_err,
-        "ms": statistics.median(times["kernel", 4]),
-        "plain_ms": statistics.median(times["plain", 4]),
-    }]
+    nee_err = nee_phase_9(dev, scene, cam, nk, tk)
+    nee_launches, _ = nee_phase_10(dev, scene, cam, gk, nk, tk)
+    peaks, _, probes = probe_phase_11(dev, rf)
+    nee_times, nee_err_12 = nee_phase_12(dev, scene, cam, gk, nk, tk)
+
+    # One line a kernel: its time at its main shape beside its bounds.
+    def frame_segments(width, spp, **extra):
+        return rf.count_segments(scene, cam, RenderConfig(width=width, height=width, spp=spp,
+                                                          **extra), 0, dev)
+
+    seg = {"512x4": frame_segments(512, 4), "512x32": frame_segments(512, 32),
+           "256x8": frame_segments(256, 8), "512x32 nee": frame_segments(512, 32, nee=True)}
+    for name, n_seg in seg.items():
+        print(f"traced segments, {name}: {n_seg}")
+    ops = rf.OPS_PER_SEGMENT
+    px512, px256 = 512 * 512, 256 * 256
+    # (name, source, replaces, launches, max err, ms, plain ms, segments,
+    #  operations a segment, bytes in + out)
+    rows = [
+        ("pathtrace_kernel", "trace_kernel.cu", "pathtrace_tpu/ops/pallas_trace.py:361",
+         launches, worst_err, statistics.median(times["kernel", 4]),
+         statistics.median(times["plain", 4]), seg["512x4"], ops["forward_diffuse"],
+         px512 * 14 * 4),
+    ]
+    grad_bytes = {"fused": px512 * 6 * 4, "dump": px256 * (3 + 54) * 4, "replay": px512 * 3 * 4}
     for mode, name, replaces in GRAD_KERNELS:
+        rows.append((name, "grad_kernel.cu", replaces, grad_launches[mode],
+                     max(grad_err[mode], grad_err_8[mode]), grad_times[mode, "kernel"],
+                     grad_times[mode, "plain"], seg["256x8" if mode == "dump" else "512x32"],
+                     ops["forward_diffuse"], grad_bytes[mode]))
+    rows += [
+        ("nee_grad_kernel[fused]", "nee_grad_kernel.cu",
+         "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["fused"],
+         max(nee_err["fused"], nee_err_12["fused"]), nee_times["fused", "kernel"],
+         nee_times["fused", "plain"], seg["512x32 nee"], ops["nee_grad_fused"],
+         px512 * 6 * 4),
+        ("nee_grad_kernel[replay]", "nee_grad_kernel.cu",
+         "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["replay"],
+         max(nee_err["replay"], nee_err_12["replay"]), nee_times["replay", "kernel"],
+         nee_times["replay", "plain"], seg["512x32 nee"], ops["color_nee"], px512 * 3 * 4),
+    ]
+    kernels = []
+    for (name, source, replaces, n_launch, max_err, ms, plain_ms, n_seg, ops_seg,
+         n_bytes) in rows:
+        ops_ms = rf.bound_ms(n_seg, ops_seg, PUBLISHED_F32_FLOPS)
+        bytes_ms = 1e3 * n_bytes / PUBLISHED_BYTES_PER_S
         kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "pathtrace_tpu_torch/csrc/grad_kernel.cu",
-            "replaces": replaces,
-            "launches": grad_launches[mode],
-            "max_abs_err": max(grad_err[mode], grad_err_8[mode]),
-            "ms": grad_times[mode, "kernel"],
-            "plain_ms": grad_times[mode, "plain"],
+            "name": name, "route": "cuda", "source": f"pathtrace_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": n_launch, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+            "bound_ms_unfused_measured": rf.bound_ms(n_seg, ops_seg, peaks["peak_mul_flops"]),
         })
+    for probe, replaces in (("peak", "pathtrace_tpu/utils/roofline.py:386"),
+                            ("latency", "scripts/fma_probe.py:115")):
+        r = probes[probe]
+        kernels.append({
+            "name": f"probe_kernel[{probe}]", "route": "cuda",
+            "source": "pathtrace_tpu_torch/csrc/probe_kernel.cu", "replaces": replaces,
+            "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
+            "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
+            "library_ms": None, "bound_ms_unfused_measured": None,
+        })
+    print(f"card: {smi}; bound = segments x operations a segment / the published "
+          f"{PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s (measured here: FMA "
+          f"{peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s); unfused = the same over the measured "
+          f"multiply-only rate {peaks['peak_mul_flops'] / 1e12:.3f} T/s")
+    for k in kernels:
+        unfused = k["bound_ms_unfused_measured"]
+        print(f"  {k['name']:26s} {k['ms']:10.4f} ms  launches {k['launches']:4d}  bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}  share of bound "
+              f"{k['bound_ms'] / k['ms']:.3f}"
+              + ("" if unfused is None else f"  (unfused {unfused:.4f} ms, share "
+                                            f"{unfused / k['ms']:.3f})"))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,12 @@ normal, albedo, depth means and four luminance variances) with a
 hand-written CUDA kernel (``csrc/trace_kernel.cu``) or a plain PyTorch
 wavefront, and writes EXR and bitmaps. It differentiates the render with
 respect to the scene and the camera (``grad.py``: hand-written CUDA
-gradient kernels, ``csrc/grad_kernel.cu``, for the diffuse estimator;
-autograd through the wavefront otherwise) and recovers scene parameters
-from a target image (``inverse.py``). It imports torch and numpy, never
-jax.
+gradient kernels for the diffuse estimators, ``csrc/grad_kernel.cu``
+without NEE and ``csrc/nee_grad_kernel.cu`` with it, geometry and camera
+gradients included; autograd through the wavefront otherwise) and recovers
+scene parameters from a target image (``inverse.py``).
+``utils/roofline.py`` measures the card's f32 peak and latencies
+(``csrc/probe_kernel.cu``). It imports torch and numpy, never jax.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
 // What the forward kernel (trace_kernel.cu) and the gradient kernels
-// (grad_kernel.cu) share: the parameter block, the random lattice, the
-// sphere test and one forward path segment.
+// (grad_kernel.cu, nee_grad_kernel.cu) share: the parameter block, the
+// random lattice, the sphere test, one forward path segment (with an
+// optional tape of what a reverse sweep cannot recompute) and the
+// fixed-order sum of per-block partials.
 //
 // The gradient kernels retrace the forward kernel's paths sample for
 // sample, so both must run this code with the same arithmetic: every file
@@ -18,6 +20,7 @@ namespace pt {
 
 constexpr int kMaxSpheres = 16;
 constexpr int kMaxBlock = 16;  // largest block edge
+constexpr int kReduceThreads = 256;
 constexpr float kTBig = 1.0e6f;
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -107,11 +110,11 @@ struct Sample {
   bool hit0, active;
 };
 
-// The unnormalized primary ray of one sample: jitter (slots 0, 1), NDC, and
-// the bilinear blend of the four corner rays.
-__device__ __forceinline__ void primary_ray(const TraceParams& p, const Rng& rng,
-                                            float rows, float cols, float& dx,
-                                            float& dy, float& dz) {
+// The bilinear coordinates (u, v) of one sample on the image plane: jitter
+// (slots 0, 1) and NDC.
+__device__ __forceinline__ void primary_uv(const TraceParams& p, const Rng& rng,
+                                           float rows, float cols, float& u,
+                                           float& v) {
   float r = rows, c = cols;
   if (p.jitter) {
     r = rows + (rng.draw(0u) - 0.5f);
@@ -119,8 +122,17 @@ __device__ __forceinline__ void primary_ray(const TraceParams& p, const Rng& rng
   }
   const float ndc_x = 2.0f * c * p.inv_width - 1.0f;
   const float ndc_y = 1.0f - 2.0f * r * p.inv_height;
-  const float u = (ndc_x + 1.0f) * 0.5f;
-  const float v = (ndc_y + 1.0f) * 0.5f;
+  u = (ndc_x + 1.0f) * 0.5f;
+  v = (ndc_y + 1.0f) * 0.5f;
+}
+
+// The unnormalized primary ray of one sample: the bilinear blend of the
+// four corner rays at primary_uv.
+__device__ __forceinline__ void primary_ray(const TraceParams& p, const Rng& rng,
+                                            float rows, float cols, float& dx,
+                                            float& dy, float& dz) {
+  float u, v;
+  primary_uv(p, rng, rows, cols, u, v);
   float d[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -151,17 +163,31 @@ __device__ __forceinline__ void sphere_hit(const Sphere& s, float ox, float oy,
   thc = det > 0.0f ? sqrtf(det) : 0.0f;
 }
 
+// What a reverse sweep over a hit bounce cannot recompute: the ray as it
+// came in, the winner's distance, and the detached decisions (which sphere,
+// its near or far root, the shadow ray's visibility). Everything else of
+// the bounce follows from these with the segment's own expressions.
+struct BounceTape {
+  float ox, oy, oz, dx, dy, dz, t;
+  int flags;  // sphere index | far root << 4 | visible << 5
+  __device__ __forceinline__ int index() const { return flags & 15; }
+  __device__ __forceinline__ bool far_root() const { return (flags & 16) != 0; }
+  __device__ __forceinline__ bool visible() const { return (flags & 32) != 0; }
+};
+
 // One segment of the path: closest hit, shading, and (unless it is the
 // last bounce) the next ray. Returns false when the ray escapes; else
 // hit_index is the sphere hit. The colour gathers the throughput-weighted
 // emission (clamped to [0, 1] at the first bounce) and the throughput
-// (mr, mg, mb) takes the hit sphere's albedo.
-template <bool FIRST, bool GLOSSY, bool NEE>
-__device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
-                                        int bounce, float& ox, float& oy,
-                                        float& oz, float& dx, float& dy,
-                                        float& dz, float& mr, float& mg,
-                                        float& mb, Sample& out, int& hit_index) {
+// (mr, mg, mb) takes the hit sphere's albedo. With TAPED, a hit also fills
+// tape; the arithmetic is the same either way.
+template <bool FIRST, bool GLOSSY, bool NEE, bool TAPED>
+__device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& rng,
+                                              int bounce, float& ox, float& oy,
+                                              float& oz, float& dx, float& dy,
+                                              float& dz, float& mr, float& mg,
+                                              float& mb, Sample& out,
+                                              int& hit_index, BounceTape& tape) {
   float dnx = dx, dny = dy, dnz = dz, inv_len = 1.0f;
   if (FIRST) {
     // Primary rays are unnormalized (reference depth convention).
@@ -172,6 +198,7 @@ __device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
   }
   float t_best = kTBig;
   int sel = -1;
+  bool far_root = false;
   for (int i = 0; i < p.num_spheres; ++i) {
     float det, tca, thc;
     sphere_hit(p.sph[i], ox, oy, oz, dnx, dny, dnz, det, tca, thc);
@@ -182,11 +209,22 @@ __device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
     if (det >= 0.0f && t > 0.0f && t < kTBig && t < t_best) {
       t_best = t;
       sel = i;
+      if (TAPED) far_root = !(t_near > 0.0f);
     }
   }
   if (sel < 0) return false;
   hit_index = sel;
   const Sphere& s = p.sph[sel];
+  if (TAPED) {
+    tape.ox = ox;
+    tape.oy = oy;
+    tape.oz = oz;
+    tape.dx = dx;
+    tape.dy = dy;
+    tape.dz = dz;
+    tape.t = t_best;
+    tape.flags = sel | (far_root ? 16 : 0) | 32;
+  }
 
   // Hit position and normal, flipped toward the incoming ray.
   const float hx = ox + dx * t_best;
@@ -233,6 +271,7 @@ __device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
       const float t = t_near > 0.0f ? t_near : t_far;
       if (det >= 0.0f && t > 0.0f && t < t_light) vis = false;
     }
+    if (TAPED && !vis) tape.flags &= ~32;
     const float dl = diffuse * (vis ? 1.0f : 0.0f) * 0.5f;
     er = er + mr * dl * l.er * s.cr;
     eg = eg + mg * dl * l.eg * s.cg;
@@ -306,6 +345,48 @@ __device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
     dz = bdz;
   }
   return true;
+}
+
+template <bool FIRST, bool GLOSSY, bool NEE>
+__device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
+                                        int bounce, float& ox, float& oy,
+                                        float& oz, float& dx, float& dy,
+                                        float& dz, float& mr, float& mg,
+                                        float& mb, Sample& out, int& hit_index) {
+  BounceTape unused;
+  return segment_taped<FIRST, GLOSSY, NEE, false>(p, rng, bounce, ox, oy, oz, dx,
+                                                  dy, dz, mr, mg, mb, out,
+                                                  hit_index, unused);
+}
+
+// d clip(v, 0, 1) / dv with jnp.clip's tie-split at the boundary: 1 inside,
+// 0 outside, 1/2 at 0 and at 1.
+__device__ __forceinline__ float clip_grad(float v) {
+  const float inside = (v >= 0.0f && v <= 1.0f) ? 1.0f : 0.0f;
+  const float edge = (v == 0.0f || v == 1.0f) ? 1.0f : 0.0f;
+  return inside - 0.5f * edge;
+}
+
+// out[k] = sum over blocks of partial[b][k], one block an output, in a
+// fixed order: strided sums, then a shared-memory tree. T is the type the
+// partials were summed in (float, or double where the sums cancel).
+template <class T>
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_partials(const T* __restrict__ partial, int num_blocks, int n_out,
+                float* __restrict__ out) {
+  __shared__ T buf[kReduceThreads];
+  const int k = blockIdx.x;
+  T v = 0;
+  for (int b = threadIdx.x; b < num_blocks; b += kReduceThreads) {
+    v += partial[(size_t)b * n_out + k];
+  }
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[k] = (float)buf[0];
 }
 
 }  // namespace pt

@@ -41,8 +41,8 @@
 //   * No f32 atomics: on the TPU the sequential grid added every tile into
 //     one block; here blocks run in no order, so each block writes its
 //     partial [6N + 1] (the loss in the last slot) to its own row of a
-//     [num_blocks, 6N + 1] buffer, and reduce_partials sums the rows in a
-//     fixed order. Two runs give the same bits.
+//     [num_blocks, 6N + 1] buffer, and reduce_partials (common.cuh) sums the
+//     rows in a fixed order. Two runs give the same bits.
 //   * Pixels outside the image trace nothing and count for nothing.
 //
 // Build (pathtrace_tpu_torch/ops/build.py does this at first use), with the
@@ -57,16 +57,8 @@ using namespace pt;
 namespace {
 
 constexpr int kMaxBounces = 16;  // 4 bits a bounce in a 64-bit tape
-constexpr int kReduceThreads = 256;
 
 enum Mode { kFused = 0, kDump = 1, kReplay = 2 };
-
-// d clip(v, 0, 1) / dv with jnp.clip's tie-split at the boundary.
-__device__ __forceinline__ float clip_grad(float v) {
-  const float inside = (v >= 0.0f && v <= 1.0f) ? 1.0f : 0.0f;
-  const float edge = (v == 0.0f || v == 1.0f) ? 1.0f : 0.0f;
-  return inside - 0.5f * edge;
-}
 
 __device__ __forceinline__ int tape_index(uint64_t tape, int n) {
   return (int)((tape >> (4 * n)) & 15u);
@@ -225,26 +217,6 @@ grad_kernel(const TraceParams p, const float* __restrict__ in_px,
   }
 }
 
-// out[k] = sum over blocks of partial[b][k], one block an output, in a
-// fixed order: strided sums, then a shared-memory tree.
-__global__ void __launch_bounds__(kReduceThreads)
-reduce_partials(const float* __restrict__ partial, int num_blocks, int n_out,
-                float* __restrict__ out) {
-  __shared__ float buf[kReduceThreads];
-  const int k = blockIdx.x;
-  float v = 0.0f;
-  for (int b = threadIdx.x; b < num_blocks; b += kReduceThreads) {
-    v += partial[(size_t)b * n_out + k];
-  }
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s) buf[threadIdx.x] += buf[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[k] = buf[0];
-}
-
 template <int MODE>
 cudaError_t launch(const TraceParams& p, int block, const float* in_px,
                    float* color, float* acc, float* partial, float* out,
@@ -259,7 +231,7 @@ cudaError_t launch(const TraceParams& p, int block, const float* in_px,
   grad_kernel<MODE><<<grid, threads, smem, stream>>>(p, in_px, color, acc, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess || MODE == kDump) return err;
-  reduce_partials<<<n_out, kReduceThreads, 0, stream>>>(
+  reduce_partials<float><<<n_out, kReduceThreads, 0, stream>>>(
       partial, (int)(grid.x * grid.y), n_out, out);
   return cudaGetLastError();
 }

@@ -9,12 +9,18 @@ The counterpart of ``pathtrace_tpu.grad``. Two backends, as for rendering:
   toward zero; interior shading and geometry gradients are exact in
   expectation. Each spp chunk is checkpointed (``torch.utils.checkpoint``),
   so its intermediates are recomputed in the backward instead of kept.
-- ``"cuda"``: the hand-written kernels of ``ops/grad_kernel.py``, for the
-  diffuse estimator without NEE. There a sample's colour is a product chain
-  in emission and albedo, so gradients of the colour with respect to
+- ``"cuda"``: the hand-written kernels, for the diffuse estimators. Without
+  NEE (``ops/grad_kernel.py``) a sample's colour is a product chain in
+  emission and albedo, so gradients of the colour with respect to
   positions, radii and the camera are exactly zero, and are returned as
-  zeros. NEE and glossy raise ``NotImplementedError`` on ``"cuda"``: their
-  kernels (K3, K4) are not ported yet; ``"torch"`` serves them.
+  zeros. With NEE (``ops/nee_grad_kernel.py``) the colour depends
+  continuously on sphere positions, radii and the camera through the
+  Lambert term of the light sample, and the kernel returns the gradients
+  of all seven fields. Glossy raises ``NotImplementedError`` on ``"cuda"``:
+  its kernel (K4) is not ported yet; ``"torch"`` serves it. The normal and
+  depth AOVs are differentiated on ``"torch"`` whatever the backend
+  (``render_aovs_diff``, ``render_geometry_grads``): no kernel takes their
+  cotangents.
 
 ``"auto"`` is ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
 Gradients come back as a ``Scene`` and a ``Camera`` holding the gradient of
@@ -78,8 +84,9 @@ def render_aovs_diff(scene, cam, cfg: RenderConfig, frame=0, device=None):
 
 
 def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:
-    """Differentiable colour image [H, W, 3]: the dump kernel with a
-    contraction for its backward on ``"cuda"``, autograd on ``"torch"``."""
+    """Differentiable colour image [H, W, 3]: on ``"cuda"`` a kernel forward
+    and a kernel or contraction backward (``grad_kernel.render_color``),
+    autograd on ``"torch"``."""
     device = _device(scene, device)
     if resolve_backend(cfg, device) == "cuda":
         return grad_kernel.render_color(scene, cam, cfg, frame, device)
@@ -107,7 +114,8 @@ def _value_and_grad(f: Callable, scene, cam, device):
 def render_loss_grads(scene, cam, cfg: RenderConfig, frame=0, target=None, device=None):
     """(loss, (d_scene, d_camera)) of the mean-squared pixel loss against
     ``target`` [H, W, 3], or against a zero image when there is none. On
-    ``"cuda"`` one fused kernel launch computes loss and gradients."""
+    ``"cuda"`` one fused kernel launch computes loss and gradients: the
+    product-chain kernel for diffuse, the NEE kernel under ``cfg.nee``."""
     device = _device(scene, device)
     if target is None:
         target = torch.zeros((cfg.height, cfg.width, 3), device=device)

@@ -7,19 +7,24 @@ The counterpart of ``pathtrace_tpu.inverse``. Adam on the cross-estimator
 render is biased toward darker scenes. Fresh frames every step make the
 Monte Carlo noise independent across steps.
 
-On ``"cuda"`` (diffuse, no NEE) a step is two dump-kernel launches and the
-contraction (``grad_kernel.cross_grads``), as the JAX package's all-Pallas
-step is ``pallas_cross_grads``; the albedo clip's subgradient is then
-applied by hand (``clip01_grad``), and positions and radii get the exact
-zeros of this estimator. On ``"torch"`` a step is autograd through the
-wavefront. Either way the albedo is clipped to [0, 1] with ``clip01``, whose
-gradient at the boundary is jnp.clip's 1/2.
+On ``"cuda"`` a step takes its loss and gradients from
+``grad_kernel.cross_grads``, as the JAX package's all-Pallas step takes
+them from ``pallas_cross_grads``. Diffuse without NEE: two dump-kernel
+launches and the contraction; positions and radii get the exact zeros of
+that estimator. NEE diffuse: two colour-sum launches of the forward kernel
+and two NEE replay launches, which also give the position and radius
+gradients, so geometry is recovered on the kernels. The albedo clip's
+subgradient is applied by hand (``clip01_grad``). On ``"torch"`` a step is
+autograd through the wavefront. Either way the albedo is clipped to [0, 1]
+with ``clip01``, whose gradient at the boundary is jnp.clip's 1/2.
 
 ``torch.optim.Adam`` takes the place of optax's ``adam``: the two updates
 are the same function, ``lr * m_hat / (sqrt(v_hat) + eps)`` with b1 0.9,
 b2 0.999, eps 1e-8, computed in another order. A dict of learning rates
-gives one parameter group a field. The optimizer updates the parameter
-tensors in place.
+gives one parameter group a field; a rate may be a schedule, a callable
+``step -> lr`` evaluated at the number of steps taken so far, as optax
+evaluates its schedules (``exponential_decay`` is optax's). The optimizer
+updates the parameter tensors in place.
 """
 
 from __future__ import annotations
@@ -47,6 +52,18 @@ class InverseState(NamedTuple):
     step: int
 
 
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float):
+    """optax's ``exponential_decay`` with its defaults: the schedule
+    ``step -> init_value * decay_rate ** (step / transition_steps)``."""
+    if transition_steps <= 0:
+        raise ValueError(f"transition_steps must be positive, got {transition_steps}")
+
+    def schedule(step: int) -> float:
+        return init_value * decay_rate ** (step / transition_steps)
+
+    return schedule
+
+
 def apply_params(scene: Scene, params: Dict[str, torch.Tensor]) -> Scene:
     """``scene`` with the optimized fields put in; the albedo clipped to
     [0, 1] to stay physical."""
@@ -63,8 +80,9 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
 
     step_fn(state) -> (state', loss): one Adam step on the cross-estimator
     with respect to the fields in ``optimize``; ``loss`` is the estimate
-    before the step. ``learning_rate`` is a float, or a dict {field: lr} for
-    fields of different natural scales. ``grad_mask`` ({field: 0/1 tensor
+    before the step. ``learning_rate`` is a float, a schedule (a callable
+    ``step -> lr``), or a dict {field: float or schedule} for fields of
+    different natural scales. ``grad_mask`` ({field: 0/1 tensor
     broadcastable to the field}) freezes entries: Adam normalizes step
     sizes, so even tiny gradients would walk every unmasked entry ~lr a
     step. Everything runs on ``device`` (default: the scene's).
@@ -74,11 +92,11 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
         missing = set(optimize) - set(learning_rate)
         if missing:
             raise ValueError(f"learning_rate missing fields: {missing}")
-        if any(callable(v) for v in learning_rate.values()):
-            raise NotImplementedError("learning-rate schedules are not supported yet")
-        rates = {name: float(learning_rate[name]) for name in optimize}
+        rates = {name: learning_rate[name] for name in optimize}
     else:
-        rates = {name: float(learning_rate) for name in optimize}
+        rates = {name: learning_rate for name in optimize}
+    schedules = {name: r for name, r in rates.items() if callable(r)}
+    rates = {name: float(r(0)) if callable(r) else float(r) for name, r in rates.items()}
     unknown = set(optimize) - set(FIELDS)
     if unknown:
         raise ValueError(f"cannot optimize {unknown}: fields are {FIELDS}")
@@ -99,7 +117,7 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
                                               target, device)
         grads = {}
         for name, p in params.items():
-            if name not in d:  # positions and radii: exactly zero here
+            if name not in d:  # positions and radii without NEE: exactly zero
                 grads[name] = torch.zeros_like(p)
             elif name == "color":  # chained through apply_params' clip01
                 grads[name] = d[name] * clip01_grad(p.detach())
@@ -121,6 +139,9 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
         loss, grads = loss_grads(state.params, state.step)
         for name, g in grads.items():
             state.params[name].grad = g * masks[name] if name in masks else g
+        for group, name in zip(state.opt_state.param_groups, optimize):
+            if name in schedules:
+                group["lr"] = float(schedules[name](state.step))
         state.opt_state.step()
         return InverseState(state.params, state.opt_state, state.step + 1), loss
 

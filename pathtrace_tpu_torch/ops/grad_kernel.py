@@ -22,17 +22,22 @@ sums over pixels with per-block partials and a fixed-order second pass, so
 two runs give the same bits. ``agreement`` holds two outputs of one mode
 against each other under the tolerances stated with it.
 
-The estimator is diffuse without NEE: a sample's colour is then a product
-chain in the hit spheres' emission and albedo, and its gradient with
-respect to positions, radii and the camera is exactly zero. NEE diffuse
-needs K3 and glossy needs K4, which are not ported yet: every entry point
-here raises ``NotImplementedError`` for those configurations.
+The estimator of these three modes is diffuse without NEE: a sample's
+colour is then a product chain in the hit spheres' emission and albedo, and
+its gradient with respect to positions, radii and the camera is exactly
+zero. NEE diffuse has its own kernel, ``ops/nee_grad_kernel.py`` (all
+parameters, geometry and camera included), and the entry points below that
+take any configuration dispatch to it as ``pallas_grad.py`` does. Glossy
+(with or without NEE) needs K4, ``pathtrace_tpu/ops/pallas_ad.py::
+_ad_grad_kernel``, which is not ported yet: every entry point raises
+``NotImplementedError`` for it.
 
 Entry points (the JAX package's names, plus ``device=``): ``fused_loss_grads``,
-``grad_acc_slab``, ``render_grad_acc``, ``render_color_grads``,
-``cross_grads`` (with ``cross_contract``, its arithmetic after the two
-dumps), ``loss_and_grads``, and ``render_color``, a differentiable
-colour render whose backward is the contraction.
+``grad_acc_slab``, ``render_grad_acc``, ``render_color_grads`` (diffuse
+without NEE); ``cross_grads`` (with ``cross_contract``, its arithmetic after
+two dumps), ``loss_and_grads`` and ``render_color``, a differentiable colour
+render (the dump forward and a contraction backward; under NEE the forward
+kernel's colour sums forward and the NEE replay backward), which dispatch.
 """
 
 from __future__ import annotations
@@ -54,16 +59,22 @@ MODES = ("fused", "dump", "replay")
 MAX_BOUNCES = 16  # the kernel's tape holds 4 bits a bounce in 64 bits
 
 
-def require_diffuse(cfg: RenderConfig, what: str):
-    """Raise for the configurations whose gradient kernels are not ported."""
-    if cfg.nee or cfg.brdf != "diffuse":
-        config = "NEE" if cfg.nee else cfg.brdf
+def require_ported(cfg: RenderConfig, what: str):
+    """Raise for the estimator whose gradient kernel is not ported: glossy."""
+    if cfg.brdf != "diffuse":
         raise NotImplementedError(
-            f"{what}: no CUDA gradient kernel for the {config} estimator yet. The "
-            "kernels here cover diffuse without NEE; NEE diffuse needs K3 "
-            "(pathtrace_tpu/ops/pallas_nee_grad.py::_nee_grad_kernel) and glossy K4 "
-            "(pathtrace_tpu/ops/pallas_ad.py::_ad_grad_kernel), not ported yet. "
-            "backend='torch' differentiates these configurations with autograd.")
+            f"{what}: no CUDA gradient kernel for the {cfg.brdf} estimator yet. It needs "
+            "K4 (pathtrace_tpu/ops/pallas_ad.py::_ad_grad_kernel), not ported yet; the "
+            "diffuse estimators are covered, with NEE (ops/nee_grad_kernel.py) and "
+            "without. backend='torch' differentiates glossy with autograd.")
+
+
+def require_diffuse(cfg: RenderConfig, what: str):
+    """Raise for what the product-chain kernels of this module do not cover."""
+    require_ported(cfg, what)
+    if cfg.nee:
+        raise ValueError(f"{what}: the product-chain kernels cover diffuse without NEE; "
+                         "NEE diffuse goes through ops/nee_grad_kernel.py")
 
 
 # -- the plain versions ----------------------------------------------------------
@@ -86,7 +97,7 @@ def _sweep_plain(scene_block, cam_block, seed, cfg: RenderConfig, local_h: int, 
         col_sum = [a + b for a, b in zip(col_sum, col)]
         h = [zeros] * 3  # h (cotangent-free) or gbar (replay)
         for bounce in range(len(tape) - 1, -1, -1):
-            hit, idx, m, e, c = tape[bounce]
+            hit, idx, m, e, c, _ = tape[bounce]
             cm = [clip01_grad(mm * ee) for mm, ee in zip(m, e)] if bounce == 0 else ones
             ae = [mm * gg * cc for mm, gg, cc in zip(m, g, cm)]
             h_new = [gg * cc * ee for gg, cc, ee in zip(g, cm, e)]
@@ -381,21 +392,48 @@ def cross_contract(a, acc_a, b, acc_b, target):
     return torch.sum(ra * rb) / denom, {"emission": d_ea + d_eb, "color": d_ca + d_cb}
 
 
+def _nee(cfg: RenderConfig, what: str) -> bool:
+    """Whether ``cfg`` goes to the NEE kernel; raises for glossy."""
+    require_ported(cfg, what)
+    return cfg.nee
+
+
 def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
-    """(loss, {"emission", "color"}) of the cross-estimator over two
-    independent renders, frames 2 step and 2 step + 1: two dump launches and
-    ``cross_contract``. The inverse step's gradient on ``"cuda"``."""
-    a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
-    b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
+    """(loss, gradients by field) of the cross-estimator over two independent
+    renders, frames 2 step and 2 step + 1: the inverse step's gradient on
+    ``"cuda"``. Diffuse: two dump launches and ``cross_contract`` ->
+    {"emission", "color"}. NEE diffuse: two colour-sum launches of the
+    forward kernel, then two NEE replays, each against the other render's
+    residual -> also "position" and "radius"."""
+    if not _nee(cfg, "cross_grads"):
+        a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
+        b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
+        target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
+        return cross_contract(a, acc_a, b, acc_b, target)
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+    a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device) / cfg.spp
+    b = tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device) / cfg.spp
     target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
-    return cross_contract(a, acc_a, b, acc_b, target)
+    ra, rb = a - target, b - target
+    denom = a.numel()
+    block = (nk.nee_color_grads(scene, cam, cfg, 2 * step, rb / denom, device)
+             + nk.nee_color_grads(scene, cam, cfg, 2 * step + 1, ra / denom, device))
+    d = nk.scene_grads_from_block(block)
+    return torch.sum(ra * rb) / denom, {"emission": d.emission, "color": d.color,
+                                        "position": d.position, "radius": d.radius}
 
 
 def loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     """(loss, (d_scene, d_cam)) of the mean-squared pixel loss, on the render
-    device: the fused kernel (``pallas_loss_and_grads``'s diffuse branch).
-    Geometry and camera get exact zeros: this estimator does not depend on
-    them."""
+    device, in one fused launch (``pallas_loss_and_grads``'s dispatch). NEE
+    diffuse: the NEE kernel, all parameters. Diffuse: the product-chain
+    kernel; geometry and camera get exact zeros, since that estimator does
+    not depend on them. Glossy raises."""
+    if _nee(cfg, "loss_and_grads"):
+        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+        return nk.nee_loss_and_grads(scene, cam, cfg, frame, target, device)
     loss, d_e, d_c, _ = fused_loss_grads(scene, cam, cfg, frame, target, device)
     scene, cam = scene.to(loss.device), cam.to(loss.device)
     d_scene = Scene(torch.zeros_like(scene.radius), torch.zeros_like(scene.position), d_e, d_c)
@@ -435,10 +473,43 @@ class _DumpColor(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
+class _NeeColor(torch.autograd.Function):
+    """Mean colour [H, W, 3] of an NEE diffuse render from one colour-sum
+    launch of the forward kernel; the backward is one NEE replay launch
+    against the colour's cotangent, with gradients for all seven leaves."""
+
+    @staticmethod
+    def forward(ctx, cfg, frame, device, radius, position, emission, color, cam_position, yaw,
+                pitch):
+        ctx.render = (cfg, frame, device)
+        ctx.save_for_backward(radius, position, emission, color, cam_position, yaw, pitch)
+        scene = Scene(radius, position, emission, color)
+        return tk.render_color_sums(scene, Camera(cam_position, yaw, pitch), cfg, frame,
+                                    device=device) / cfg.spp
+
+    @staticmethod
+    def backward(ctx, grad_color):
+        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+        cfg, frame, device = ctx.render
+        leaves = ctx.saved_tensors
+        scene, cam = Scene(*leaves[:4]), Camera(*leaves[4:])
+        block = nk.nee_color_grads(scene, cam, cfg, frame, grad_color, device)
+        d_scene, d_cam = nk.grads_from_block(scene, cam, cfg, block)
+        grads = [d_scene.radius, d_scene.position, d_scene.emission, d_scene.color,
+                 d_cam.position, d_cam.yaw, d_cam.pitch]
+        return (None, None, None,
+                *(g.to(x.device, x.dtype) if need else None
+                  for g, x, need in zip(grads, leaves, ctx.needs_input_grad[3:])))
+
+
 def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:
-    """Differentiable mean colour [H, W, 3] through the dump kernel: one
-    launch forward, a contraction backward. Gradients reach emission and
-    albedo; positions, radii and the camera get exact zeros."""
+    """Differentiable mean colour [H, W, 3] through the kernels. Diffuse: one
+    dump launch forward, a contraction backward; gradients reach emission
+    and albedo, and positions, radii and the camera get exact zeros. NEE
+    diffuse: the forward kernel's colour sums forward, one NEE replay launch
+    backward; gradients reach all seven leaves."""
     device = scene.device if device is None else torch.device(device)
-    return _DumpColor.apply(cfg, frame, device, scene.radius, scene.position, scene.emission,
-                            scene.color, cam.position, cam.yaw, cam.pitch)
+    fn = _NeeColor if _nee(cfg, "render_color") else _DumpColor
+    return fn.apply(cfg, frame, device, scene.radius, scene.position, scene.emission,
+                    scene.color, cam.position, cam.yaw, cam.pitch)

@@ -1,0 +1,498 @@
+"""The NEE diffuse gradient kernel and its plain PyTorch versions.
+
+The counterpart of ``pathtrace_tpu/ops/pallas_nee_grad.py``. ``csrc/
+nee_grad_kernel.cu`` replaces its TPU kernel ``_nee_grad_kernel`` (K3): a
+thread per pixel retraces its samples' NEE paths with the forward kernel's
+own segment, tapes what cannot be recomputed, and runs the hand-derived
+reverse sweep for ALL parameters: each sphere's radius, position, emission
+and albedo, the eye and the four corner rays. Two modes:
+
+- ``"fused"``: loss and gradients of the squared pixel error against a
+  target, and the mean colour, in one launch: each thread loops over its
+  pixel's samples twice, colour first, then the replay sweep against the
+  pixel's own cotangent.
+- ``"replay"``: gradients of ``sum(cotangent * colour sum)`` for a given
+  per-pixel cotangent.
+
+``fused`` and ``replay`` are the wrappers. On the CPU they run
+``fused_plain`` and ``replay_plain``, a transcription of the kernel's own
+order of operations over [h, W] tensors on top of ``trace_kernel``'s plain
+trajectory; on a CUDA device they launch the kernel, or raise. Both give
+the flat sums [10N + 16]: sphere i at 10 i (radius, position xyz, emission
+rgb, albedo rgb), the eye at 10N, the corner rays 00, 10, 01, 11 at
+10N + 3, the loss (fused) at 10N + 15. ``block_from_sums`` lays them out
+as the JAX package's gradient block, cropped to the rows and columns it
+uses: [N + 5, 11].
+
+The geometry sums cancel heavily (walls of radius 1e5): each pixel adds
+its contributions with Kahan compensation in float32, and the sum over
+pixels is taken in double precision by the kernel and the plain versions
+alike.
+
+Entry points (the JAX package's names, plus ``device=``):
+``nee_loss_and_grads``, ``nee_grads_block_slab`` (rows and samples at an
+offset: the sharding hook), ``grads_from_block``, and ``nee_color_grads``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pathtrace_tpu_torch.camera import Camera
+from pathtrace_tpu_torch.config import RenderConfig
+from pathtrace_tpu_torch.ops import trace_kernel as tk
+from pathtrace_tpu_torch.ops.grad_kernel import _device, _per_pixel
+from pathtrace_tpu_torch.ops.build import CSRC, load_function
+from pathtrace_tpu_torch.ops.sampling import clip01_grad
+from pathtrace_tpu_torch.scene import Scene
+
+SOURCE = CSRC / "nee_grad_kernel.cu"
+MODES = ("fused", "replay")
+MAX_BOUNCES = 16  # the kernel's tape holds this many bounces a thread
+MAX_SHARED_BYTES = 232448  # a block's shared memory on sm_90
+# Block layout (the JAX package's, cropped): rows 0..N-1 the spheres (col 0
+# radius, 1-3 position, 4-6 emission, 7-9 albedo), row N the eye (cols 0-2)
+# and the loss (col 10), rows N+1..N+4 the corner rays (cols 0-2).
+BLOCK_COLS = 11
+LOSS_COL = 10
+
+
+def require_nee_diffuse(cfg: RenderConfig, what: str):
+    if not cfg.nee or cfg.brdf != "diffuse":
+        raise ValueError(f"{what} needs nee=True and brdf='diffuse', got nee={cfg.nee}, "
+                         f"brdf={cfg.brdf!r}")
+
+
+def n_slots(num_spheres: int) -> int:
+    """Accumulator floats a thread: 6N shading sums, 4N + 15 geometry sums
+    and as many compensation terms."""
+    return 6 * num_spheres + 2 * (4 * num_spheres + 15)
+
+
+# -- the plain versions ----------------------------------------------------------
+
+def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dtype=torch.float64).to(torch.float32)
+
+
+def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
+    """The kernel's sweep loop over [local_h, W] tensors against the colour
+    cotangent ``ct`` [3] -> (shading accumulators [6N], geometry sums
+    [4N + 15])."""
+    n = len(lat.sc)
+    li = cfg.light_index
+    lt = lat.sc[li]
+    le = (lt["er"], lt["eg"], lt["eb"])
+    push = cfg.push_ray_origin
+    zeros = torch.zeros_like(lat.rows)
+    everywhere = torch.ones_like(lat.rows, dtype=torch.bool)
+    shade = [zeros] * (6 * n)
+    gsum = [zeros] * (4 * n + 15)
+    gcomp = list(gsum)
+
+    def geom(j, v, sel):
+        """The kernel's Acc::geom (a Kahan add) on the lanes of ``sel``."""
+        y = v - gcomp[j]
+        t = gsum[j] + y
+        gcomp[j] = torch.where(sel, (t - gsum[j]) - y, gcomp[j])
+        gsum[j] = torch.where(sel, t, gsum[j])
+
+    def geom_sphere(hit, idx, param, v):
+        for i in range(n):
+            geom(4 * i + param, v, hit & (idx == i))
+
+    for s in range(spp):
+        tape = []
+        lat.sample(s, cfg, tape)
+        if not tape:
+            continue
+        oh = [zeros] * 3
+        dh = [zeros] * 3
+        hb = [zeros] * 3
+        for b in range(len(tape) - 1, -1, -1):
+            hit, idx, m, e, cc, q = tape[b]
+            first = b == 0
+            ox, oy, oz = q["o"]
+            dx, dy, dz = q["d"]
+            dnx, dny, dnz = q["dn"]
+            inv_len, t_best = q["inv_len"], q["t"]
+            nux, nuy, nuz = q["nu"]
+            nx, ny, nz = q["n"]
+            n_inv, flip = q["n_inv"], q["flip"]
+            ldx, ldy, ldz = q["ld"]
+            l_inv, dr, dl = q["l_inv"], q["dr"], q["dl"]
+            dlw = torch.where(q["vis"], 0.5, 0.0) * clip01_grad(dr)
+
+            hhx = hhy = hhz = nhx = nhy = nhz = zeros
+            if b + 1 < cfg.max_bounces:
+                o1x, o1y, o1z = q["o1"]
+                o1_inv, use_a, cs, ss, zc = q["o1_inv"], q["use_a"], q["cs"], q["ss"], q["zc"]
+                ohx, ohy, ohz = oh
+                dhx, dhy, dhz = dh
+                hhx, hhy, hhz = ohx, ohy, ohz
+                nhx = push * ohx + zc * dhx
+                nhy = push * ohy + zc * dhy
+                nhz = push * ohz + zc * dhz
+                t1x, t1y, t1z = cs * dhx, cs * dhy, cs * dhz
+                t2x, t2y, t2z = ss * dhx, ss * dhy, ss * dhz
+                nhx = nhx + (o1y * t2z - o1z * t2y)
+                nhy = nhy + (o1z * t2x - o1x * t2z)
+                nhz = nhz + (o1x * t2y - o1y * t2x)
+                t1x = t1x + (t2y * nz - t2z * ny)
+                t1y = t1y + (t2z * nx - t2x * nz)
+                t1z = t1z + (t2x * ny - t2y * nx)
+                sd = o1x * t1x + o1y * t1y + o1z * t1z
+                p1x = o1_inv * (t1x - o1x * sd)
+                p1y = o1_inv * (t1y - o1y * sd)
+                p1z = o1_inv * (t1z - o1z * sd)
+                nhx = nhx + torch.where(use_a, p1y, zeros)
+                nhy = nhy + torch.where(use_a, -p1x, p1z)
+                nhz = nhz + torch.where(use_a, zeros, -p1y)
+
+            wdr = dlw * (ct[0] * m[0] * le[0] * cc[0] + ct[1] * m[1] * le[1] * cc[1]
+                         + ct[2] * m[2] * le[2] * cc[2])
+            bvx = l_inv * (nx - ldx * dr)
+            bvy = l_inv * (ny - ldy * dr)
+            bvz = l_inv * (nz - ldz * dr)
+
+            spx, spy, spz = q["p"]
+            rad = q["rad"]
+            relx, rely, relz = spx - ox, spy - oy, spz - oz
+            tca = tk._dot3(relx, rely, relz, dnx, dny, dnz)
+            qx, qy, qz = relx - tca * dnx, rely - tca * dny, relz - tca * dnz
+            det = rad * rad - tk._dot3(qx, qy, qz, qx, qy, qz)
+            gate = det > 0.0
+            inv_thc = torch.where(gate, torch.rsqrt(torch.where(gate, det, zeros + 1.0)), zeros)
+            a_ = torch.where(q["far"], 1.0, -1.0) * inv_thc
+            ux, uy, uz = a_ * qx, a_ * qy, a_ * qz
+            corr = 1.0 + tk._dot3(ux, uy, uz, dnx, dny, dnz)
+            kpx, kpy, kpz = corr * dnx - ux, corr * dny - uy, corr * dnz - uz
+            kdx, kdy, kdz = corr * relx + tca * ux, corr * rely + tca * uy, corr * relz + tca * uz
+            kr = a_ * rad
+
+            nhx, nhy, nhz = nhx + wdr * ldx, nhy + wdr * ldy, nhz + wdr * ldz
+            lhx, lhy, lhz = wdr * bvx, wdr * bvy, wdr * bvz
+            hhx, hhy, hhz = hhx - lhx, hhy - lhy, hhz - lhz
+            geom(4 * li + 1, lhx, hit)
+            geom(4 * li + 2, lhy, hit)
+            geom(4 * li + 3, lhz, hit)
+            geom(4 * li + 0, -lhy, hit)
+
+            ax, ay, az = flip * nhx, flip * nhy, flip * nhz
+            sd = nux * ax + nuy * ay + nuz * az
+            ppx = n_inv * (ax - nux * sd)
+            ppy = n_inv * (ay - nuy * sd)
+            ppz = n_inv * (az - nuz * sd)
+            hhx, hhy, hhz = hhx + ppx, hhy + ppy, hhz + ppz
+            phx, phy, phz = -ppx, -ppy, -ppz
+
+            t_hat = dx * hhx + dy * hhy + dz * hhz
+            tu_hat = t_hat * inv_len if first else t_hat
+            r_hat = tu_hat * kr
+            phx, phy, phz = phx + tu_hat * kpx, phy + tu_hat * kpy, phz + tu_hat * kpz
+            new_oh = [hhx - tu_hat * kpx, hhy - tu_hat * kpy, hhz - tu_hat * kpz]
+            new_dh = [t_best * hhx, t_best * hhy, t_best * hhz]
+            dnhx, dnhy, dnhz = tu_hat * kdx, tu_hat * kdy, tu_hat * kdz
+            if first:
+                il_hat = t_hat * (t_best / inv_len)
+                il_hat = il_hat + (dx * dnhx + dy * dnhy + dz * dnhz)
+                sdot = -(inv_len * inv_len * inv_len) * il_hat
+                new_dh = [new_dh[0] + (inv_len * dnhx + sdot * dx),
+                          new_dh[1] + (inv_len * dnhy + sdot * dy),
+                          new_dh[2] + (inv_len * dnhz + sdot * dz)]
+            else:
+                new_dh = [new_dh[0] + dnhx, new_dh[1] + dnhy, new_dh[2] + dnhz]
+            oh = [torch.where(hit, a, b_) for a, b_ in zip(new_oh, oh)]
+            dh = [torch.where(hit, a, b_) for a, b_ in zip(new_dh, dh)]
+            geom_sphere(hit, idx, 0, r_hat)
+            geom_sphere(hit, idx, 1, phx)
+            geom_sphere(hit, idx, 2, phy)
+            geom_sphere(hit, idx, 3, phz)
+
+            for ch in range(3):
+                cmv = clip01_grad(m[ch] * e[ch]) if first else 1.0
+                src = dl * le[ch] + hb[ch]
+                ae = ct[ch] * (m[ch] * cmv)
+                acb = ct[ch] * (m[ch] * src)
+                al = ct[ch] * (m[ch] * dl * cc[ch])
+                for i in range(n):
+                    sel = hit & (idx == i)
+                    shade[6 * i + ch] = shade[6 * i + ch] + torch.where(sel, ae, zeros)
+                    shade[6 * i + 3 + ch] = shade[6 * i + 3 + ch] + torch.where(sel, acb, zeros)
+                shade[6 * li + ch] = shade[6 * li + ch] + torch.where(hit, al, zeros)
+                hb[ch] = torch.where(hit, cmv * e[ch] + src * cc[ch], hb[ch])
+
+        u, v = tape[0][5]["uv"]
+        w = [(1.0 - u) * (1.0 - v), u * (1.0 - v), (1.0 - u) * v, u * v]
+        for a in range(3):
+            geom(4 * n + a, oh[a], everywhere)
+        for c in range(4):
+            for a in range(3):
+                geom(4 * n + 3 + 3 * c + a, w[c] * dh[a], everywhere)
+    return shade, gsum
+
+
+def _flat_sums(n: int, shade, geom, loss):
+    """Per-pixel values of the kernel's outputs, summed over pixels -> [10N + 16]."""
+    out = []
+    for i in range(n):
+        out += [geom[4 * i + p] for p in range(4)] + shade[6 * i: 6 * i + 6]
+    out += geom[4 * n: 4 * n + 15] + [loss]
+    return torch.stack([_pixel_sum(x) for x in out])
+
+
+def fused_plain(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: int,
+                spp: int, device=None):
+    """Plain fused mode -> (sums [10N + 16], colour [local_h, W, 3]): the
+    gradient of sum((mean - target)^2) and, last, that loss; no 1/denom."""
+    require_nee_diffuse(cfg, "fused_plain")
+    lat = tk.PlainLattice(scene_block, cam_block, seed, cfg, local_h, device)
+    inv_spp = tk._f32(1.0 / spp)
+    col_sum = [torch.zeros_like(lat.rows)] * 3
+    for s in range(spp):
+        col, *_ = lat.sample(s, cfg)
+        col_sum = [a + b for a, b in zip(col_sum, col)]
+    mean = [x * inv_spp for x in col_sum]
+    res = [m - t for m, t in zip(mean, target.unbind(-1))]
+    shade, geom = _sweep_plain(lat, cfg, spp, [2.0 * r * inv_spp for r in res])
+    loss = res[0] * res[0] + res[1] * res[1] + res[2] * res[2]
+    return _flat_sums(len(lat.sc), shade, geom, loss), torch.stack(mean, dim=-1)
+
+
+def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
+                 spp: int, device=None):
+    """Plain replay mode -> sums [10N + 16] (0 in the loss slot): the gradient
+    of sum(cotangent * colour sum), ``cotangent`` [local_h, W, 3] with 1/spp
+    folded in by the caller."""
+    require_nee_diffuse(cfg, "replay_plain")
+    lat = tk.PlainLattice(scene_block, cam_block, seed, cfg, local_h, device)
+    shade, geom = _sweep_plain(lat, cfg, spp, list(cotangent.unbind(-1)))
+    return _flat_sums(len(lat.sc), shade, geom, torch.zeros_like(lat.rows))
+
+
+# -- the CUDA kernel -------------------------------------------------------------
+
+class CudaNeeGradKernel:
+    """ctypes binding of ``pt_nee_grad_launch``. ``launches[mode]`` counts the
+    kernel launches made through ``launch`` in each mode."""
+
+    def __init__(self):
+        self._lib = None  # keeps the library loaded while _fn is in use
+        self._fn = None
+        self.launches = {m: 0 for m in MODES}
+
+    def _function(self):
+        if self._fn is None:
+            self._lib, self._fn = load_function(SOURCE, "pt_nee_grad_launch", [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ])
+        return self._fn
+
+    def launch(self, mode: str, scene_block, cam_block, seed, cfg: RenderConfig, pixels, *,
+               local_h: int, spp: int, device: torch.device):
+        """Launch ``mode`` on the current stream of ``device`` (asynchronous).
+        fused -> (sums, colour); replay -> sums."""
+        fn = self._function()
+        scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
+        n_out = 10 * scene_np.shape[0] + 16
+        w, block = cfg.width, cfg.block
+        color = None
+        if mode == "fused":
+            color = torch.empty((local_h, w, 3), dtype=torch.float32, device=device)
+        n_blocks = -(-w // block) * -(-local_h // block)
+        partial = torch.empty((n_blocks, n_out), dtype=torch.float64, device=device)
+        sums = torch.empty((n_out,), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(
+                scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
+                seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
+                spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
+                cfg.push_ray_origin, cfg.light_index, MODES.index(mode), block,
+                pixels.data_ptr(),
+                None if color is None else color.data_ptr(), partial.data_ptr(),
+                sums.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"NEE grad kernel ({mode}) launch failed: cudaError {err}")
+        self.launches[mode] += 1
+        return (sums, color) if mode == "fused" else sums
+
+
+CUDA_KERNEL = CudaNeeGradKernel()
+
+
+def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels, dev, what):
+    require_nee_diffuse(cfg, what)
+    tk.check_blocks(scene_block, cam_block, seed, cfg, local_h, spp)
+    if cfg.max_bounces > MAX_BOUNCES:
+        raise ValueError(f"the NEE gradient kernel takes at most {MAX_BOUNCES} bounces, "
+                         f"got {cfg.max_bounces}")
+    shared = 4 * n_slots(scene_block.shape[0]) * cfg.block * cfg.block
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"{what}: a {cfg.block}x{cfg.block} block needs {shared} bytes of "
+                         f"shared memory for its accumulators, above {MAX_SHARED_BYTES}")
+    shape = (local_h, cfg.width, 3)
+    if pixels.dtype != torch.float32 or tuple(pixels.shape) != shape:
+        raise ValueError(f"per-pixel input must be float32 {shape}, got "
+                         f"{pixels.dtype} {tuple(pixels.shape)}")
+    if not pixels.is_contiguous():
+        raise ValueError("per-pixel input must be contiguous")
+    if pixels.device != dev:
+        raise ValueError(f"per-pixel input is on {pixels.device}, the launch on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no NEE gradient kernel for device {dev}")
+
+
+def fused(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: int, spp: int,
+          device=None):
+    """The fused-mode wrapper -> (sums [10N + 16], colour [local_h, W, 3]) on
+    ``device`` (default: the blocks'). CPU: the plain version. CUDA: the
+    kernel, or an exception."""
+    dev = _device(scene_block, device)
+    _check(scene_block, cam_block, seed, cfg, local_h, spp, target, dev, "fused")
+    kw = dict(local_h=local_h, spp=spp, device=dev)
+    if dev.type == "cpu":
+        return fused_plain(scene_block, cam_block, seed, cfg, target, **kw)
+    return CUDA_KERNEL.launch("fused", scene_block, cam_block, seed, cfg, target, **kw)
+
+
+def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
+           spp: int, device=None):
+    """The replay-mode wrapper -> sums [10N + 16] (0 in the loss slot)."""
+    dev = _device(scene_block, device)
+    _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev, "replay")
+    kw = dict(local_h=local_h, spp=spp, device=dev)
+    if dev.type == "cpu":
+        return replay_plain(scene_block, cam_block, seed, cfg, cotangent, **kw)
+    return CUDA_KERNEL.launch("replay", scene_block, cam_block, seed, cfg, cotangent, **kw)
+
+
+# -- agreement of two outputs ------------------------------------------------------
+# The kernel against its plain version. Both add each pixel's contributions
+# in the same order in float32 and sum over pixels in double, so an entry
+# may differ by float32 rounding of the per-pixel terms: within rtol 1e-4
+# plus 1e-6 of the largest |reference| among the entries of its kind
+# (radius, position, emission, albedo, eye, corner rays, loss). Where two
+# orders of operations meet (the replay against fused, slabs against the
+# frame) the geometry sums' cancellation
+# shows: 1e-4 of the largest of the kind, the JAX package's tolerance for
+# its replay against its fused mode. Colour: trace_kernel.agreement's
+# colour rule on the mean.
+SUMS_RTOL = 1e-4
+SUMS_ATOL = 1e-6  # x max |reference| of the entry's kind
+CROSS_ATOL = 1e-4  # the same, between two orders of operations
+KINDS = ("radius", "position", "emission", "albedo", "eye", "basis", "loss")
+
+
+def entry_kinds(n: int) -> np.ndarray:
+    """The kind (an index into ``KINDS``) of each of the 10N + 16 sums."""
+    sphere = [0, 1, 1, 1, 2, 2, 2, 3, 3, 3]
+    return np.array(sphere * n + [4] * 3 + [5] * 12 + [6])
+
+
+def agreement(got: torch.Tensor, ref: torch.Tensor, kind: str, atol: float = SUMS_ATOL):
+    """Hold ``got`` against ``ref`` -> (checks, max |got - ref|); each check
+    is (name, share out of tolerance, ceiling, ok). ``kind``: "sums"
+    [10N + 16] (``atol`` x the largest of the entry's kind) or "color"
+    [h, W, 3] (means)."""
+    if kind == "color":
+        return tk.agreement(got, ref, "color", 1)
+    if kind != "sums":
+        raise ValueError(f"kind must be 'sums' or 'color', got {kind!r}")
+    got = got.detach().to("cpu", torch.float64).numpy()
+    ref = ref.detach().to("cpu", torch.float64).numpy()
+    if got.shape != ref.shape or got.ndim != 1 or (got.shape[0] - 16) % 10:
+        raise ValueError(f"shapes {got.shape} and {ref.shape} are not two [10N + 16] sums")
+    kinds = entry_kinds((got.shape[0] - 16) // 10)
+    diff = np.abs(got - ref)
+    finite = np.isfinite(got) & np.isfinite(ref)
+    out = [("finite", float((~finite).mean()), 0.0, bool(finite.all()))]
+    for k, name in enumerate(KINDS):
+        sel = kinds == k
+        tol = SUMS_RTOL * np.abs(ref[sel]) + atol * np.abs(ref[sel]).max()
+        share = float((~(diff[sel] <= tol)).mean())
+        out.append((name, share, 0.0, share <= 0.0))
+    return out, float(np.nan_to_num(diff, nan=np.inf).max())
+
+
+# -- entry points (the JAX package's signatures, plus a device) ---------------------
+
+def block_from_sums(sums: torch.Tensor) -> torch.Tensor:
+    """Flat sums [10N + 16] -> the gradient block [N + 5, 11]."""
+    n = (sums.shape[0] - 16) // 10
+    block = sums.new_zeros((n + 5, BLOCK_COLS))
+    block[:n, :10] = sums[: 10 * n].reshape(n, 10)
+    block[n, 0:3] = sums[10 * n: 10 * n + 3]
+    block[n + 1: n + 5, 0:3] = sums[10 * n + 3: 10 * n + 15].reshape(4, 3)
+    block[n, LOSS_COL] = sums[10 * n + 15]
+    return block
+
+
+def scene_grads_from_block(block: torch.Tensor) -> Scene:
+    n = block.shape[0] - 5
+    return Scene(block[:n, 0], block[:n, 1:4], block[:n, 4:7], block[:n, 7:10])
+
+
+def grads_from_block(scene, cam, cfg: RenderConfig, block: torch.Tensor):
+    """Gradient block -> (d_scene, d_camera) on the block's device. The corner
+    rays' cotangents are pulled back through ``Camera.eye_ray_basis`` with
+    autograd on the host (the chain the ``"torch"`` backend differentiates),
+    and the ray origin's eye cotangent adds to the position gradient."""
+    n = scene.num_objects
+    if tuple(block.shape) != (n + 5, BLOCK_COLS):
+        raise ValueError(f"block must be [{n + 5}, {BLOCK_COLS}], got {tuple(block.shape)}")
+    host = block.detach().to("cpu")
+    leaves = [getattr(cam, k).detach().to("cpu").requires_grad_(True)
+              for k in ("position", "yaw", "pitch")]
+    with torch.enable_grad():
+        basis = Camera(*leaves).eye_ray_basis(cfg.width, cfg.height)
+        grads = torch.autograd.grad(basis, leaves, grad_outputs=host[n + 1: n + 5, 0:3],
+                                    allow_unused=True)
+    d_pos, d_yaw, d_pitch = (torch.zeros_like(x) if g is None else g
+                             for x, g in zip(leaves, grads))
+    d_cam = Camera(d_pos + host[n, 0:3], d_yaw, d_pitch, device=block.device)
+    return scene_grads_from_block(block), d_cam
+
+
+def nee_loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
+    """(loss, (d_scene, d_camera)) of the mean-squared pixel colour loss for an
+    NEE diffuse config, all parameters: one fused launch."""
+    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sums, _ = fused(sb, cb, tk.make_seed_block(cfg, frame), cfg, _per_pixel(target, device),
+                    local_h=cfg.height, spp=cfg.spp, device=device)
+    block = block_from_sums(sums) / (cfg.height * cfg.width * 3)
+    return block[scene.num_objects, LOSS_COL], grads_from_block(scene, cam, cfg, block)
+
+
+def nee_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_offset=0,
+                         local_h=None, spp=None, sample_offset=0, device=None):
+    """Gradient block [N + 5, 11] of rows [row_offset, row_offset + local_h)
+    and samples [sample_offset, sample_offset + spp) against a known
+    per-SAMPLE colour cotangent ``ct_block`` [3, local_h, W] (1/global-spp
+    folded in by the caller): one replay launch. Blocks of different slabs
+    and sample ranges add up to the frame's."""
+    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    local_h = cfg.height if local_h is None else local_h
+    ct = _per_pixel(ct_block, device).permute(1, 2, 0).contiguous()
+    sums = replay(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg, ct,
+                  local_h=local_h, spp=cfg.spp if spp is None else spp, device=device)
+    return block_from_sums(sums)
+
+
+def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
+    """Gradient block [N + 5, 11] of sum(cotangent * mean colour) for
+    ``cotangent`` [H, W, 3]: one replay launch."""
+    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    ct = _per_pixel(cotangent, device) / cfg.spp
+    sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
+                  spp=cfg.spp, device=device)
+    return block_from_sums(sums)

@@ -79,9 +79,12 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
     term for term. ``sc`` holds per-sphere Python floats (exact f32 values)
     with the f32 products ``rad * rad`` and ``py - rad`` precomputed, since
     a product of two Python floats would be taken in double. A list given as
-    ``tape`` receives one (hit, sphere index, throughput, emission, albedo)
-    entry a bounce, the throughput as it was before the bounce: the forward
-    tape of the gradient kernels' reverse sweep (``ops/grad_kernel.py``)."""
+    ``tape`` receives one (hit, sphere index, throughput, emission, albedo,
+    geometry) entry a bounce, the throughput as it was before the bounce:
+    the forward tape of the gradient kernels' reverse sweeps. ``geometry``
+    is a dict of the bounce's geometric intermediates, which the NEE sweep
+    (``ops/nee_grad_kernel.py``) reads; the product-chain sweep
+    (``ops/grad_kernel.py``) ignores it."""
     zeros = torch.zeros_like(rows)
     spb = cfg.slots_per_bounce
     push = cfg.push_ray_origin
@@ -125,6 +128,7 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
         s_p = [zeros, zeros, zeros]
         s_e = [zeros, zeros, zeros]
         s_c = [zeros, zeros, zeros]
+        s_rad, s_far = zeros, torch.zeros_like(active)
         for i, s in enumerate(sc):
             rel_x, rel_y, rel_z = s["px"] - ox, s["py"] - oy, s["pz"] - oz
             tca = _dot3(rel_x, rel_y, rel_z, dnx, dny, dnz)
@@ -141,6 +145,8 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
             hit = hit | closer
             if tape is not None:
                 s_idx = torch.where(closer, i, s_idx)
+                s_rad = torch.where(closer, s["rad"], s_rad)
+                s_far = torch.where(closer, ~(t_near > 0.0), s_far)
             s_p = [torch.where(closer, s[k], x) for k, x in zip(("px", "py", "pz"), s_p)]
             s_e = [torch.where(closer, s[k], x) for k, x in zip(("er", "eg", "eb"), s_e)]
             s_c = [torch.where(closer, s[k], x) for k, x in zip(("cr", "cg", "cb"), s_c)]
@@ -151,6 +157,11 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
         n_inv = torch.rsqrt(_dot3(nx, ny, nz, nx, ny, nz) + 1e-20)
         nx, ny, nz = nx * n_inv, ny * n_inv, nz * n_inv
         flip = torch.where(_dot3(nx, ny, nz, dx, dy, dz) < 0.0, 1.0, -1.0)
+        geo = None
+        if tape is not None:
+            geo = dict(uv=(u, v), o=(ox, oy, oz), d=(dx, dy, dz), dn=(dnx, dny, dnz),
+                       inv_len=inv_len, t=t_best, p=tuple(s_p), rad=s_rad, far=s_far,
+                       nu=(nx, ny, nz), n_inv=n_inv, flip=flip)
         nx, ny, nz = nx * flip, ny * flip, nz * flip
 
         e = [m * se for m, se in zip(mask, s_e)]
@@ -181,9 +192,12 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
             dl = diffuse * torch.where(vis, 1.0, 0.0) * 0.5
             e = [x + m * dl * lt[k] * sc_ for x, m, k, sc_ in
                  zip(e, mask, ("er", "eg", "eb"), s_c)]
+            if geo is not None:
+                geo.update(n=(nx, ny, nz), ld=(ldx, ldy, ldz), l_inv=l_inv, vis=vis, dl=dl,
+                           dr=_dot3(ldx, ldy, ldz, nx, ny, nz))
         col = [cc + torch.where(hit_now, x, zeros) for cc, x in zip(col, e)]
         if tape is not None:
-            tape.append((hit_now, s_idx, mask, s_e, s_c))
+            tape.append((hit_now, s_idx, mask, s_e, s_c, geo))
         mask = [torch.where(hit_now, m * c_, m) for m, c_ in zip(mask, s_c)]
 
         if bounce == 0:
@@ -208,6 +222,8 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
             zc = torch.sqrt(u2)
             sin_t = torch.sqrt(torch.clamp(1.0 - zc * zc, min=0.0))
             cs, ss = torch.cos(phi) * sin_t, torch.sin(phi) * sin_t
+            if geo is not None:
+                geo.update(o1=(o1x, o1y, o1z), o1_inv=o1_inv, use_a=use_a, cs=cs, ss=ss, zc=zc)
             bdx = cs * o1x + ss * o2x + zc * nx
             bdy = cs * o1y + ss * o2y + zc * ny
             bdz = cs * o1z + ss * o2z + zc * nz

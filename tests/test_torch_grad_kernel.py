@@ -223,14 +223,15 @@ def test_cuda_backend_matches_torch_backend(state):
         assert not x.any()
 
 
-@pytest.mark.parametrize("extra", [{"nee": True}, {"brdf": "glossy"}])
+@pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
 @pytest.mark.parametrize("entry", ["loss_grads", "render_color", "inverse_step", "kernel"])
 def test_cuda_backend_raises_for_unported_configs(state, extra, entry):
-    """NEE and glossy need K3/K4: "cuda" raises and falls back to nothing."""
+    """Glossy, with or without NEE, needs K4: "cuda" raises and falls back to
+    nothing. (NEE diffuse has its kernel: tests/test_torch_nee_grad.py.)"""
     _, _, scene, cam, target = state
     cfg = dataclasses.replace(CFG, height=8, width=8, **extra)
     target = torch.from_numpy(target[:8, :8])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="K4.*not ported"):
         if entry == "loss_grads":
             port_grad.render_loss_grads(scene, cam, cfg, 0, target)
         elif entry == "render_color":

@@ -193,7 +193,7 @@ def test_loss_grads_entry_points_agree(dev):
         assert z.device == dev and not z.any()
 
 
-@pytest.mark.parametrize("extra", [{"nee": True}, {"brdf": "glossy"}])
+@pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
 def test_unported_configs_raise_on_cuda(dev, extra):
     cfg = RenderConfig(width=16, height=16, spp=1, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):

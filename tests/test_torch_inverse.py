@@ -152,8 +152,9 @@ def test_learning_rates_and_grad_mask():
     with pytest.raises(ValueError, match="missing"):
         inverse.make_inverse_step(scene, cam, cfg, target, ("color", "emission"),
                                   {"color": 1e-2})
-    with pytest.raises(NotImplementedError):
-        inverse.make_inverse_step(scene, cam, cfg, target, ("color",), {"color": lambda n: 1.0})
+    _, _, opt = inverse.make_inverse_step(scene, cam, cfg, target, ("color",),
+                                          {"color": lambda n: 0.25})  # a schedule
+    assert [g["lr"] for g in opt.param_groups] == [0.25]
     mask = torch.zeros(9, 1)
     mask[2] = 1.0  # the back wall: emission 0, on the clamp's edge, so its gradient is not 0
     state, step_fn, opt = inverse.make_inverse_step(
