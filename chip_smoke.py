@@ -3,13 +3,13 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs twelve phases, each printing its own lines; any failure raises and
+and runs fifteen phases, each printing its own lines; any failure raises and
 exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
    and Triton versions.
-2. A clean build of the four kernel libraries (trace, grad, NEE grad and
-   the f32 probes), timed.
+2. A clean build of the five kernel libraries (trace, grad, NEE grad, the
+   all-parameter backward and the f32 probes), timed.
 3. The trace kernel against its plain PyTorch version on the card, at
    128x64 and 4 spp with row and sample offsets, for diffuse, NEE and glossy
    in the 14-, 22- and 3-channel modes. Every channel is held to the rules
@@ -104,6 +104,38 @@ exits non-zero.
    them; and ``torch.profiler`` device times by kernel over 20 NEE inverse
    steps.
 
+13. The all-parameter backward kernel (K4) against its plain version on the
+   card at 128x64 and 4 spp, under ``nee_grad_kernel.agreement`` (every sum
+   within rtol 1e-4 plus 1e-6 of the largest of its kind): diffuse and
+   glossy, with and without NEE, against a colour cotangent, against
+   cotangents in all ten channels (normal, albedo and depth included), and
+   at row offset 16 and sample offset 2; two launches must give the same
+   bits; one 32-spp launch; without NEE and colour-only the geometry and
+   camera sums must be exactly 0; and on NEE diffuse with a colour-only
+   cotangent K4 must equal the NEE kernel's replay bit for bit.
+14. The glossy gradient paths at full width through the user entry points,
+   launch counts set to 0 before each part and read after: (a)
+   ``grad.render_loss_grads`` at 512x512x32 spp for glossy and for NEE
+   glossy: exactly one colour-sum launch of the trace kernel and one K4
+   launch each, loss and all gradients held against the plain route
+   (``trace_plain`` colour, ``replay_plain``); (b)
+   ``ad_grad_kernel.ad_loss_and_grads`` on the NEE diffuse frame of phase
+   10 (a) beside the NEE kernel's fused mode: the same gradients within
+   1e-4 of the largest of their kind; (c) the albedo recovery of phase 7
+   (a) under the glossy BRDF for 100 Adam steps through
+   ``inverse.make_inverse_step``: two trace and two K4 launches every step,
+   the first three steps' losses (rtol 1e-2: the wavefront and the kernel
+   send a few near-mirror paths different ways, and the cross-estimator is
+   a small difference of products; 2.6e-3 was measured at step 1) and
+   albedo gradients (rtol 2e-2 plus 2e-2 of the largest) equal to the
+   autograd route's, every loss finite, and the mean albedo error lower at
+   the end than at the start.
+15. Timing of K4 (median of 20 CUDA-event-timed runs, the plain version
+   twice) at 512x512x32 for glossy, NEE glossy and NEE diffuse (the NEE
+   kernel's replay beside it) and at 256x256x8, each last output held
+   against the plain version's; the glossy inverse step, with
+   ``torch.profiler`` device times by kernel over 20 steps.
+
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
 ``{"ok": true, "device": {...}}``.
@@ -138,8 +170,11 @@ def run(cmd):
     return proc.stdout.strip()
 
 
+_T0 = time.perf_counter()
+
+
 def phase(n, title):
-    print(f"== phase {n}: {title}", flush=True)
+    print(f"== phase {n} (at {time.perf_counter() - _T0:.0f} s): {title}", flush=True)
 
 
 def compare(label, got, ref, mode, spp):
@@ -701,6 +736,58 @@ def probe_phase_11(dev, rf):
     return peaks, lat, rec
 
 
+def single_plain_turns(dev, label, kernel_fn, plain_fn):
+    """Times in turns plain, kernel, kernel, plain: the kernel 2 x TIMING_ITERS
+    CUDA-event-timed runs after warm-up, the plain version two single runs.
+    -> (medians, the kernel's last output, the plain version's)."""
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    ms = {"kernel": [], "plain": []}
+    last = {}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        if name == "kernel":
+            t, last[name] = time_fn(kernel_fn, warmup=2, iters=TIMING_ITERS, device=dev)
+        else:
+            t, last[name] = time_fn(plain_fn, warmup=0, iters=1, device=dev)
+        ms[name].extend(t)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    print(f"{label}: kernel {med['kernel']:.4f} ms (runs {min(ms['kernel']):.4f}.."
+          f"{max(ms['kernel']):.4f}), plain {med['plain']:.1f} ms, plain/kernel "
+          f"{med['plain'] / med['kernel']:.1f}")
+    return med, last["kernel"], last["plain"]
+
+
+def profile_steps(label, step_fn, state, step_ms, steps=20):
+    """``torch.profiler`` device times by kernel over ``steps`` inverse steps,
+    and the device's idle share against ``step_ms``, the step's time without
+    the profiler. A profiler that sees no device time fails the run, since
+    PERF.md's breakdown of the step reads this."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step_fn(state)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "#" not in e.key]  # no annotations
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    if not device_ms > 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    print(f"torch.profiler over {steps} {label} steps: host wall {wall:.4f} ms a step "
+          f"(under the profiler), device {device_ms:.4f} ms a step; against the step's "
+          f"{step_ms:.4f} ms without the profiler the device is idle "
+          f"{1.0 - device_ms / step_ms:.3f} of a step")
+    for key, ms_ in rows[:6]:
+        print(f"  {ms_:.4f} ms a step  {key[:90]}")
+
+
 def plain_nee_cross_grads(nk, tk, scene, cam, cfg, step, target, device):
     """``grad_kernel.cross_grads`` under NEE with the plain versions."""
     import torch
@@ -728,20 +815,7 @@ def nee_phase_12(dev, scene, cam, gk, nk, tk):
     sb = scene.packed()
     out, err = {}, {"fused": 0.0, "replay": 0.0}
 
-    def turns(label, kernel_fn, plain_fn):
-        ms = {"kernel": [], "plain": []}
-        last = {}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            if name == "kernel":
-                t, last[name] = time_fn(kernel_fn, warmup=2, iters=TIMING_ITERS, device=dev)
-            else:
-                t, last[name] = time_fn(plain_fn, warmup=0, iters=1, device=dev)
-            ms[name].extend(t)
-        med = {k: statistics.median(v) for k, v in ms.items()}
-        print(f"{label}: kernel {med['kernel']:.4f} ms (runs {min(ms['kernel']):.4f}.."
-              f"{max(ms['kernel']):.4f}), plain {med['plain']:.1f} ms, plain/kernel "
-              f"{med['plain'] / med['kernel']:.1f}")
-        return med, last["kernel"], last["plain"]
+    turns = functools.partial(single_plain_turns, dev)
 
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
     cb = tk.camera_block(cam, cfg)
@@ -793,33 +867,317 @@ def nee_phase_12(dev, scene, cam, gk, nk, tk):
     print(f"NEE inverse step 256x256x16 (kernel path, Adam included): "
           f"{out['step', 'kernel']:.4f} ms (runs {min(ms):.4f}..{max(ms):.4f})")
 
-    # Device times by kernel over 20 steps; a profiler that sees no device
-    # time fails the run, since PERF.md's breakdown of the step reads this.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    steps = 20
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state, _ = step_fn(state)
-        torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0) / steps
-    rows = [(e.key, e.self_device_time_total / 1e3 / steps)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "#" not in e.key]  # no annotations
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    if not device_ms > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    print(f"torch.profiler over {steps} NEE inverse steps: host wall {wall:.4f} ms a step "
-          f"(under the profiler), device {device_ms:.4f} ms a step; against the step's "
-          f"{out['step', 'kernel']:.4f} ms without the profiler the device is idle "
-          f"{1.0 - device_ms / out['step', 'kernel']:.3f} of a step")
-    for key, ms_ in rows[:6]:
-        print(f"  {ms_:.4f} ms a step  {key[:90]}")
+    profile_steps("NEE inverse", step_fn, state, out["step", "kernel"])
     return out, err
+
+
+# ---- the all-parameter backward (K4) and the glossy paths (phases 13, 14, 15) --------
+
+AD_CONFIGS = (("diffuse", False), ("diffuse", True), ("glossy", False), ("glossy", True))
+GLOSSY_INVERSE_STEPS = 100
+
+
+def ad_name(brdf, nee):
+    return ("nee_" if nee else "") + brdf
+
+
+def ad_phase_13(dev, scene, cam, ak, nk, tk):
+    """K4 against its plain version on the card. -> max |kernel - plain|."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig
+
+    phase(13, "all-parameter backward (K4) vs plain on the card (128x64, 4 spp; also at row "
+              "offset 16, sample offset 2; one 32-spp launch)")
+    sb = scene.packed()
+    rng = np.random.default_rng(0)
+    full = rng.normal(size=(ak.NUM_CT, 64, 128)).astype(np.float32)
+    full[9] *= 1e-4  # depth is ~1e4 in these units
+    full = torch.from_numpy(full).to(dev)
+    colour = full.clone()
+    colour[3:] = 0.0
+    worst = 0.0
+    for brdf, nee in AD_CONFIGS:
+        name = ad_name(brdf, nee)
+        cfg = RenderConfig(width=128, height=64, spp=4, brdf=brdf, nee=nee)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg, 3)
+        kw = dict(local_h=64, spp=4, device=dev)
+        before = ak.CUDA_KERNEL.launches
+        got = ak.replay(sb, cb, seed, cfg, colour, **kw)
+        torch.cuda.synchronize()
+        if ak.CUDA_KERNEL.launches != before + 1:
+            raise RuntimeError("the K4 launch counter did not move")
+        worst = max(worst, nee_compare(f"{name}/colour cotangent", got,
+                                       ak.replay_plain(sb, cb, seed, cfg, colour, **kw), "sums"))
+        if not torch.equal(ak.replay(sb, cb, seed, cfg, colour, **kw), got):
+            raise RuntimeError(f"two K4 launches gave different bits ({name})")
+        block = ak.block_from_sums(got)
+        n = scene.num_objects
+        geometry = max(float(block[:n, :4].abs().max()), float(block[n:, :3].abs().max()))
+        print(f"  {name}: launched twice: identical bits; largest |geometry or camera sum| "
+              f"{geometry:.6g}")
+        if not nee and geometry != 0.0:
+            raise RuntimeError(f"{name}: geometry and camera sums of a colour-only cotangent "
+                               f"are not exactly 0")
+        if nee and not geometry > 0.0:
+            raise RuntimeError(f"{name}: no geometry gradient under NEE")
+        if nee and brdf == "diffuse":
+            k3 = nk.replay(sb, cb, seed, cfg, colour[:3].permute(1, 2, 0).contiguous(), **kw)
+            if not torch.equal(got, k3):
+                raise RuntimeError("K4 on NEE diffuse is not the NEE kernel's replay to the bit")
+            print("  nee_diffuse: K4 == NEE kernel's replay: identical bits")
+        got = ak.replay(sb, cb, seed, cfg, full, **kw)
+        worst = max(worst, nee_compare(f"{name}/colour + normal + albedo + depth cotangents",
+                                       got, ak.replay_plain(sb, cb, seed, cfg, full, **kw),
+                                       "sums"))
+        cfg_o = RenderConfig(width=128, height=96, spp=4, brdf=brdf, nee=nee)
+        cb_o = tk.camera_block(cam, cfg_o)
+        seed_o = tk.make_seed_block(cfg_o, 0, 2, 16)
+        kw_o = dict(local_h=64, spp=2, device=dev)
+        worst = max(worst, nee_compare(f"{name} @offsets",
+                                       ak.replay(sb, cb_o, seed_o, cfg_o, full, **kw_o),
+                                       ak.replay_plain(sb, cb_o, seed_o, cfg_o, full, **kw_o),
+                                       "sums"))
+    cfg = RenderConfig(width=128, height=64, spp=32, brdf="glossy", nee=True)
+    cb = tk.camera_block(cam, cfg)
+    seed = tk.make_seed_block(cfg, 3)
+    kw = dict(local_h=64, spp=32, device=dev)
+    got = ak.replay(sb, cb, seed, cfg, full, **kw)
+    ref = ak.replay_plain(sb, cb, seed, cfg, full, **kw)
+    worst = max(worst, nee_compare("nee_glossy 32 spp", got, ref, "sums"))
+    print(f"  nee_glossy 32 spp == plain version to the bit: {bool(torch.equal(got, ref))}")
+    return worst
+
+
+def flat_scene_grads(d_scene):
+    """Scene gradients -> [10N + 16] in the kernels' layout, zeros in the
+    camera and loss slots (which ``agreement`` then passes)."""
+    import torch
+
+    rows = torch.cat([d_scene.radius[:, None], d_scene.position, d_scene.emission,
+                      d_scene.color], dim=1).reshape(-1)
+    return torch.cat([rows, rows.new_zeros(16)])
+
+
+def camera_compare(label, d_cam, ref_cam, atol):
+    """Camera gradients within rtol 1e-4 plus ``atol`` of the largest |ref|."""
+    import torch
+
+    got = torch.cat([d_cam.position, d_cam.yaw[None], d_cam.pitch[None]]).double().cpu()
+    ref = torch.cat([ref_cam.position, ref_cam.yaw[None], ref_cam.pitch[None]]).double().cpu()
+    diff = (got - ref).abs()
+    ok = bool((diff <= 1e-4 * ref.abs() + atol * ref.abs().max()).all())
+    print(f"  {label}: camera gradients max |diff| {float(diff.max()):.6g} (largest |ref| "
+          f"{float(ref.abs().max()):.6g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"disagreement: {label}: camera gradients")
+    return float(diff.max())
+
+
+def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
+    """The glossy gradient paths at full width through the user entry points.
+    -> (K4 launches on these paths, max |kernel - plain| of the sums)."""
+    import dataclasses
+
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, grad, inverse, render_aovs
+    from pathtrace_tpu_torch.scene import Scene
+
+    def zero_counts():
+        tk.CUDA_KERNEL.launches = 0
+        ak.CUDA_KERNEL.launches = 0
+        for k in (gk, nk):
+            for mode in k.MODES:
+                k.CUDA_KERNEL.launches[mode] = 0
+
+    def counts():
+        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches,
+                sum(nk.CUDA_KERNEL.launches.values()) + sum(gk.CUDA_KERNEL.launches.values()))
+
+    phase(14, f"glossy gradient paths at full width on cuda:0: (a) render_loss_grads 512x512x32 "
+              f"glossy and NEE glossy; (b) ad_loss_and_grads beside the NEE kernel on NEE "
+              f"diffuse; (c) glossy albedo recovery 256x256, 8 spp, {GLOSSY_INVERSE_STEPS} steps")
+    true_color = scene.color.numpy()
+    bad = np.clip(true_color + np.random.default_rng(0).uniform(-0.35, 0.35, (9, 3)),
+                  0.05, 0.95).astype(np.float32)
+    corrupted = Scene(scene.radius, scene.position, scene.emission, bad)
+    n = scene.num_objects
+    launches, worst = 0, 0.0
+
+    for nee in (False, True):
+        name = ad_name("glossy", nee)
+        cfg = RenderConfig(width=512, height=512, spp=32, brdf="glossy", nee=nee)
+        target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                             device=dev)["color"]
+        zero_counts()
+        loss, (d_scene, d_cam) = grad.render_loss_grads(corrupted, cam, cfg, 0, target,
+                                                        device=dev)
+        torch.cuda.synchronize()
+        seen = counts()
+        launches += seen[1]
+        print(f"(a) {name}: launches: trace {seen[0]}, K4 {seen[1]}, other gradient kernels "
+              f"{seen[2]}")
+        if seen != (1, 1, 0):
+            raise RuntimeError(f"render_loss_grads for {name} is not one colour-sum launch and "
+                               f"one K4 launch")
+        # The plain route: trace_plain's colour, the loss's cotangent, replay_plain.
+        sb, cb, _ = tk.host_blocks(corrupted, cam, cfg, dev)
+        seed = tk.make_seed_block(cfg, 0)
+        kw = dict(local_h=512, spp=32, device=dev)
+        diff = tk.trace_plain(sb, cb, seed, cfg, mode="color", **kw) / cfg.spp - target
+        denom = diff.numel()
+        ct = ak.pack_cotangents(cfg, 2.0 * diff / denom, device=dev)
+        ref_block = ak.block_from_sums(ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+        ref_scene, ref_cam = ak.grads_from_block(corrupted, cam, cfg, ref_block)
+        ref_loss = torch.sum(diff * diff) / denom
+        print(f"(a) {name}: loss {float(loss):.8f}, plain route {float(ref_loss):.8f}")
+        if abs(float(loss) - float(ref_loss)) > 1e-4 * abs(float(ref_loss)):
+            raise RuntimeError(f"{name}: the loss is not the plain route's")
+        worst = max(worst, nee_compare(f"(a) {name}: scene gradients vs the plain route",
+                                       flat_scene_grads(d_scene), flat_scene_grads(ref_scene),
+                                       "sums"))
+        camera_compare(f"(a) {name}", d_cam, ref_cam, 1e-6)
+        for label, g in (("d albedo", d_scene.color), ("d emission", d_scene.emission),
+                         ("d position", d_scene.position), ("d eye", d_cam.position)):
+            print(f"(a) {name}: {label}: max |g| {float(g.abs().max()):.6g}")
+            if g.device != dev or not torch.isfinite(g).all():
+                raise RuntimeError(f"{name}: {label} is not finite on {dev}")
+        if not float(d_scene.color.abs().max()) > 0:
+            raise RuntimeError(f"{name}: the albedo gradient is all zero")
+        if bool(d_scene.position.any()) != nee or bool(d_cam.position.any()) != nee:
+            raise RuntimeError(f"{name}: geometry gradients must be non-zero under NEE and "
+                               f"exactly zero without")
+
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
+    target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                         device=dev)["color"]
+    zero_counts()
+    loss, (d_scene, d_cam) = ak.ad_loss_and_grads(corrupted, cam, cfg, 0, target, device=dev)
+    torch.cuda.synchronize()
+    seen = counts()
+    launches += seen[1]
+    loss_3, (d_scene_3, d_cam_3) = nk.nee_loss_and_grads(corrupted, cam, cfg, 0, target,
+                                                         device=dev)
+    print(f"(b) nee_diffuse: launches: trace {seen[0]}, K4 {seen[1]}, others {seen[2]}; loss "
+          f"{float(loss):.8f}, the NEE kernel's fused mode {float(loss_3):.8f}")
+    if seen != (1, 1, 0):
+        raise RuntimeError("ad_loss_and_grads is not one colour-sum launch and one K4 launch")
+    if abs(float(loss) - float(loss_3)) > 1e-4 * abs(float(loss_3)):
+        raise RuntimeError("ad_loss_and_grads' loss is not the NEE kernel's")
+    nee_compare("(b) K4 route vs the NEE kernel's fused mode: scene gradients",
+                flat_scene_grads(d_scene), flat_scene_grads(d_scene_3), "sums", cross=True)
+    camera_compare("(b) K4 route vs the NEE kernel's fused mode", d_cam, d_cam_3, 1e-4)
+
+    cfg = RenderConfig(width=256, height=256, spp=8, brdf="glossy")
+    target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                         device=dev)["color"]
+    # The first three steps on the autograd route, from the same start.
+    state_t, step_t, _ = inverse.make_inverse_step(
+        corrupted, cam, dataclasses.replace(cfg, backend="torch"), target, ("color",), 2e-2,
+        device=dev)
+    want = []
+    for _ in range(3):
+        state_t, loss_t = step_t(state_t)
+        want.append((float(loss_t), state_t.params["color"].grad.detach().clone()))
+    zero_counts()
+    state, step_fn, _ = inverse.make_inverse_step(corrupted, cam, cfg, target, ("color",), 2e-2,
+                                                  device=dev)
+    losses, step_ms = [], []
+    for i in range(GLOSSY_INVERSE_STEPS):
+        before = counts()
+        t_step = time.perf_counter()
+        state, loss = step_fn(state)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append(1e3 * (time.perf_counter() - t_step))
+        after = counts()
+        if tuple(a - b for a, b in zip(after, before)) != (2, 2, 0):
+            raise RuntimeError(f"glossy inverse step {i} launched trace, K4, others "
+                               f"{tuple(a - b for a, b in zip(after, before))}, not 2, 2, 0")
+        if i < 3:
+            g, (loss_t, g_t) = state.params["color"].grad, want[i]
+            d = float((g - g_t).abs().max())
+            tol = 2e-2 * g_t.abs() + 2e-2 * g_t.abs().max()
+            ok = (abs(losses[i] - loss_t) <= 1e-2 * abs(loss_t)
+                  and bool(((g - g_t).abs() <= tol).all()))
+            print(f"(c) step {i + 1}: loss {losses[i]:.8f}, autograd route {loss_t:.8f}; albedo "
+                  f"gradient max |diff| {d:.3g} of largest {float(g_t.abs().max()):.3g} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"glossy inverse step {i + 1} is not the autograd route's")
+    launches += counts()[1]
+    recovered = inverse.apply_params(corrupted.to(dev), state.params).color.detach().cpu().numpy()
+    err_before, err_after = np.abs(bad - true_color), np.abs(recovered - true_color)
+    print(f"(c) launches: trace {counts()[0]}, K4 {counts()[1]}, others {counts()[2]}")
+    print(f"(c) loss {losses[0]:.6f} (step 1) -> {losses[-1]:.6f} (step {GLOSSY_INVERSE_STEPS}); "
+          f"mean |albedo error| {err_before.mean():.4f} -> {err_after.mean():.4f}; by sphere "
+          f"{[round(float(x), 3) for x in err_before.mean(axis=1)]} -> "
+          f"{[round(float(x), 3) for x in err_after.mean(axis=1)]}")
+    print(f"(c) host-clock step: first {step_ms[0]:.3f} ms, median "
+          f"{statistics.median(step_ms):.3f} ms, {GLOSSY_INVERSE_STEPS} steps "
+          f"{sum(step_ms):.1f} ms")
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError("a glossy inverse step gave a non-finite loss")
+    if not err_after.mean() < err_before.mean():
+        raise RuntimeError(f"mean albedo error {err_after.mean():.4f} is not below its start "
+                           f"{err_before.mean():.4f}")
+    return launches, worst
+
+
+def ad_phase_15(dev, scene, cam, ak, nk, tk):
+    """Kernel and plain times of K4 at the paths' shapes, each last output
+    held against its plain version's. -> ({(name, "kernel" or "plain"): ms},
+    max |kernel - plain|)."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, inverse
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(15, f"K4 timing (kernel: median of {2 * TIMING_ITERS} CUDA-event-timed runs; plain: "
+              f"2 single runs; turns plain, kernel, kernel, plain)")
+    sb = scene.packed()
+    out, worst = {}, 0.0
+
+    def turns(label, kernel_fn, plain_fn):
+        med, got, ref = single_plain_turns(dev, label, kernel_fn, plain_fn)
+        return med, nee_compare(f"{label}/sums", got, ref, "sums")
+
+    for size, spp, configs in ((512, 32, AD_CONFIGS[1:]), (256, 8, AD_CONFIGS[2:3])):
+        ct = torch.zeros((ak.NUM_CT, size, size), device=dev)
+        ct[:3] = 1e-6
+        kw = dict(local_h=size, spp=spp, device=dev)
+        for brdf, nee in configs:
+            name = ad_name(brdf, nee)
+            cfg = RenderConfig(width=size, height=size, spp=spp, brdf=brdf, nee=nee)
+            cb = tk.camera_block(cam, cfg)
+            seed = tk.make_seed_block(cfg)
+            med, err = turns(f"K4 {name} {size}x{size}x{spp} spp x5",
+                             lambda: ak.replay(sb, cb, seed, cfg, ct, **kw),
+                             lambda: ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+            worst = max(worst, err)
+            out[name, size, "kernel"], out[name, size, "plain"] = med["kernel"], med["plain"]
+            if size == 512 and name == "nee_diffuse":
+                ct3 = ct[:3].permute(1, 2, 0).contiguous()
+                ms, got = time_fn(lambda: nk.replay(sb, cb, seed, cfg, ct3, **kw), warmup=2,
+                                  iters=2 * TIMING_ITERS, device=dev)
+                print(f"the NEE kernel's replay beside it: {statistics.median(ms):.4f} ms (runs "
+                      f"{min(ms):.4f}..{max(ms):.4f}); the same bits as K4: "
+                      f"{bool(torch.equal(got, ak.replay(sb, cb, seed, cfg, ct, **kw)))}")
+            if size == 512:
+                ms, _ = time_fn(lambda: tk.trace(sb, cb, seed, cfg, mode="color", **kw),
+                                warmup=2, iters=2 * TIMING_ITERS, device=dev)
+                out[name, size, "color"] = statistics.median(ms)
+                print(f"the trace kernel's colour sums for {name}: {out[name, size, 'color']:.4f} "
+                      f"ms; colour pass plus one K4 launch (render_loss_grads): "
+                      f"{out[name, size, 'color'] + med['kernel']:.4f} ms")
+
+    cfg = RenderConfig(width=256, height=256, spp=8, brdf="glossy")
+    target = torch.full((256, 256, 3), 0.25, device=dev)
+    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target, device=dev)
+    ms, _ = time_fn(step_fn, state, warmup=2, iters=2 * TIMING_ITERS, device=dev)
+    out["step"] = statistics.median(ms)
+    print(f"glossy inverse step 256x256x8 (kernel path, Adam included): {out['step']:.4f} ms "
+          f"(runs {min(ms):.4f}..{max(ms):.4f})")
+    profile_steps("glossy inverse", step_fn, state, out["step"])
+    return out, worst
 
 
 def main() -> int:
@@ -831,6 +1189,7 @@ def main() -> int:
     from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
     from pathtrace_tpu_torch import cli
     from pathtrace_tpu_torch.io.exr import load_aovs_exr
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
     from pathtrace_tpu_torch.ops import build
     from pathtrace_tpu_torch.ops import grad_kernel as gk
     from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
@@ -858,7 +1217,7 @@ def main() -> int:
         print("triton: not installed")
 
     phase(2, "build")
-    sources = (tk.SOURCE, gk.SOURCE, nk.SOURCE, rf.SOURCE)
+    sources = (tk.SOURCE, gk.SOURCE, nk.SOURCE, ak.SOURCE, rf.SOURCE)
     for src in sources:
         for old in build.BUILD_DIR.glob(f"lib{src.stem}-*.so"):
             old.unlink()
@@ -945,6 +1304,9 @@ def main() -> int:
     nee_launches, _ = nee_phase_10(dev, scene, cam, gk, nk, tk)
     peaks, _, probes = probe_phase_11(dev, rf)
     nee_times, nee_err_12 = nee_phase_12(dev, scene, cam, gk, nk, tk)
+    ad_err_13 = ad_phase_13(dev, scene, cam, ak, nk, tk)
+    ad_launches, ad_err_14 = ad_phase_14(dev, scene, cam, gk, nk, ak, tk)
+    ad_times, ad_err_15 = ad_phase_15(dev, scene, cam, ak, nk, tk)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):
@@ -952,7 +1314,9 @@ def main() -> int:
                                                           **extra), 0, dev)
 
     seg = {"512x4": frame_segments(512, 4), "512x32": frame_segments(512, 32),
-           "256x8": frame_segments(256, 8), "512x32 nee": frame_segments(512, 32, nee=True)}
+           "256x8": frame_segments(256, 8), "512x32 nee": frame_segments(512, 32, nee=True),
+           "512x32 glossy": frame_segments(512, 32, brdf="glossy"),
+           "512x32 nee glossy": frame_segments(512, 32, nee=True, brdf="glossy")}
     for name, n_seg in seg.items():
         print(f"traced segments, {name}: {n_seg}")
     ops = rf.OPS_PER_SEGMENT
@@ -980,7 +1344,11 @@ def main() -> int:
         ("nee_grad_kernel[replay]", "nee_grad_kernel.cu",
          "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["replay"],
          max(nee_err["replay"], nee_err_12["replay"]), nee_times["replay", "kernel"],
-         nee_times["replay", "plain"], seg["512x32 nee"], ops["color_nee"], px512 * 3 * 4),
+         nee_times["replay", "plain"], seg["512x32 nee"], ops["ad_nee"], px512 * 3 * 4),
+        ("ad_grad_kernel", "ad_grad_kernel.cu", "pathtrace_tpu/ops/pallas_ad.py:64",
+         ad_launches, max(ad_err_13, ad_err_14, ad_err_15), ad_times["glossy", 512, "kernel"],
+         ad_times["glossy", 512, "plain"], seg["512x32 glossy"], ops["ad_glossy"],
+         px512 * 10 * 4),
     ]
     kernels = []
     for (name, source, replaces, n_launch, max_err, ms, plain_ms, n_seg, ops_seg,
@@ -1016,6 +1384,17 @@ def main() -> int:
               f"{k['bound_ms'] / k['ms']:.3f}"
               + ("" if unfused is None else f"  (unfused {unfused:.4f} ms, share "
                                             f"{unfused / k['ms']:.3f})"))
+    # K4's other configurations at 512x512x32 beside their bounds (the kernels
+    # line carries glossy, the configuration of the main path).
+    for name, key, n_seg in (("nee_glossy", "ad_nee_glossy", seg["512x32 nee glossy"]),
+                             ("nee_diffuse", "ad_nee", seg["512x32 nee"])):
+        ms, b = ad_times[name, 512, "kernel"], rf.bound_ms(n_seg, ops[key], PUBLISHED_F32_FLOPS)
+        print(f"  ad_grad_kernel, {name:12s} {ms:10.4f} ms  bound {b:.4f} ms by operations  share "
+              f"of bound {b / ms:.3f}  (plain {ad_times[name, 512, 'plain']:.1f} ms)")
+    b = rf.bound_ms(seg["512x32 nee"], ops["ad_replay_nee_jaxpr"], PUBLISHED_F32_FLOPS)
+    print(f"  ad_grad_kernel, nee_diffuse against the count of the TPU kernel's generated "
+          f"replay ({ops['ad_replay_nee_jaxpr']} a segment): bound {b:.4f} ms, share "
+          f"{b / ad_times['nee_diffuse', 512, 'kernel']:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 // What the forward kernel (trace_kernel.cu) and the gradient kernels
-// (grad_kernel.cu, nee_grad_kernel.cu) share: the parameter block, the
-// random lattice, the sphere test, one forward path segment (with an
-// optional tape of what a reverse sweep cannot recompute) and the
-// fixed-order sum of per-block partials.
+// (grad_kernel.cu; nee_grad_kernel.cu and ad_grad_kernel.cu through
+// sweep.cuh) share: the parameter block, the random lattice, the sphere
+// test, one forward path segment (with an optional tape of what a reverse
+// sweep cannot recompute) and the fixed-order sum of per-block partials.
 //
 // The gradient kernels retrace the forward kernel's paths sample for
 // sample, so both must run this code with the same arithmetic: every file

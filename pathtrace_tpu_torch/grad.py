@@ -9,18 +9,20 @@ The counterpart of ``pathtrace_tpu.grad``. Two backends, as for rendering:
   toward zero; interior shading and geometry gradients are exact in
   expectation. Each spp chunk is checkpointed (``torch.utils.checkpoint``),
   so its intermediates are recomputed in the backward instead of kept.
-- ``"cuda"``: the hand-written kernels, for the diffuse estimators. Without
-  NEE (``ops/grad_kernel.py``) a sample's colour is a product chain in
-  emission and albedo, so gradients of the colour with respect to
+- ``"cuda"``: the hand-written kernels, for every configuration. Diffuse
+  without NEE (``ops/grad_kernel.py``): a sample's colour is a product
+  chain in emission and albedo, so gradients of the colour with respect to
   positions, radii and the camera are exactly zero, and are returned as
-  zeros. With NEE (``ops/nee_grad_kernel.py``) the colour depends
+  zeros. NEE diffuse (``ops/nee_grad_kernel.py``): the colour depends
   continuously on sphere positions, radii and the camera through the
   Lambert term of the light sample, and the kernel returns the gradients
-  of all seven fields. Glossy raises ``NotImplementedError`` on ``"cuda"``:
-  its kernel (K4) is not ported yet; ``"torch"`` serves it. The normal and
-  depth AOVs are differentiated on ``"torch"`` whatever the backend
-  (``render_aovs_diff``, ``render_geometry_grads``): no kernel takes their
-  cotangents.
+  of all seven fields. Glossy, with or without NEE
+  (``ops/ad_grad_kernel.py``): the all-parameter backward, after a colour
+  pass of the forward kernel. ``render_aovs_diff`` and
+  ``render_geometry_grads`` differentiate all four AOVs with autograd on
+  ``"torch"`` whatever the backend, as in the JAX package; the kernel that
+  takes the cotangents of the normal, albedo and depth AOVs is reached
+  through ``ops.ad_grad_kernel.ad_aov_grads``.
 
 ``"auto"`` is ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU.
 Gradients come back as a ``Scene`` and a ``Camera`` holding the gradient of
@@ -71,8 +73,8 @@ def _device(scene, device) -> torch.device:
 
 def render_aovs_diff(scene, cam, cfg: RenderConfig, frame=0, device=None):
     """Differentiable AOV dict on the ``"torch"`` backend, whatever
-    ``cfg.backend`` says: no kernel computes the gradients of the normal and
-    depth AOVs.
+    ``cfg.backend`` says (for given AOV cotangents on the kernels see
+    ``ops.ad_grad_kernel.ad_aov_grads``).
 
     Colour is differentiable in albedo and emission everywhere, and in
     geometry only through the NEE Lambert term (``cfg.nee``). Depth and
@@ -85,8 +87,8 @@ def render_aovs_diff(scene, cam, cfg: RenderConfig, frame=0, device=None):
 
 def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:
     """Differentiable colour image [H, W, 3]: on ``"cuda"`` a kernel forward
-    and a kernel or contraction backward (``grad_kernel.render_color``),
-    autograd on ``"torch"``."""
+    and a kernel or contraction backward for every configuration
+    (``grad_kernel.render_color``), autograd on ``"torch"``."""
     device = _device(scene, device)
     if resolve_backend(cfg, device) == "cuda":
         return grad_kernel.render_color(scene, cam, cfg, frame, device)
@@ -114,8 +116,10 @@ def _value_and_grad(f: Callable, scene, cam, device):
 def render_loss_grads(scene, cam, cfg: RenderConfig, frame=0, target=None, device=None):
     """(loss, (d_scene, d_camera)) of the mean-squared pixel loss against
     ``target`` [H, W, 3], or against a zero image when there is none. On
-    ``"cuda"`` one fused kernel launch computes loss and gradients: the
-    product-chain kernel for diffuse, the NEE kernel under ``cfg.nee``."""
+    ``"cuda"`` the kernels compute loss and gradients: one fused launch of
+    the product-chain kernel for diffuse or of the NEE kernel for NEE
+    diffuse; for glossy one colour pass of the forward kernel and one launch
+    of the all-parameter backward."""
     device = _device(scene, device)
     if target is None:
         target = torch.zeros((cfg.height, cfg.width, 3), device=device)
@@ -131,7 +135,8 @@ def render_loss_grads(scene, cam, cfg: RenderConfig, frame=0, target=None, devic
 
 def render_scalar_grads(scene, cam, cfg: RenderConfig, frame=0, device=None):
     """Gradients of the mean image luminance, the probe of the finite-
-    difference tests (albedo and emission; and geometry when cfg.nee)."""
+    difference tests (albedo and emission; and geometry under NEE). On
+    ``"cuda"`` through ``grad_kernel.render_color``, any configuration."""
     device = _device(scene, device)
 
     def f(scene_, cam_):

@@ -11,12 +11,14 @@ On ``"cuda"`` a step takes its loss and gradients from
 ``grad_kernel.cross_grads``, as the JAX package's all-Pallas step takes
 them from ``pallas_cross_grads``. Diffuse without NEE: two dump-kernel
 launches and the contraction; positions and radii get the exact zeros of
-that estimator. NEE diffuse: two colour-sum launches of the forward kernel
-and two NEE replay launches, which also give the position and radius
-gradients, so geometry is recovered on the kernels. The albedo clip's
-subgradient is applied by hand (``clip01_grad``). On ``"torch"`` a step is
-autograd through the wavefront. Either way the albedo is clipped to [0, 1]
-with ``clip01``, whose gradient at the boundary is jnp.clip's 1/2.
+that estimator. NEE diffuse and glossy (with or without NEE): two
+colour-sum launches of the forward kernel and two replay launches (the NEE
+kernel, or the all-parameter backward for glossy), which also give the
+position and radius gradients, so geometry is recovered on the kernels. The
+albedo clip's subgradient is applied by hand (``clip01_grad``). On
+``"torch"`` a step is autograd through the wavefront. Either way the albedo
+is clipped to [0, 1] with ``clip01``, whose gradient at the boundary is
+jnp.clip's 1/2.
 
 ``torch.optim.Adam`` takes the place of optax's ``adam``: the two updates
 are the same function, ``lr * m_hat / (sqrt(v_hat) + eps)`` with b1 0.9,
@@ -117,7 +119,7 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
                                               target, device)
         grads = {}
         for name, p in params.items():
-            if name not in d:  # positions and radii without NEE: exactly zero
+            if name not in d:  # positions and radii, diffuse without NEE: exactly zero
                 grads[name] = torch.zeros_like(p)
             elif name == "color":  # chained through apply_params' clip01
                 grads[name] = d[name] * clip01_grad(p.detach())

@@ -2,8 +2,9 @@
 
 Each ``.cu`` file becomes ``build/lib<stem>-<digest>.so``, where the digest
 hashes the source, every header it includes from ``csrc/`` (recursively)
-and the flags: an edit to ``common.cuh`` rebuilds both kernels, and a
-library that already exists is reused. ``build_all`` starts one nvcc for
+and the flags: an edit to ``common.cuh`` rebuilds every kernel that
+includes it, one to ``sweep.cuh`` the two that share the reverse sweep, and
+a library that already exists is reused. ``build_all`` starts one nvcc for
 each source at once. Nothing here runs when the module is imported.
 """
 

@@ -25,19 +25,19 @@ against each other under the tolerances stated with it.
 The estimator of these three modes is diffuse without NEE: a sample's
 colour is then a product chain in the hit spheres' emission and albedo, and
 its gradient with respect to positions, radii and the camera is exactly
-zero. NEE diffuse has its own kernel, ``ops/nee_grad_kernel.py`` (all
-parameters, geometry and camera included), and the entry points below that
-take any configuration dispatch to it as ``pallas_grad.py`` does. Glossy
-(with or without NEE) needs K4, ``pathtrace_tpu/ops/pallas_ad.py::
-_ad_grad_kernel``, which is not ported yet: every entry point raises
-``NotImplementedError`` for it.
+zero. NEE diffuse has its own kernel, ``ops/nee_grad_kernel.py`` (K3: all
+parameters, geometry and camera included), and glossy, with or without
+NEE, goes to the all-parameter backward of ``ops/ad_grad_kernel.py`` (K4).
+The entry points below that take any configuration dispatch to them as
+``pallas_grad.py`` does; none raises for a configuration.
 
-Entry points (the JAX package's names, plus ``device=``): ``fused_loss_grads``,
-``grad_acc_slab``, ``render_grad_acc``, ``render_color_grads`` (diffuse
-without NEE); ``cross_grads`` (with ``cross_contract``, its arithmetic after
-two dumps), ``loss_and_grads`` and ``render_color``, a differentiable colour
-render (the dump forward and a contraction backward; under NEE the forward
-kernel's colour sums forward and the NEE replay backward), which dispatch.
+Entry points (the JAX package's names, plus ``device=``): ``grad_acc_slab``
+and ``render_grad_acc`` (diffuse without NEE only: the accumulators exist
+for the product chain alone); ``fused_loss_grads``, ``render_color_grads``,
+``cross_grads`` (with ``cross_contract``, its arithmetic after two dumps),
+``loss_and_grads`` and ``render_color``, a differentiable colour render,
+which dispatch: diffuse to the modes above, NEE diffuse to K3, glossy to
+the forward kernel's colour sums and K4's replay.
 """
 
 from __future__ import annotations
@@ -59,22 +59,21 @@ MODES = ("fused", "dump", "replay")
 MAX_BOUNCES = 16  # the kernel's tape holds 4 bits a bounce in 64 bits
 
 
-def require_ported(cfg: RenderConfig, what: str):
-    """Raise for the estimator whose gradient kernel is not ported: glossy."""
-    if cfg.brdf != "diffuse":
-        raise NotImplementedError(
-            f"{what}: no CUDA gradient kernel for the {cfg.brdf} estimator yet. It needs "
-            "K4 (pathtrace_tpu/ops/pallas_ad.py::_ad_grad_kernel), not ported yet; the "
-            "diffuse estimators are covered, with NEE (ops/nee_grad_kernel.py) and "
-            "without. backend='torch' differentiates glossy with autograd.")
-
-
 def require_diffuse(cfg: RenderConfig, what: str):
     """Raise for what the product-chain kernels of this module do not cover."""
-    require_ported(cfg, what)
-    if cfg.nee:
-        raise ValueError(f"{what}: the product-chain kernels cover diffuse without NEE; "
-                         "NEE diffuse goes through ops/nee_grad_kernel.py")
+    if cfg.nee or cfg.brdf != "diffuse":
+        raise ValueError(f"{what}: the product-chain kernels cover diffuse without NEE, got "
+                         f"nee={cfg.nee}, brdf={cfg.brdf!r}; NEE diffuse goes through "
+                         "ops/nee_grad_kernel.py, glossy through ops/ad_grad_kernel.py")
+
+
+def route(cfg: RenderConfig) -> str:
+    """The gradient kernel of a configuration: ``"chain"`` (K2/K5, diffuse),
+    ``"nee"`` (K3, NEE diffuse) or ``"ad"`` (K4, glossy with or without
+    NEE)."""
+    if cfg.brdf != "diffuse":
+        return "ad"
+    return "nee" if cfg.nee else "chain"
 
 
 # -- the plain versions ----------------------------------------------------------
@@ -335,12 +334,30 @@ def _per_pixel(x, device) -> torch.Tensor:
 
 def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     """(loss, d_emission [N, 3], d_color [N, 3], colour [H, W, 3]) of the
-    mean-squared pixel loss against ``target`` [H, W, 3]: one fused launch."""
+    mean-squared pixel loss against ``target`` [H, W, 3]. Diffuse: one fused
+    launch. NEE diffuse: one fused launch of the NEE kernel. Glossy: one
+    colour-sum launch of the forward kernel and one K4 replay."""
+    kind = route(cfg)
+    denom = cfg.height * cfg.width * 3
+    if kind == "nee":
+        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+        sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+        sums, color = nk.fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
+                               _per_pixel(target, device), local_h=cfg.height, spp=cfg.spp,
+                               device=device)
+        d = _scene_grads(nk.block_from_sums(sums) / denom)
+        return sums[-1] / denom, d.emission, d.color, color
+    if kind == "ad":
+        color = tk.render_color_sums(scene, cam, cfg, frame, device=device) / cfg.spp
+        diff = color - torch.as_tensor(target, dtype=torch.float32, device=color.device)
+        d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, 2.0 * diff / denom,
+                                            color.device))
+        return torch.sum(diff * diff) / denom, d.emission, d.color, color
     sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
     sums, color = fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
                         _per_pixel(target, device), local_h=cfg.height,
                         spp=cfg.spp, device=device)
-    denom = cfg.height * cfg.width * 3
     d_e, d_c = _split(sums, sb.shape[0], denom)
     return sums[-1] / denom, d_e, d_c, color
 
@@ -373,7 +390,12 @@ def contract(ct: torch.Tensor, acc: torch.Tensor):
 
 def render_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
     """(d_emission [N, 3], d_color [N, 3]) of sum(cotangent * mean colour) for
-    ``cotangent`` [H, W, 3]: one replay launch."""
+    ``cotangent`` [H, W, 3]: one replay launch of the configuration's kernel
+    (under NEE or glossy it also computes the geometry and camera gradients,
+    which this signature drops)."""
+    if route(cfg) != "chain":
+        d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, cotangent, device))
+        return d.emission, d.color
     sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
     ct = _per_pixel(cotangent, device) / cfg.spp
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
@@ -392,48 +414,68 @@ def cross_contract(a, acc_a, b, acc_b, target):
     return torch.sum(ra * rb) / denom, {"emission": d_ea + d_eb, "color": d_ca + d_cb}
 
 
-def _nee(cfg: RenderConfig, what: str) -> bool:
-    """Whether ``cfg`` goes to the NEE kernel; raises for glossy."""
-    require_ported(cfg, what)
-    return cfg.nee
+def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
+    """Gradient block [N + 5, 11] of sum(cotangent * mean colour), all
+    parameters, for a configuration off the product chain: one replay launch
+    of K3 (NEE diffuse) or K4 (glossy)."""
+    if route(cfg) == "nee":
+        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device)
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+
+    device = scene.device if device is None else torch.device(device)
+    ct = ak.pack_cotangents(cfg, cotangent, device=device)
+    return ak.ad_grads_block_slab(scene, cam, cfg, frame, ct, device=device)
+
+
+def _scene_grads(block):
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+    return nk.scene_grads_from_block(block)
 
 
 def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     """(loss, gradients by field) of the cross-estimator over two independent
     renders, frames 2 step and 2 step + 1: the inverse step's gradient on
     ``"cuda"``. Diffuse: two dump launches and ``cross_contract`` ->
-    {"emission", "color"}. NEE diffuse: two colour-sum launches of the
-    forward kernel, then two NEE replays, each against the other render's
-    residual -> also "position" and "radius"."""
-    if not _nee(cfg, "cross_grads"):
+    {"emission", "color"}. NEE diffuse and glossy: two colour-sum launches
+    of the forward kernel, then two replays (K3 for NEE diffuse, K4 for
+    glossy), each against the other render's residual -> also "position"
+    and "radius"."""
+    if route(cfg) == "chain":
         a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
         b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
         target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
         return cross_contract(a, acc_a, b, acc_b, target)
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
     a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device) / cfg.spp
     b = tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device) / cfg.spp
     target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
     ra, rb = a - target, b - target
     denom = a.numel()
-    block = (nk.nee_color_grads(scene, cam, cfg, 2 * step, rb / denom, device)
-             + nk.nee_color_grads(scene, cam, cfg, 2 * step + 1, ra / denom, device))
-    d = nk.scene_grads_from_block(block)
+    d = _scene_grads(_color_grads_block(scene, cam, cfg, 2 * step, rb / denom, device)
+                     + _color_grads_block(scene, cam, cfg, 2 * step + 1, ra / denom, device))
     return torch.sum(ra * rb) / denom, {"emission": d.emission, "color": d.color,
                                         "position": d.position, "radius": d.radius}
 
 
 def loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     """(loss, (d_scene, d_cam)) of the mean-squared pixel loss, on the render
-    device, in one fused launch (``pallas_loss_and_grads``'s dispatch). NEE
-    diffuse: the NEE kernel, all parameters. Diffuse: the product-chain
-    kernel; geometry and camera get exact zeros, since that estimator does
-    not depend on them. Glossy raises."""
-    if _nee(cfg, "loss_and_grads"):
+    device (``pallas_loss_and_grads``'s dispatch). NEE diffuse: one fused
+    launch of the NEE kernel, all parameters. Glossy, with or without NEE:
+    one colour-sum launch of the forward kernel and one K4 replay, all
+    parameters. Diffuse: one fused launch of the product-chain kernel;
+    geometry and camera get exact zeros, since that estimator does not
+    depend on them."""
+    kind = route(cfg)
+    if kind == "nee":
         from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 
         return nk.nee_loss_and_grads(scene, cam, cfg, frame, target, device)
+    if kind == "ad":
+        from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+
+        return ak.ad_loss_and_grads(scene, cam, cfg, frame, target, device)
     loss, d_e, d_c, _ = fused_loss_grads(scene, cam, cfg, frame, target, device)
     scene, cam = scene.to(loss.device), cam.to(loss.device)
     d_scene = Scene(torch.zeros_like(scene.radius), torch.zeros_like(scene.position), d_e, d_c)
@@ -473,10 +515,11 @@ class _DumpColor(torch.autograd.Function):
         return (None, None, None, *grads)
 
 
-class _NeeColor(torch.autograd.Function):
-    """Mean colour [H, W, 3] of an NEE diffuse render from one colour-sum
-    launch of the forward kernel; the backward is one NEE replay launch
-    against the colour's cotangent, with gradients for all seven leaves."""
+class _ReplayColor(torch.autograd.Function):
+    """Mean colour [H, W, 3] of an NEE or glossy render from one colour-sum
+    launch of the forward kernel; the backward is one replay launch (K3 for
+    NEE diffuse, K4 for glossy) against the colour's cotangent, with
+    gradients for all seven leaves."""
 
     @staticmethod
     def forward(ctx, cfg, frame, device, radius, position, emission, color, cam_position, yaw,
@@ -494,7 +537,7 @@ class _NeeColor(torch.autograd.Function):
         cfg, frame, device = ctx.render
         leaves = ctx.saved_tensors
         scene, cam = Scene(*leaves[:4]), Camera(*leaves[4:])
-        block = nk.nee_color_grads(scene, cam, cfg, frame, grad_color, device)
+        block = _color_grads_block(scene, cam, cfg, frame, grad_color, device)
         d_scene, d_cam = nk.grads_from_block(scene, cam, cfg, block)
         grads = [d_scene.radius, d_scene.position, d_scene.emission, d_scene.color,
                  d_cam.position, d_cam.yaw, d_cam.pitch]
@@ -507,9 +550,9 @@ def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.T
     """Differentiable mean colour [H, W, 3] through the kernels. Diffuse: one
     dump launch forward, a contraction backward; gradients reach emission
     and albedo, and positions, radii and the camera get exact zeros. NEE
-    diffuse: the forward kernel's colour sums forward, one NEE replay launch
-    backward; gradients reach all seven leaves."""
+    diffuse and glossy: the forward kernel's colour sums forward, one replay
+    launch backward (K3, K4); gradients reach all seven leaves."""
     device = scene.device if device is None else torch.device(device)
-    fn = _NeeColor if _nee(cfg, "render_color") else _DumpColor
+    fn = _DumpColor if route(cfg) == "chain" else _ReplayColor
     return fn.apply(cfg, frame, device, scene.radius, scene.position, scene.emission,
                     scene.color, cam.position, cam.yaw, cam.pitch)

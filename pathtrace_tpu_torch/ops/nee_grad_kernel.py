@@ -17,7 +17,10 @@ and albedo, the eye and the four corner rays. Two modes:
 ``fused`` and ``replay`` are the wrappers. On the CPU they run
 ``fused_plain`` and ``replay_plain``, a transcription of the kernel's own
 order of operations over [h, W] tensors on top of ``trace_kernel``'s plain
-trajectory; on a CUDA device they launch the kernel, or raise. Both give
+trajectory; on a CUDA device they launch the kernel, or raise. The reverse
+sweep (``csrc/sweep.cuh``, here ``_sweep_plain``) is shared with the
+all-parameter backward of ``ops/ad_grad_kernel.py``, which instantiates it
+for glossy, for no NEE and with the bounce-0 AOV cotangents as well. Both give
 the flat sums [10N + 16]: sphere i at 10 i (radius, position xyz, emission
 rgb, albedo rgb), the eye at 10N, the corner rays 00, 10, 01, 11 at
 10N + 3, the loss (fused) at 10N + 15. ``block_from_sums`` lays them out
@@ -78,12 +81,15 @@ def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dtype=torch.float64).to(torch.float32)
 
 
-def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
-    """The kernel's sweep loop over [local_h, W] tensors against the colour
-    cotangent ``ct`` [3] -> (shading accumulators [6N], geometry sums
-    [4N + 15])."""
+def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct, aov=None):
+    """The kernels' sweep loop (``csrc/sweep.cuh``) over [local_h, W] tensors
+    against the colour cotangent ``ct`` [3] and, if given, the bounce-0 AOV
+    cotangents ``aov`` [7] (normal xyz, albedo rgb, depth), for the
+    configuration of ``cfg`` (diffuse or glossy, with or without NEE) ->
+    (shading accumulators [6N], geometry sums [4N + 15])."""
     n = len(lat.sc)
-    li = cfg.light_index
+    nee, glossy = cfg.nee, cfg.brdf == "glossy"
+    li = cfg.light_index if nee else 0
     lt = lat.sc[li]
     le = (lt["er"], lt["eg"], lt["eb"])
     push = cfg.push_ray_origin
@@ -122,9 +128,11 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
             nux, nuy, nuz = q["nu"]
             nx, ny, nz = q["n"]
             n_inv, flip = q["n_inv"], q["flip"]
-            ldx, ldy, ldz = q["ld"]
-            l_inv, dr, dl = q["l_inv"], q["dr"], q["dl"]
-            dlw = torch.where(q["vis"], 0.5, 0.0) * clip01_grad(dr)
+            dl = zeros
+            if nee:
+                ldx, ldy, ldz = q["ld"]
+                l_inv, dr, dl = q["l_inv"], q["dr"], q["dl"]
+                dlw = torch.where(q["vis"], 0.5, 0.0) * clip01_grad(dr)
 
             hhx = hhy = hhz = nhx = nhy = nhz = zeros
             if b + 1 < cfg.max_bounces:
@@ -133,9 +141,28 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
                 ohx, ohy, ohz = oh
                 dhx, dhy, dhz = dh
                 hhx, hhy, hhz = ohx, ohy, ohz
-                nhx = push * ohx + zc * dhx
-                nhy = push * ohy + zc * dhy
-                nhz = push * ohz + zc * dhz
+                nhx, nhy, nhz = push * ohx, push * ohy, push * ohz
+                if glossy:
+                    cx, cy, cz = q["c"]
+                    bx, by, bz = q["b"]
+                    qx, qy, qz = q["q"]
+                    b_inv, dn2, g_inv = q["b_inv"], q["dn2"], q["g_inv"]
+                    qd = g_inv * g_inv * g_inv * tk._dot3(qx, qy, qz, dhx, dhy, dhz)
+                    rhx = g_inv * dhx - qd * qx
+                    rhy = g_inv * dhy - qd * qy
+                    rhz = g_inv * dhz - qd * qz
+                    nr2 = 2.0 * tk._dot3(nx, ny, nz, rhx, rhy, rhz)
+                    bhx, bhy, bhz = rhx - nr2 * nx, rhy - nr2 * ny, rhz - nr2 * nz
+                    nhx = nhx - (dn2 * rhx + nr2 * bx)
+                    nhy = nhy - (dn2 * rhy + nr2 * by)
+                    nhz = nhz - (dn2 * rhz + nr2 * bz)
+                    cd = b_inv * b_inv * b_inv * tk._dot3(cx, cy, cz, bhx, bhy, bhz)
+                    dhx = b_inv * bhx - cd * cx
+                    dhy = b_inv * bhy - cd * cy
+                    dhz = b_inv * bhz - cd * cz
+                nhx = nhx + zc * dhx
+                nhy = nhy + zc * dhy
+                nhz = nhz + zc * dhz
                 t1x, t1y, t1z = cs * dhx, cs * dhy, cs * dhz
                 t2x, t2y, t2z = ss * dhx, ss * dhy, ss * dhz
                 nhx = nhx + (o1y * t2z - o1z * t2y)
@@ -152,12 +179,6 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
                 nhy = nhy + torch.where(use_a, -p1x, p1z)
                 nhz = nhz + torch.where(use_a, zeros, -p1y)
 
-            wdr = dlw * (ct[0] * m[0] * le[0] * cc[0] + ct[1] * m[1] * le[1] * cc[1]
-                         + ct[2] * m[2] * le[2] * cc[2])
-            bvx = l_inv * (nx - ldx * dr)
-            bvy = l_inv * (ny - ldy * dr)
-            bvz = l_inv * (nz - ldz * dr)
-
             spx, spy, spz = q["p"]
             rad = q["rad"]
             relx, rely, relz = spx - ox, spy - oy, spz - oz
@@ -173,13 +194,21 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
             kdx, kdy, kdz = corr * relx + tca * ux, corr * rely + tca * uy, corr * relz + tca * uz
             kr = a_ * rad
 
-            nhx, nhy, nhz = nhx + wdr * ldx, nhy + wdr * ldy, nhz + wdr * ldz
-            lhx, lhy, lhz = wdr * bvx, wdr * bvy, wdr * bvz
-            hhx, hhy, hhz = hhx - lhx, hhy - lhy, hhz - lhz
-            geom(4 * li + 1, lhx, hit)
-            geom(4 * li + 2, lhy, hit)
-            geom(4 * li + 3, lhz, hit)
-            geom(4 * li + 0, -lhy, hit)
+            if nee:
+                wdr = dlw * (ct[0] * m[0] * le[0] * cc[0] + ct[1] * m[1] * le[1] * cc[1]
+                             + ct[2] * m[2] * le[2] * cc[2])
+                bvx = l_inv * (nx - ldx * dr)
+                bvy = l_inv * (ny - ldy * dr)
+                bvz = l_inv * (nz - ldz * dr)
+                nhx, nhy, nhz = nhx + wdr * ldx, nhy + wdr * ldy, nhz + wdr * ldz
+                lhx, lhy, lhz = wdr * bvx, wdr * bvy, wdr * bvz
+                hhx, hhy, hhz = hhx - lhx, hhy - lhy, hhz - lhz
+                geom(4 * li + 1, lhx, hit)
+                geom(4 * li + 2, lhy, hit)
+                geom(4 * li + 3, lhz, hit)
+                geom(4 * li + 0, -lhy, hit)
+            if aov is not None and first:
+                nhx, nhy, nhz = nhx + aov[0], nhy + aov[1], nhz + aov[2]
 
             ax, ay, az = flip * nhx, flip * nhy, flip * nhz
             sd = nux * ax + nuy * ay + nuz * az
@@ -190,6 +219,8 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
             phx, phy, phz = -ppx, -ppy, -ppz
 
             t_hat = dx * hhx + dy * hhy + dz * hhz
+            if aov is not None and first:
+                t_hat = t_hat + aov[6]
             tu_hat = t_hat * inv_len if first else t_hat
             r_hat = tu_hat * kr
             phx, phy, phz = phx + tu_hat * kpx, phy + tu_hat * kpy, phz + tu_hat * kpz
@@ -214,15 +245,20 @@ def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct):
 
             for ch in range(3):
                 cmv = clip01_grad(m[ch] * e[ch]) if first else 1.0
-                src = dl * le[ch] + hb[ch]
+                src = dl * le[ch] + hb[ch] if nee else hb[ch]
                 ae = ct[ch] * (m[ch] * cmv)
                 acb = ct[ch] * (m[ch] * src)
-                al = ct[ch] * (m[ch] * dl * cc[ch])
                 for i in range(n):
                     sel = hit & (idx == i)
                     shade[6 * i + ch] = shade[6 * i + ch] + torch.where(sel, ae, zeros)
                     shade[6 * i + 3 + ch] = shade[6 * i + 3 + ch] + torch.where(sel, acb, zeros)
-                shade[6 * li + ch] = shade[6 * li + ch] + torch.where(hit, al, zeros)
+                if nee:
+                    al = ct[ch] * (m[ch] * dl * cc[ch])
+                    shade[6 * li + ch] = shade[6 * li + ch] + torch.where(hit, al, zeros)
+                if aov is not None and first:
+                    for i in range(n):
+                        shade[6 * i + 3 + ch] = shade[6 * i + 3 + ch] + torch.where(
+                            hit & (idx == i), aov[3 + ch], zeros)
                 hb[ch] = torch.where(hit, cmv * e[ch] + src * cc[ch], hb[ch])
 
         u, v = tape[0][5]["uv"]

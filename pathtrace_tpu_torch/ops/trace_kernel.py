@@ -82,9 +82,10 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
     ``tape`` receives one (hit, sphere index, throughput, emission, albedo,
     geometry) entry a bounce, the throughput as it was before the bounce:
     the forward tape of the gradient kernels' reverse sweeps. ``geometry``
-    is a dict of the bounce's geometric intermediates, which the NEE sweep
-    (``ops/nee_grad_kernel.py``) reads; the product-chain sweep
-    (``ops/grad_kernel.py``) ignores it."""
+    is a dict of the bounce's geometric intermediates (with the light's under
+    NEE and the reflection chain's under glossy), which the all-parameter
+    sweep (``ops/nee_grad_kernel.py``, ``ops/ad_grad_kernel.py``) reads; the
+    product-chain sweep (``ops/grad_kernel.py``) ignores it."""
     zeros = torch.zeros_like(rows)
     spb = cfg.slots_per_bounce
     push = cfg.push_ray_origin
@@ -163,6 +164,8 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
                        inv_len=inv_len, t=t_best, p=tuple(s_p), rad=s_rad, far=s_far,
                        nu=(nx, ny, nz), n_inv=n_inv, flip=flip)
         nx, ny, nz = nx * flip, ny * flip, nz * flip
+        if geo is not None:
+            geo["n"] = (nx, ny, nz)
 
         e = [m * se for m, se in zip(mask, s_e)]
         if bounce == 0:
@@ -193,7 +196,7 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
             e = [x + m * dl * lt[k] * sc_ for x, m, k, sc_ in
                  zip(e, mask, ("er", "eg", "eb"), s_c)]
             if geo is not None:
-                geo.update(n=(nx, ny, nz), ld=(ldx, ldy, ldz), l_inv=l_inv, vis=vis, dl=dl,
+                geo.update(ld=(ldx, ldy, ldz), l_inv=l_inv, vis=vis, dl=dl,
                            dr=_dot3(ldx, ldy, ldz, nx, ny, nz))
         col = [cc + torch.where(hit_now, x, zeros) for cc, x in zip(col, e)]
         if tape is not None:
@@ -229,13 +232,19 @@ def _sample_plain(sc, eye, basis, rows, cols, draw, cfg: RenderConfig, tape=None
             bdz = cs * o1z + ss * o2z + zc * nz
             if cfg.brdf == "glossy":
                 b_inv = torch.rsqrt(_dot3(bdx, bdy, bdz, bdx, bdy, bdz) + 1e-20)
+                if geo is not None:
+                    geo.update(c=(bdx, bdy, bdz), b_inv=b_inv)
                 bdx, bdy, bdz = bdx * b_inv, bdy * b_inv, bdz * b_inv
                 dn2 = 2.0 * _dot3(bdx, bdy, bdz, nx, ny, nz)
+                if geo is not None:
+                    geo.update(b=(bdx, bdy, bdz), dn2=dn2)
                 bdx, bdy, bdz = bdx - dn2 * nx, bdy - dn2 * ny, bdz - dn2 * nz
                 bdx = bdx + 0.01 * draw(2 + spb * bounce + 2) - 0.005
                 bdy = bdy + 0.01 * draw(2 + spb * bounce + 3) - 0.005
                 bdz = bdz + 0.01 * draw(2 + spb * bounce + 4) - 0.005
                 g_inv = torch.rsqrt(_dot3(bdx, bdy, bdz, bdx, bdy, bdz) + 1e-20)
+                if geo is not None:
+                    geo.update(q=(bdx, bdy, bdz), g_inv=g_inv)
                 bdx, bdy, bdz = bdx * g_inv, bdy * g_inv, bdz * g_inv
             ox = torch.where(hit_now, hx + nx * push, ox)
             oy = torch.where(hit_now, hy + ny * push, oy)

@@ -22,7 +22,9 @@ torch loop; on a CUDA device they launch the kernel, or raise.
 into the least time a kernel could take at a given peak. The JAX package
 counts operations by walking the jaxpr of its kernels (``count_jaxpr_ops``);
 that cannot exist without JAX, so the counts it recorded are kept here as
-constants with their source. They are operation counts of the algorithm,
+constants with their source, beside the counts that
+``scripts/torch_count_ops.py`` takes from the plain versions of the
+hand-derived sweeps. They are operation counts of the algorithm,
 not timings of any device, and they count a multiply and an add as two
 operations, as a peak in FLOP/s credits a fused multiply-add with two: so
 the peak to divide them by is the FMA peak (``peak_fma_flops``, or the
@@ -59,6 +61,17 @@ OPS_PER_SEGMENT = {
     "forward_nee": 898.0,  # the same with the shadow ray
     "color_nee": 877.8,  # colour-only forward under NEE
     "nee_grad_fused": 1973.6,  # K3 fused as the TPU kernel does it: forward + sweep, one pass
+    # The TPU's in-kernel-AD replay under NEE diffuse (docs/ROOFLINE.md section
+    # 5): the code jax.vjp generates, not the hand-derived sweep.
+    "ad_replay_nee_jaxpr": 1988.6,
+    # The hand-derived all-parameter backward (K4; on NEE diffuse also K3's
+    # replay, the same sweep): a taped forward sample plus the reverse sweep
+    # with run-time-indexed accumulators, counted on the plain version by
+    # scripts/torch_count_ops.py with the same rules (9 spheres, 5 bounces).
+    "ad_diffuse": 874.8,  # forward 606.8 + sweep 268.0
+    "ad_nee": 1299.8,  # 940.8 + 359.0
+    "ad_glossy": 992.4,  # 678.0 + 314.4
+    "ad_nee_glossy": 1417.4,  # 1012.0 + 405.4
 }
 
 

@@ -226,22 +226,42 @@ def test_cuda_backend_matches_torch_backend(state):
 @pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
 @pytest.mark.parametrize("entry", ["loss_grads", "render_color", "inverse_step", "kernel"])
 def test_cuda_backend_raises_for_unported_configs(state, extra, entry):
-    """Glossy, with or without NEE, needs K4: "cuda" raises and falls back to
-    nothing. (NEE diffuse has its kernel: tests/test_torch_nee_grad.py.)"""
+    """Glossy, with or without NEE, raised here while K4 was not ported. No
+    configuration is unported any more: on "cuda" each entry point dispatches
+    glossy to K4 (its plain version on the CPU) and returns finite gradients
+    that reach the albedo and, through the NEE light sample, the geometry
+    (without NEE the colour does not depend on it: exact zeros). Only the
+    product-chain kernel's own wrapper still refuses what it does not
+    compute, naming the module that does."""
     _, _, scene, cam, target = state
-    cfg = dataclasses.replace(CFG, height=8, width=8, **extra)
-    target = torch.from_numpy(target[:8, :8])
-    with pytest.raises(NotImplementedError, match="K4.*not ported"):
-        if entry == "loss_grads":
-            port_grad.render_loss_grads(scene, cam, cfg, 0, target)
-        elif entry == "render_color":
-            port_grad.render_color(scene, cam, cfg)
-        elif entry == "inverse_step":
-            state_, step_fn, _ = port_inverse.make_inverse_step(scene, cam, cfg, target)
-            step_fn(state_)
-        else:
+    cfg = dataclasses.replace(CFG, height=8, width=32, **extra)
+    target = torch.from_numpy(target[:8, :32])
+    if entry == "kernel":
+        with pytest.raises(ValueError, match="ad_grad_kernel"):
             gk.dump(scene.packed(), tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg,
                     local_h=8, spp=1)
+        return
+    if entry == "loss_grads":
+        loss, (ds, _) = port_grad.render_loss_grads(scene, cam, cfg, 0, target)
+        d_color, d_position = ds.color, ds.position
+    elif entry == "render_color":
+        leaves = [x.clone().requires_grad_(True) for x in (scene.position, scene.color)]
+        s = Scene(scene.radius, leaves[0], scene.emission, leaves[1])
+        loss = port_grad.l2_image_loss(port_grad.render_color(s, cam, cfg), target)
+        d_position, d_color = torch.autograd.grad(loss, leaves)
+    else:
+        state_, step_fn, _ = port_inverse.make_inverse_step(scene, cam, cfg, target,
+                                                            ("color", "position"))
+        before = {k: v.detach().clone() for k, v in state_.params.items()}
+        state_, loss = step_fn(state_)
+        d_color = state_.params["color"].detach() - before["color"]
+        d_position = state_.params["position"].detach() - before["position"]
+    assert torch.isfinite(loss) and loss > 0
+    assert torch.isfinite(d_color).all() and (d_color != 0).sum() >= 3
+    if cfg.nee:
+        assert torch.isfinite(d_position).all() and (d_position != 0).sum() >= 3
+    else:
+        assert not d_position.any()
 
 
 @pytest.mark.parametrize("kind", ["sums", "acc", "color"])

@@ -195,6 +195,17 @@ def test_loss_grads_entry_points_agree(dev):
 
 @pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
 def test_unported_configs_raise_on_cuda(dev, extra):
+    """Glossy raised here while K4 was not ported; now it launches the
+    forward kernel once and K4 once, and the gradients are finite and reach
+    the albedo."""
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+
     cfg = RenderConfig(width=16, height=16, spp=1, **extra)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        grad_lib.render_loss_grads(cornell_box(), Camera.create(), cfg, device=dev)
+    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches, dict(gk.CUDA_KERNEL.launches))
+    loss, (ds, dc) = grad_lib.render_loss_grads(cornell_box(), Camera.create(), cfg, device=dev)
+    assert tk.CUDA_KERNEL.launches == before[0] + 1
+    assert ak.CUDA_KERNEL.launches == before[1] + 1
+    assert gk.CUDA_KERNEL.launches == before[2]
+    assert torch.isfinite(loss) and loss > 0
+    assert torch.isfinite(ds.color).all() and (ds.color != 0).sum() >= 3
+    assert ds.color.device == dev and dc.position.device == dev

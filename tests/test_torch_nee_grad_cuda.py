@@ -201,9 +201,24 @@ def test_nee_inverse_step_launches_two_trace_and_two_replay(dev):
 
 @pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
 def test_glossy_still_raises_naming_its_kernel(dev, extra):
+    """Glossy raised here, naming K4, while that kernel was not ported. Now a
+    glossy inverse step launches the forward kernel twice and K4 twice, and
+    neither the NEE kernel nor the product-chain kernel."""
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+
     cfg = RenderConfig(width=16, height=16, spp=1, **extra)
-    with pytest.raises(NotImplementedError, match="K4.*not ported"):
-        grad_lib.render_loss_grads(cornell_box(), Camera.create(), cfg, device=dev)
+    scene, cam = cornell_box(), Camera.create()
+    target = torch.rand(16, 16, 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target,
+                                                  ("color", "position"), device=dev)
+    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches),
+              dict(gk.CUDA_KERNEL.launches))
+    state, loss = step_fn(state)
+    assert tk.CUDA_KERNEL.launches == before[0] + 2
+    assert ak.CUDA_KERNEL.launches == before[1] + 2
+    assert nk.CUDA_KERNEL.launches == before[2] and gk.CUDA_KERNEL.launches == before[3]
+    assert torch.isfinite(loss)
+    assert (state.params["color"].detach().cpu() != scene.color).any()
 
 
 @pytest.mark.parametrize("mode", rf.LATENCY_MODES)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.scene import Scene
 from pathtrace_tpu_torch.utils import roofline as rf
 
@@ -166,3 +167,35 @@ def test_count_segments(case):
         far = Scene(np.array([1e-3], np.float32), np.array([[0.0, 1e4, 0.0]], np.float32),
                     np.zeros((1, 3), np.float32), np.ones((1, 3), np.float32))
         assert rf.count_segments(far, cam, cfg) == 16 * 8 * 3
+
+
+@pytest.mark.parametrize("name", ["diffuse", "nee_diffuse", "glossy", "nee_glossy"])
+def test_counted_operations_of_the_hand_derived_backward(name):
+    """``OPS_PER_SEGMENT``'s entries for K4 are what scripts/torch_count_ops.py
+    counts on the plain version (a taped forward sample plus the sweep with
+    indexed accumulators), at any tile size; the forward part stays within
+    8% of the JAX package's jaxpr counts of the same trajectory, which lack
+    the tape's four selects a sphere."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_count_ops.py"
+    spec = importlib.util.spec_from_file_location("torch_count_ops", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cfg = RenderConfig(width=8, height=8, spp=2, nee=name.startswith("nee"),
+                       brdf=name.split("_")[-1])
+    sb = cornell_box().packed()
+    cb = tk.camera_block(Camera.create(), cfg)
+    extra = torch.tensor([[1e-3, 50.0, 40.0, 1.0e4, 0.0, 0.0, 0.0, 0.5, 0.5, 0.5]])
+    f9, t9 = mod.counts_for(cfg, sb, cb)
+    f10, t10 = mod.counts_for(cfg, torch.cat([sb, extra]), cb)
+    sweep = (t9 - f9) - 8 * ((t10 - f10) - (t9 - f9))
+    key = {"diffuse": "ad_diffuse", "nee_diffuse": "ad_nee", "glossy": "ad_glossy",
+           "nee_glossy": "ad_nee_glossy"}[name]
+    assert (f9 + sweep) / 5 == pytest.approx(rf.OPS_PER_SEGMENT[key], abs=0.05)
+    if name == "diffuse":
+        assert f9 / 5 == pytest.approx(rf.OPS_PER_SEGMENT["forward_diffuse"], rel=0.08)
+    if name == "nee_diffuse":
+        assert f9 / 5 == pytest.approx(rf.OPS_PER_SEGMENT["forward_nee"], rel=0.08)
+        assert (f9 + sweep) / 5 < rf.OPS_PER_SEGMENT["ad_replay_nee_jaxpr"]
