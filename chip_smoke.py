@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs fifteen phases, each printing its own lines; any failure raises and
+and runs sixteen phases, each printing its own lines; any failure raises and
 exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -60,9 +60,9 @@ exits non-zero.
    the replay against the MSE cotangent equals fused (rtol 1e-4 plus 1e-4
    of the largest of the kind: another order of operations on sums that
    cancel); two fused launches give the same bits; the fused colour equals
-   the trace kernel's NEE colour bit for bit; and a 32-spp replay, 160
-   Kahan-compensated adds a geometry slot, must equal its plain version to
-   the bit: the compiler kept the compensation as written.
+   the trace kernel's NEE colour bit for bit; and a 32-spp replay, 160 adds
+   a lane into a geometry sum kept in double, must equal its plain version
+   to the bit: the lane pairs add in the plain version's order.
 10. The NEE gradient path at full size, launch counts set to 0 before each
    part and read after: (a) ``grad.render_loss_grads`` at 512x512x32 spp
    with NEE: exactly one fused launch, loss equal to the MSE of the trace
@@ -135,6 +135,26 @@ exits non-zero.
    kernel's replay beside it) and at 256x256x8, each last output held
    against the plain version's; the glossy inverse step, with
    ``torch.profiler`` device times by kernel over 20 steps.
+16. The shared reverse sweep (``csrc/sweep.cuh``): resident blocks an
+   SM, registers, shared and local bytes of every instance of the NEE
+   kernel and of K4, at 8x8 and 16x16 threads (the default launch of every
+   instance must keep more than 5 blocks resident and use no more local
+   memory than its tape); the shading-only instances (a colour-only
+   cotangent [3, h, W] without NEE) at 128x64 and 4 spp against the full
+   ones with seven planes of zeros (all sums bit-equal, geometry and camera
+   sums exactly 0), against the plain version (``nee_grad_kernel.agreement``)
+   and launched twice (identical bits); the colour-only cotangent under NEE
+   against the zero planes, and K4 on NEE diffuse against the NEE kernel's
+   replay, bit for bit; a frame with an odd width, a ragged last block and
+   a 5x5 block, whose last thread has no lane partner; the occupancy curve:
+   the NEE replay at 512x512x32 and 256x256x16 with its dynamic shared memory
+   padded so that 1, 2, ... blocks are resident; the colour-only instances
+   timed at 512x512x32 and at the inverse steps' sizes (256x256x16 NEE,
+   256x256x8 glossy): the shading-only ones and the NEE replay against their
+   plain versions, each last output held against the plain version's, the
+   NEE ones of K4 held to the bits of the full instance, which phase 15
+   holds against its plain version at that size; and the NEE and glossy
+   inverse steps' device time and idle share from phases 12 and 15.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -534,9 +554,10 @@ def nee_phase_9(dev, scene, cam, nk, tk):
     ref = nk.replay_plain(sb, cb, seed, cfg, ct, **kw)
     err["replay"] = max(err["replay"], nee_compare("replay 32 spp/sums", got, ref, "sums"))
     if not torch.equal(got, ref):
-        raise RuntimeError("the 32-spp replay is not its plain version to the bit: was the "
-                           "Kahan compensation compiled away?")
-    print("  replay 32 spp == plain version: identical bits (the compensation survived)")
+        raise RuntimeError("the 32-spp replay is not its plain version to the bit: do the "
+                           "lane pairs add in the plain version's order, in double?")
+    print("  replay 32 spp == plain version: identical bits (160 adds a geometry sum a lane, "
+          "in double, in the plain version's order)")
     return err
 
 
@@ -761,7 +782,8 @@ def profile_steps(label, step_fn, state, step_ms, steps=20):
     """``torch.profiler`` device times by kernel over ``steps`` inverse steps,
     and the device's idle share against ``step_ms``, the step's time without
     the profiler. A profiler that sees no device time fails the run, since
-    PERF.md's breakdown of the step reads this."""
+    PERF.md's breakdown of the step reads this. -> (device ms a step, idle
+    share)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -786,6 +808,7 @@ def profile_steps(label, step_fn, state, step_ms, steps=20):
           f"{1.0 - device_ms / step_ms:.3f} of a step")
     for key, ms_ in rows[:6]:
         print(f"  {ms_:.4f} ms a step  {key[:90]}")
+    return device_ms, 1.0 - device_ms / step_ms
 
 
 def plain_nee_cross_grads(nk, tk, scene, cam, cfg, step, target, device):
@@ -867,7 +890,8 @@ def nee_phase_12(dev, scene, cam, gk, nk, tk):
     print(f"NEE inverse step 256x256x16 (kernel path, Adam included): "
           f"{out['step', 'kernel']:.4f} ms (runs {min(ms):.4f}..{max(ms):.4f})")
 
-    profile_steps("NEE inverse", step_fn, state, out["step", "kernel"])
+    out["step", "device"], out["step", "idle"] = profile_steps("NEE inverse", step_fn, state,
+                                                               out["step", "kernel"])
     return out, err
 
 
@@ -1176,8 +1200,165 @@ def ad_phase_15(dev, scene, cam, ak, nk, tk):
     out["step"] = statistics.median(ms)
     print(f"glossy inverse step 256x256x8 (kernel path, Adam included): {out['step']:.4f} ms "
           f"(runs {min(ms):.4f}..{max(ms):.4f})")
-    profile_steps("glossy inverse", step_fn, state, out["step"])
+    out["step", "device"], out["step", "idle"] = profile_steps("glossy inverse", step_fn, state,
+                                                               out["step"])
     return out, worst
+
+
+# ---- the shared reverse sweep (phase 16) -------------------------------------------
+
+SM_SHARED_BYTES = 233472  # 228 KB an SM on sm_90
+BLOCK_RESERVED_BYTES = 1024  # what the system keeps of it for each resident block
+UNSHARED_RESIDENT_BLOCKS = 5  # 8x8 blocks an SM that one set of sums a thread would allow
+
+
+def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
+    """The sweep's instances on the card. -> ({name: ms}, max |kernel - plain|
+    of the colour-only K4 instances, max of the NEE replay at 256x256x16).
+    Without NEE the colour-only (shading-only) instances are held to their
+    plain version here at 512x512x32 and 256x256x8. Under NEE they are held
+    at that size to the bits of the full instance with zero AOV planes, which
+    phase 15 holds to its plain version at 512x512x32; the colour-only NEE
+    glossy instance itself meets its plain version at a step's size in
+    phase 14, and all four at 128x64x4 here."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(16, "the shared reverse sweep: resident blocks, the shading-only instances, the "
+              "occupancy curve, the colour-only instances timed")
+    sb, n = scene.packed(), scene.num_objects
+    tape_bytes = 4 * 17 * nk.MAX_BOUNCES + 32  # the tape's local array and the forward's frame
+    for block in (8, 16):
+        rows = {f"K3 {mode}": nk.CUDA_KERNEL.occupancy(mode, block, n) for mode in nk.MODES}
+        rows.update(ak.CUDA_KERNEL.instances(block, n))
+        for name, occ in rows.items():
+            print(f"  {block:2d}x{block:<2d} {name:42s} resident blocks an SM "
+                  f"{occ['blocks_per_sm']:2d}  registers {occ['registers']:3d}  shared bytes "
+                  f"{occ['shared_bytes']:6d}  local bytes {occ['local_bytes']}")
+            geom = "shading only" not in name
+            if occ["shared_bytes"] != nk.shared_bytes(n, block, geom):
+                raise RuntimeError(f"{name}: the kernel's shared bytes are not the wrapper's")
+            if occ["local_bytes"] > tape_bytes:
+                raise RuntimeError(f"{name}: {occ['local_bytes']} local bytes a thread: spills?")
+            if block == 8 and occ["blocks_per_sm"] <= UNSHARED_RESIDENT_BLOCKS:
+                raise RuntimeError(f"{name}: no more than {UNSHARED_RESIDENT_BLOCKS} blocks an SM")
+
+    rng = np.random.default_rng(0)
+    full = rng.normal(size=(ak.NUM_CT, 64, 128)).astype(np.float32)
+    full[3:] = 0.0
+    full = torch.from_numpy(full).to(dev)
+    only = full[:3].contiguous()
+    worst = 0.0
+    kw = dict(local_h=64, spp=4, device=dev)
+    for brdf, nee in AD_CONFIGS:
+        name = ad_name(brdf, nee)
+        cfg = RenderConfig(width=128, height=64, spp=4, brdf=brdf, nee=nee)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg, 3)
+        got = ak.replay(sb, cb, seed, cfg, only, **kw)
+        worst = max(worst, nee_compare(f"{name}/colour-only cotangent [3, h, W]", got,
+                                       ak.replay_plain(sb, cb, seed, cfg, only, **kw), "sums"))
+        if not torch.equal(ak.replay(sb, cb, seed, cfg, only, **kw), got):
+            raise RuntimeError(f"two colour-only K4 launches gave different bits ({name})")
+        if not torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw)):
+            raise RuntimeError(f"{name}: [3, h, W] is not [10, h, W] with zero planes to the bit")
+        block = ak.block_from_sums(got)
+        geometry = max(float(block[:n, :4].abs().max()), float(block[n:, :3].abs().max()))
+        print(f"  {name}: {'shading-only' if not nee else 'colour-only'} instance == the full "
+              f"one with zero AOV planes: identical bits; launched twice: identical bits; "
+              f"largest |geometry or camera sum| {geometry:.6g}")
+        if not nee and geometry != 0.0:
+            raise RuntimeError(f"{name}: the shading-only instance's geometry sums are not 0")
+        if nee and brdf == "diffuse":
+            k3 = nk.replay(sb, cb, seed, cfg, only.permute(1, 2, 0).contiguous(), **kw)
+            if not torch.equal(got, k3):
+                raise RuntimeError("K4 colour-only on NEE diffuse is not the NEE kernel's replay")
+            print("  nee_diffuse: K4 colour-only == NEE kernel's replay: identical bits")
+    # an odd width, a ragged last block, and a last thread without a lane partner
+    for brdf, nee in (("diffuse", True), ("glossy", False)):
+        cfg = RenderConfig(width=123, height=61, spp=4, brdf=brdf, nee=nee, block=5)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg, 3)
+        ct = only[:, :61, :123].contiguous()
+        kw_o = dict(local_h=61, spp=4, device=dev)
+        worst = max(worst, nee_compare(f"{ad_name(brdf, nee)} 123x61, 5x5 blocks",
+                                       ak.replay(sb, cb, seed, cfg, ct, **kw_o),
+                                       ak.replay_plain(sb, cb, seed, cfg, ct, **kw_o), "sums"))
+
+    print(f"occupancy curve: NEE replay, 8x8 blocks, dynamic shared memory padded; median of "
+          f"{2 * TIMING_ITERS} launches")
+    base = nk.CUDA_KERNEL.occupancy("replay", 8, n)
+    for size, spp in ((512, 32), (256, 16)):
+        cfg = RenderConfig(width=size, height=size, spp=spp, nee=True)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg)
+        ct = torch.full((size, size, 3), 1e-6, device=dev)
+        kw_c = dict(local_h=size, spp=spp, device=dev)
+        first = None
+        for want in range(1, base["blocks_per_sm"] + 1):
+            total = (SM_SHARED_BYTES // want - BLOCK_RESERVED_BYTES) // 128 * 128
+            pad = total - base["shared_bytes"] if want < base["blocks_per_sm"] else 0
+            occ = nk.CUDA_KERNEL.occupancy("replay", 8, n, pad)
+            ms, _ = time_fn(lambda: nk.CUDA_KERNEL.launch("replay", sb, cb, seed, cfg, ct,
+                                                          pad_shared=pad, **kw_c),
+                            warmup=2, iters=2 * TIMING_ITERS, device=dev)
+            med = statistics.median(ms)
+            first = med if first is None else first
+            print(f"  {size}x{size}x{spp}: {occ['blocks_per_sm']} blocks an SM "
+                  f"({2 * occ['blocks_per_sm']:2d} warps): {med:.4f} ms (runs {min(ms):.4f}.."
+                  f"{max(ms):.4f}); x{first / med:.2f} of one block")
+            if occ["blocks_per_sm"] != want:
+                raise RuntimeError(f"padded for {want} blocks, the card keeps "
+                                   f"{occ['blocks_per_sm']}")
+
+    out, err_nee = {}, 0.0
+    for size, spp, configs in ((512, 32, AD_CONFIGS), (256, 8, AD_CONFIGS[2:3])):
+        ct = torch.full((ak.NUM_CT_COLOR, size, size), 1e-6, device=dev)
+        kw_t = dict(local_h=size, spp=spp, device=dev)
+        for brdf, nee in configs:
+            name = ad_name(brdf, nee)
+            cfg = RenderConfig(width=size, height=size, spp=spp, brdf=brdf, nee=nee)
+            cb = tk.camera_block(cam, cfg)
+            seed = tk.make_seed_block(cfg)
+            label = f"K4 {name} colour-only {size}x{size}x{spp} spp x5"
+            if nee:
+                # Phase 15 holds this configuration's full instance against the
+                # plain version at this size: here the colour-only instance is
+                # timed and held to the full one's bits.
+                ms, got = time_fn(lambda: ak.replay(sb, cb, seed, cfg, ct, **kw_t), warmup=2,
+                                  iters=2 * TIMING_ITERS, device=dev)
+                ten = torch.zeros((ak.NUM_CT, size, size), device=dev)
+                ten[:3] = ct
+                same = bool(torch.equal(got, ak.replay(sb, cb, seed, cfg, ten, **kw_t)))
+                out[name, size, "kernel"] = statistics.median(ms)
+                out[name, size, "plain"] = None  # timed for the full instance in phase 15
+                print(f"{label}: kernel {out[name, size, 'kernel']:.4f} ms (runs {min(ms):.4f}.."
+                      f"{max(ms):.4f}); the full instance's bits with zero AOV planes: {same}")
+                if not same:
+                    raise RuntimeError(f"{label}: not the full instance's bits")
+                continue
+            med, got, ref = single_plain_turns(
+                dev, label, lambda: ak.replay(sb, cb, seed, cfg, ct, **kw_t),
+                lambda: ak.replay_plain(sb, cb, seed, cfg, ct, **kw_t))
+            worst = max(worst, nee_compare(f"{label}/sums", got, ref, "sums"))
+            out[name, size, "kernel"], out[name, size, "plain"] = med["kernel"], med["plain"]
+    cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
+    cb = tk.camera_block(cam, cfg)
+    seed = tk.make_seed_block(cfg)
+    ct = torch.full((256, 256, 3), 1e-6, device=dev)
+    kw_t = dict(local_h=256, spp=16, device=dev)
+    label = "NEE replay 256x256x16 spp x5"
+    med, got, ref = single_plain_turns(dev, label,
+                                       lambda: nk.replay(sb, cb, seed, cfg, ct, **kw_t),
+                                       lambda: nk.replay_plain(sb, cb, seed, cfg, ct, **kw_t))
+    err_nee = nee_compare(f"{label}/sums", got, ref, "sums")
+    out["nee_replay", 256, "kernel"], out["nee_replay", 256, "plain"] = med["kernel"], med["plain"]
+    print(f"the inverse steps (phases 12 and 15): NEE 256x256x16 {nee_times['step', 'kernel']:.4f} "
+          f"ms a step, device {nee_times['step', 'device']:.4f} ms, idle "
+          f"{nee_times['step', 'idle']:.3f}; glossy 256x256x8 {ad_times['step']:.4f} ms a step, "
+          f"device {ad_times['step', 'device']:.4f} ms, idle {ad_times['step', 'idle']:.3f}")
+    return out, worst, err_nee
 
 
 def main() -> int:
@@ -1307,6 +1488,8 @@ def main() -> int:
     ad_err_13 = ad_phase_13(dev, scene, cam, ak, nk, tk)
     ad_launches, ad_err_14 = ad_phase_14(dev, scene, cam, gk, nk, ak, tk)
     ad_times, ad_err_15 = ad_phase_15(dev, scene, cam, ak, nk, tk)
+    sweep_times, ad_err_16, nee_err_16 = sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times,
+                                                        ad_times)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):
@@ -1334,7 +1517,7 @@ def main() -> int:
         rows.append((name, "grad_kernel.cu", replaces, grad_launches[mode],
                      max(grad_err[mode], grad_err_8[mode]), grad_times[mode, "kernel"],
                      grad_times[mode, "plain"], seg["256x8" if mode == "dump" else "512x32"],
-                     ops["forward_diffuse"], grad_bytes[mode]))
+                     ops["grad_replay" if mode == "replay" else "grad_fused"], grad_bytes[mode]))
     rows += [
         ("nee_grad_kernel[fused]", "nee_grad_kernel.cu",
          "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["fused"],
@@ -1343,12 +1526,14 @@ def main() -> int:
          px512 * 6 * 4),
         ("nee_grad_kernel[replay]", "nee_grad_kernel.cu",
          "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["replay"],
-         max(nee_err["replay"], nee_err_12["replay"]), nee_times["replay", "kernel"],
-         nee_times["replay", "plain"], seg["512x32 nee"], ops["ad_nee"], px512 * 3 * 4),
+         max(nee_err["replay"], nee_err_12["replay"], nee_err_16),
+         nee_times["replay", "kernel"], nee_times["replay", "plain"], seg["512x32 nee"],
+         ops["ad_nee_color"], px512 * 3 * 4),
+        # the instance of K4's main path: glossy against a colour-only cotangent
         ("ad_grad_kernel", "ad_grad_kernel.cu", "pathtrace_tpu/ops/pallas_ad.py:64",
-         ad_launches, max(ad_err_13, ad_err_14, ad_err_15), ad_times["glossy", 512, "kernel"],
-         ad_times["glossy", 512, "plain"], seg["512x32 glossy"], ops["ad_glossy"],
-         px512 * 10 * 4),
+         ad_launches, max(ad_err_13, ad_err_14, ad_err_15, ad_err_16),
+         sweep_times["glossy", 512, "kernel"], sweep_times["glossy", 512, "plain"],
+         seg["512x32 glossy"], ops["ad_glossy_color"], px512 * 3 * 4),
     ]
     kernels = []
     for (name, source, replaces, n_launch, max_err, ms, plain_ms, n_seg, ops_seg,
@@ -1378,19 +1563,48 @@ def main() -> int:
           f"{peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s); unfused = the same over the measured "
           f"multiply-only rate {peaks['peak_mul_flops'] / 1e12:.3f} T/s")
     for k in kernels:
+        if not k["bound_ms"] <= k["ms"]:
+            raise RuntimeError(f"{k['name']}: a share of bound above 1")
         unfused = k["bound_ms_unfused_measured"]
         print(f"  {k['name']:26s} {k['ms']:10.4f} ms  launches {k['launches']:4d}  bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}  share of bound "
               f"{k['bound_ms'] / k['ms']:.3f}"
               + ("" if unfused is None else f"  (unfused {unfused:.4f} ms, share "
                                             f"{unfused / k['ms']:.3f})"))
-    # K4's other configurations at 512x512x32 beside their bounds (the kernels
-    # line carries glossy, the configuration of the main path).
-    for name, key, n_seg in (("nee_glossy", "ad_nee_glossy", seg["512x32 nee glossy"]),
-                             ("nee_diffuse", "ad_nee", seg["512x32 nee"])):
-        ms, b = ad_times[name, 512, "kernel"], rf.bound_ms(n_seg, ops[key], PUBLISHED_F32_FLOPS)
-        print(f"  ad_grad_kernel, {name:12s} {ms:10.4f} ms  bound {b:.4f} ms by operations  share "
-              f"of bound {b / ms:.3f}  (plain {ad_times[name, 512, 'plain']:.1f} ms)")
+    # K4's other instances beside their bounds (the kernels line carries
+    # glossy against a colour-only cotangent, the instance of the main path),
+    # and the kernels at the inverse steps' sizes.
+    seg["256x16 nee"] = frame_segments(256, 16, nee=True)
+    seg["256x8 glossy"] = frame_segments(256, 8, brdf="glossy")
+    seg512 = {"diffuse": seg["512x32"], "nee_diffuse": seg["512x32 nee"],
+              "glossy": seg["512x32 glossy"], "nee_glossy": seg["512x32 nee glossy"]}
+    key = {"diffuse": "ad_diffuse", "nee_diffuse": "ad_nee", "glossy": "ad_glossy",
+           "nee_glossy": "ad_nee_glossy"}
+    others = [(f"{name}, colour + AOV cotangent 512x512x32", ad_times[name, 512, "kernel"],
+               ad_times[name, 512, "plain"], seg512[name], ops[key[name]])
+              for name in ("glossy", "nee_glossy", "nee_diffuse")]
+    others += [(f"{name}, colour-only cotangent 512x512x32", sweep_times[name, 512, "kernel"],
+                sweep_times[name, 512, "plain"], seg512[name], ops[key[name] + "_color"])
+               for name in ("diffuse", "nee_diffuse", "nee_glossy")]
+    others.append(("glossy, colour-only cotangent 256x256x8", sweep_times["glossy", 256, "kernel"],
+                   sweep_times["glossy", 256, "plain"], seg["256x8 glossy"],
+                   ops["ad_glossy_color"]))
+    for label, ms, plain_ms, n_seg, ops_seg in others:
+        b = rf.bound_ms(n_seg, ops_seg, PUBLISHED_F32_FLOPS)
+        print(f"  ad_grad_kernel, {label:44s} {ms:8.4f} ms  bound {b:.4f} ms by operations  "
+              f"share of bound {b / ms:.3f}"
+              + ("" if plain_ms is None else f"  (plain {plain_ms:.1f} ms)"))
+        if not b <= ms:
+            raise RuntimeError(f"{label}: a share of bound above 1")
+    ms = sweep_times["nee_replay", 256, "kernel"]
+    b = rf.bound_ms(seg["256x16 nee"], ops["ad_nee_color"], PUBLISHED_F32_FLOPS)
+    print(f"  nee_grad_kernel[replay] 256x256x16 {ms:8.4f} ms  bound {b:.4f} ms by operations  "
+          f"share of bound {b / ms:.3f}  (plain "
+          f"{sweep_times['nee_replay', 256, 'plain']:.1f} ms)")
+    b = rf.bound_ms(seg["512x32 nee"], ops["nee_grad_two_pass"], PUBLISHED_F32_FLOPS)
+    print(f"  nee_grad_kernel[fused] against the count of its own two loops "
+          f"({ops['nee_grad_two_pass']} a segment; its bound above is the one-pass count, the "
+          f"smaller): bound {b:.4f} ms, share {b / nee_times['fused', 'kernel']:.3f}")
     b = rf.bound_ms(seg["512x32 nee"], ops["ad_replay_nee_jaxpr"], PUBLISHED_F32_FLOPS)
     print(f"  ad_grad_kernel, nee_diffuse against the count of the TPU kernel's generated "
           f"replay ({ops['ad_replay_nee_jaxpr']} a segment): bound {b:.4f} ms, share "

@@ -166,9 +166,13 @@ __device__ __forceinline__ void sphere_hit(const Sphere& s, float ox, float oy,
 // What a reverse sweep over a hit bounce cannot recompute: the ray as it
 // came in, the winner's distance, and the detached decisions (which sphere,
 // its near or far root, the shadow ray's visibility). Everything else of
-// the bounce follows from these with the segment's own expressions.
+// the bounce follows from these with the segment's own expressions. What it
+// could recompute only by drawing again, for a bounce that goes on: the
+// cosine sample (cs, ss, zc) and, under GLOSSY, the jitter terms
+// 0.01 * draw (jx, jy, jz).
 struct BounceTape {
   float ox, oy, oz, dx, dy, dz, t;
+  float cs, ss, zc, jx, jy, jz;
   int flags;  // sphere index | far root << 4 | visible << 5
   __device__ __forceinline__ int index() const { return flags & 15; }
   __device__ __forceinline__ bool far_root() const { return (flags & 16) != 0; }
@@ -316,6 +320,11 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
     const float zc = sqrtf(u2);  // power=1 cosine weighting
     const float sin_t = sqrtf(fmaxf(1.0f - zc * zc, 0.0f));
     const float cs = cosf(phi) * sin_t, ss = sinf(phi) * sin_t;
+    if (TAPED) {
+      tape.cs = cs;
+      tape.ss = ss;
+      tape.zc = zc;
+    }
     float bdx = cs * o1x + ss * o2x + zc * nx;
     float bdy = cs * o1y + ss * o2y + zc * ny;
     float bdz = cs * o1z + ss * o2z + zc * nz;
@@ -329,9 +338,17 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
       bdx = bdx - dn2 * nx;
       bdy = bdy - dn2 * ny;
       bdz = bdz - dn2 * nz;
-      bdx = bdx + 0.01f * rng.draw(slot + 2u) - 0.005f;
-      bdy = bdy + 0.01f * rng.draw(slot + 3u) - 0.005f;
-      bdz = bdz + 0.01f * rng.draw(slot + 4u) - 0.005f;
+      const float jx = 0.01f * rng.draw(slot + 2u);
+      const float jy = 0.01f * rng.draw(slot + 3u);
+      const float jz = 0.01f * rng.draw(slot + 4u);
+      if (TAPED) {
+        tape.jx = jx;
+        tape.jy = jy;
+        tape.jz = jz;
+      }
+      bdx = bdx + jx - 0.005f;
+      bdy = bdy + jy - 0.005f;
+      bdz = bdz + jz - 0.005f;
       const float g_inv = rsqrtf(dot3(bdx, bdy, bdz, bdx, bdy, bdz) + 1e-20f);
       bdx *= g_inv;
       bdy *= g_inv;

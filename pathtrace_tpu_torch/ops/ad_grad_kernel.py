@@ -16,10 +16,12 @@ albedo, the eye and the four corner rays, of
 
 for a 10-channel per-pixel cotangent ``ct`` [10, h, W] (1/spp folded in by
 the caller); normal0, albedo0 and depth0 are a sample's bounce-0 AOVs, zero
-where the primary ray escapes. Hit selection, near or far root, normal
-flip, shadow visibility and every random draw are detached, as under jnp AD.
-Without NEE and with a colour-only cotangent the geometry and camera sums
-are exact zeros.
+where the primary ray escapes. A colour-only cotangent is ``ct`` [3, h, W].
+Hit selection, near or far root, normal flip, shadow visibility and every
+random draw are detached, as under jnp AD. Without NEE and with a
+colour-only cotangent the geometry and camera sums are exact zeros:
+``instance`` then picks the kernel's shading-only instance, which runs the
+shading chain alone and gives the full instance's shading sums bit for bit.
 
 ``replay`` is the wrapper. On the CPU it runs ``replay_plain``, the kernel's
 formulas in the kernel's order over [h, W] tensors on ``trace_kernel``'s
@@ -52,10 +54,23 @@ from pathtrace_tpu_torch.ops.nee_grad_kernel import (  # noqa: F401
 
 SOURCE = CSRC / "ad_grad_kernel.cu"
 NUM_CT = 10  # cotangent channels: colour 3, normal 3, albedo 3, depth 1
+NUM_CT_COLOR = 3  # a colour-only cotangent
 # The JAX package's gradient block has 16 rows for N + 5 of them. With 11
-# spheres the accumulators of the largest block (16 x 16 threads x 184
-# floats) fit a block's shared memory, so no launch is refused for that.
+# spheres the sums and sphere table of the largest block (16 x 16 threads:
+# 95,672 bytes) fit a block's shared memory, so no launch is refused for
+# that.
 MAX_SPHERES = 11
+
+
+def instance(cfg: RenderConfig, num_ct: int) -> dict:
+    """The kernel instance of a configuration and a cotangent of ``num_ct``
+    channels: ``glossy``, ``nee``, ``aov`` (the bounce-0 AOV cotangents are
+    read) and ``geom`` (the geometry chain runs: under NEE or with AOV
+    cotangents; else the shading-only instance)."""
+    if num_ct not in (NUM_CT_COLOR, NUM_CT):
+        raise ValueError(f"a cotangent has {NUM_CT_COLOR} or {NUM_CT} channels, got {num_ct}")
+    aov = num_ct == NUM_CT
+    return dict(glossy=cfg.brdf == "glossy", nee=cfg.nee, aov=aov, geom=cfg.nee or aov)
 
 
 # -- the plain version ---------------------------------------------------------
@@ -64,10 +79,11 @@ def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, 
                  spp: int, device=None):
     """The plain version -> sums [10N + 16] (0 in the loss slot): the gradient
     of sum over pixels and samples of ``cotangent`` [10, local_h, W] against
-    a sample's (colour, normal0, albedo0, depth0)."""
+    a sample's (colour, normal0, albedo0, depth0), or of ``cotangent``
+    [3, local_h, W] against its colour."""
     lat = tk.PlainLattice(scene_block, cam_block, seed, cfg, local_h, device)
     planes = list(cotangent.unbind(0))
-    shade, geom = nk._sweep_plain(lat, cfg, spp, planes[:3], planes[3:])
+    shade, geom = nk._sweep_plain(lat, cfg, spp, planes[:3], planes[3:] or None)
     return nk._flat_sums(len(lat.sc), shade, geom, torch.zeros_like(lat.rows))
 
 
@@ -88,10 +104,35 @@ class CudaAdGradKernel:
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ])
         return self._fn
+
+    def occupancy(self, glossy: bool, nee: bool, aov: bool, block: int,
+                  num_spheres: int) -> dict:
+        """What the card gives a ``block`` x ``block`` launch of the instance:
+        resident blocks an SM, registers a thread, dynamic shared bytes a
+        block, local bytes a thread."""
+        self._function()
+        out = (ctypes.c_int * 4)()
+        err = self._lib.pt_ad_grad_occupancy(int(glossy), int(nee), int(aov), block,
+                                             num_spheres, out)
+        if err != 0:
+            raise RuntimeError(f"AD grad kernel occupancy query failed: cudaError {err}")
+        return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
+
+    def instances(self, block: int, num_spheres: int) -> dict:
+        """``occupancy`` of all eight instances, by name."""
+        out = {}
+        for glossy in (False, True):
+            for nee in (False, True):
+                for aov in (False, True):
+                    name = (f"K4 {'nee_' if nee else ''}{'glossy' if glossy else 'diffuse'} "
+                            f"{'colour+aov' if aov else 'colour'}"
+                            f"{'' if nee or aov else ' (shading only)'}")
+                    out[name] = self.occupancy(glossy, nee, aov, block, num_spheres)
+        return out
 
     def launch(self, scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *,
                local_h: int, spp: int, device: torch.device) -> torch.Tensor:
@@ -110,7 +151,8 @@ class CudaAdGradKernel:
                 seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
                 cfg.push_ray_origin, cfg.light_index if cfg.nee else -1,
-                int(cfg.brdf == "glossy"), block, cotangent.data_ptr(), partial.data_ptr(),
+                int(cfg.brdf == "glossy"), cotangent.shape[0], block, cotangent.data_ptr(),
+                partial.data_ptr(),
                 sums.data_ptr(), stream,
             )
         if err != 0:
@@ -131,8 +173,10 @@ def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotang
         raise ValueError(f"the AD gradient kernel takes at most {MAX_BOUNCES} bounces, "
                          f"got {cfg.max_bounces}")
     shape = (NUM_CT, local_h, cfg.width)
-    if cotangent.dtype != torch.float32 or tuple(cotangent.shape) != shape:
-        raise ValueError(f"cotangent must be float32 {shape}, got "
+    if cotangent.dtype != torch.float32 or tuple(cotangent.shape) not in (
+            shape, (NUM_CT_COLOR, *shape[1:])):
+        raise ValueError(f"cotangent must be float32 {shape} or, colour only, "
+                         f"{(NUM_CT_COLOR, *shape[1:])}, got "
                          f"{cotangent.dtype} {tuple(cotangent.shape)}")
     if not cotangent.is_contiguous():
         raise ValueError("cotangent must be contiguous")
@@ -161,9 +205,14 @@ def pack_cotangents(cfg: RenderConfig, ct_color=None, ct_normal=None, ct_albedo=
                     ct_depth=None, local_h=None, spp=None, device=None) -> torch.Tensor:
     """Per-pixel cotangents of the spp-MEAN AOVs (colour, normal, albedo
     [h, W, 3], depth [h, W]; None is zero) -> the kernel's per-sample block
-    [10, h, W], 1/spp folded in."""
+    [10, h, W], 1/spp folded in; with no normal, albedo or depth cotangent
+    the colour-only block [3, h, W], and no planes of zeros are built."""
     h = cfg.height if local_h is None else local_h
     spp = cfg.spp if spp is None else spp
+    if ct_normal is None and ct_albedo is None and ct_depth is None:
+        if ct_color is None:
+            return torch.zeros((NUM_CT_COLOR, h, cfg.width), dtype=torch.float32, device=device)
+        return (_per_pixel(ct_color, device).permute(2, 0, 1) / spp).contiguous()
     block = torch.zeros((NUM_CT, h, cfg.width), dtype=torch.float32, device=device)
     for first, x in ((0, ct_color), (3, ct_normal), (6, ct_albedo)):
         if x is not None:
@@ -177,9 +226,9 @@ def ad_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_offs
                         local_h=None, spp=None, sample_offset=0, device=None):
     """Gradient block [N + 5, 11] of rows [row_offset, row_offset + local_h)
     and samples [sample_offset, sample_offset + spp) against the per-SAMPLE
-    cotangents ``ct_block`` [10, local_h, W] (1/global-spp folded in by the
-    caller): one launch. Blocks of different slabs and sample ranges add up
-    to the frame's."""
+    cotangents ``ct_block`` [10, local_h, W], or [3, local_h, W] for colour
+    only (1/global-spp folded in by the caller): one launch. Blocks of
+    different slabs and sample ranges add up to the frame's."""
     sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                   _per_pixel(ct_block, device),

@@ -27,10 +27,12 @@ rgb, albedo rgb), the eye at 10N, the corner rays 00, 10, 01, 11 at
 as the JAX package's gradient block, cropped to the rows and columns it
 uses: [N + 5, 11].
 
-The geometry sums cancel heavily (walls of radius 1e5): each pixel adds
-its contributions with Kahan compensation in float32, and the sum over
-pixels is taken in double precision by the kernel and the plain versions
-alike.
+The kernel lets ``LANES`` neighbouring threads of a block share one set of
+sums in shared memory and add to it in ordered turns; the plain versions
+follow that order (``LaneGroups``). The geometry sums cancel heavily (walls
+of radius 1e5): they are kept in double, each contribution a float32, and
+the sum over lane groups is taken in double precision too, by the kernel
+and the plain versions alike.
 
 Entry points (the JAX package's names, plus ``device=``):
 ``nee_loss_and_grads``, ``nee_grads_block_slab`` (rows and samples at an
@@ -55,7 +57,9 @@ from pathtrace_tpu_torch.scene import Scene
 SOURCE = CSRC / "nee_grad_kernel.cu"
 MODES = ("fused", "replay")
 MAX_BOUNCES = 16  # the kernel's tape holds this many bounces a thread
-MAX_SHARED_BYTES = 232448  # a block's shared memory on sm_90
+# A block's shared memory on sm_90. The largest launch either sweep kernel
+# accepts (16 spheres, a 16 x 16 block: 131,712 bytes) is below it.
+MAX_SHARED_BYTES = 232448
 # Block layout (the JAX package's, cropped): rows 0..N-1 the spheres (col 0
 # radius, 1-3 position, 4-6 emission, 7-9 albedo), row N the eye (cols 0-2)
 # and the loss (col 10), rows N+1..N+4 the corner rays (cols 0-2).
@@ -69,210 +73,259 @@ def require_nee_diffuse(cfg: RenderConfig, what: str):
                          f"brdf={cfg.brdf!r}")
 
 
-def n_slots(num_spheres: int) -> int:
-    """Accumulator floats a thread: 6N shading sums, 4N + 15 geometry sums
-    and as many compensation terms."""
-    return 6 * num_spheres + 2 * (4 * num_spheres + 15)
+LANES = 2  # csrc/sweep.cuh's kLanes: threads that share one set of sums
+
+
+def n_slots(num_spheres: int, geom: bool = True) -> int:
+    """4-byte words of sums a lane group: 6N shading floats and, with the
+    geometry chain, 4N + 15 geometry doubles."""
+    return 6 * num_spheres + (2 * (4 * num_spheres + 15) if geom else 0)
+
+
+def shared_bytes(num_spheres: int, block: int, geom: bool = True) -> int:
+    """Dynamic shared memory of a ``block`` x ``block`` launch
+    (``csrc/sweep.cuh``'s ``SweepLayout``): the sums of every lane group, a
+    loss float a thread and the sphere table."""
+    threads = block * block
+    groups = -(-threads // LANES)
+    return 4 * (n_slots(num_spheres, geom) * groups + threads + 10 * num_spheres)
 
 
 # -- the plain versions ----------------------------------------------------------
+
+class LaneGroups:
+    """The kernel's lane groups over a slab of [local_h, W] pixels: thread
+    ``tid = ty * block + tx`` of a block adds into the sums of group
+    ``tid // LANES``, as its lane ``tid % LANES``. A block's last thread is
+    alone in its group when ``LANES`` does not divide ``block * block``; a
+    thread outside the slab adds nothing."""
+
+    def __init__(self, local_h: int, width: int, block: int, device, lanes: int = LANES):
+        n_by, n_bx = -(-local_h // block), -(-width // block)
+        threads = block * block
+        groups = -(-threads // lanes)
+        tid = torch.arange(groups * lanes, device=device)
+        rows = torch.arange(n_by, device=device)[:, None, None] * block + tid // block
+        cols = torch.arange(n_bx, device=device)[None, :, None] * block + tid % block
+        inside = (tid < threads) & (rows < local_h) & (cols < width)
+        flat = torch.where(inside, rows * width + cols, local_h * width)
+        self.index = flat.reshape(n_by * n_bx, groups, lanes)
+        self.lanes = lanes
+
+    def split(self, x: torch.Tensor, fill=0.0):
+        """Per-pixel ``x`` [local_h, W] -> one [blocks, groups] tensor a lane
+        (``fill`` where the lane has no pixel)."""
+        x = x.reshape(-1)
+        return torch.cat([x, x.new_full((1,), fill)])[self.index].unbind(-1)
+
+    def zeros(self, dtype):
+        return torch.zeros(self.index.shape[:2], dtype=dtype, device=self.index.device)
+
 
 def _pixel_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dtype=torch.float64).to(torch.float32)
 
 
-def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct, aov=None):
+def _sweep_plain(lat: tk.PlainLattice, cfg: RenderConfig, spp: int, ct, aov=None,
+                 lanes: int = LANES):
     """The kernels' sweep loop (``csrc/sweep.cuh``) over [local_h, W] tensors
     against the colour cotangent ``ct`` [3] and, if given, the bounce-0 AOV
     cotangents ``aov`` [7] (normal xyz, albedo rgb, depth), for the
     configuration of ``cfg`` (diffuse or glossy, with or without NEE) ->
-    (shading accumulators [6N], geometry sums [4N + 15])."""
+    (shading sums [6N] float32, geometry sums [4N + 15] float64 or None),
+    each a [blocks, groups] tensor of the kernel's lane groups. The adds of a
+    bounce are made lane by lane in the kernel's order. Without NEE and
+    without ``aov`` the geometry chain is dead and only the shading chain
+    runs (the kernel's shading-only instance): no geometry sums."""
     n = len(lat.sc)
     nee, glossy = cfg.nee, cfg.brdf == "glossy"
+    with_geom = nee or aov is not None
     li = cfg.light_index if nee else 0
     lt = lat.sc[li]
     le = (lt["er"], lt["eg"], lt["eb"])
     push = cfg.push_ray_origin
     zeros = torch.zeros_like(lat.rows)
-    everywhere = torch.ones_like(lat.rows, dtype=torch.bool)
-    shade = [zeros] * (6 * n)
-    gsum = [zeros] * (4 * n + 15)
-    gcomp = list(gsum)
+    groups = LaneGroups(lat.rows.shape[0], lat.rows.shape[1], cfg.block, lat.rows.device, lanes)
+    inside = groups.split(torch.ones_like(lat.rows, dtype=torch.bool), False)
+    shade = [groups.zeros(torch.float32) for _ in range(6 * n)]
+    gsum = [groups.zeros(torch.float64) for _ in range(4 * n + 15)] if with_geom else None
 
-    def geom(j, v, sel):
-        """The kernel's Acc::geom (a Kahan add) on the lanes of ``sel``."""
-        y = v - gcomp[j]
-        t = gsum[j] + y
-        gcomp[j] = torch.where(sel, (t - gsum[j]) - y, gcomp[j])
-        gsum[j] = torch.where(sel, t, gsum[j])
-
-    def geom_sphere(hit, idx, param, v):
-        for i in range(n):
-            geom(4 * i + param, v, hit & (idx == i))
+    def run_turns(adds):
+        """One bounce's adds (is geometry, slot, value, lanes that add), each
+        lane in its turn."""
+        adds = [(is_geom, j, groups.split(v), sel) for is_geom, j, v, sel in adds]
+        for lane in range(lanes):
+            for is_geom, j, v, sel in adds:
+                term = torch.where(sel[lane], v[lane], 0.0)
+                if is_geom:
+                    gsum[j] = gsum[j] + term.to(torch.float64)
+                else:
+                    shade[j] = shade[j] + term
 
     for s in range(spp):
         tape = []
         lat.sample(s, cfg, tape)
-        if not tape:
-            continue
         oh = [zeros] * 3
         dh = [zeros] * 3
         hb = [zeros] * 3
         for b in range(len(tape) - 1, -1, -1):
             hit, idx, m, e, cc, q = tape[b]
             first = b == 0
-            ox, oy, oz = q["o"]
-            dx, dy, dz = q["d"]
-            dnx, dny, dnz = q["dn"]
-            inv_len, t_best = q["inv_len"], q["t"]
-            nux, nuy, nuz = q["nu"]
-            nx, ny, nz = q["n"]
-            n_inv, flip = q["n_inv"], q["flip"]
-            dl = zeros
-            if nee:
-                ldx, ldy, ldz = q["ld"]
-                l_inv, dr, dl = q["l_inv"], q["dr"], q["dl"]
-                dlw = torch.where(q["vis"], 0.5, 0.0) * clip01_grad(dr)
+            hit_g = groups.split(hit, False)
+            sel_g = [groups.split(hit & (idx == i), False) for i in range(n)]
+            adds = []
+            dl = q["dl"] if nee else zeros
+            if with_geom:
+                ox, oy, oz = q["o"]
+                dx, dy, dz = q["d"]
+                dnx, dny, dnz = q["dn"]
+                inv_len, t_best = q["inv_len"], q["t"]
+                nux, nuy, nuz = q["nu"]
+                nx, ny, nz = q["n"]
+                n_inv, flip = q["n_inv"], q["flip"]
+                if nee:
+                    ldx, ldy, ldz = q["ld"]
+                    l_inv, dr = q["l_inv"], q["dr"]
+                    dlw = torch.where(q["vis"], 0.5, 0.0) * clip01_grad(dr)
 
-            hhx = hhy = hhz = nhx = nhy = nhz = zeros
-            if b + 1 < cfg.max_bounces:
-                o1x, o1y, o1z = q["o1"]
-                o1_inv, use_a, cs, ss, zc = q["o1_inv"], q["use_a"], q["cs"], q["ss"], q["zc"]
-                ohx, ohy, ohz = oh
-                dhx, dhy, dhz = dh
-                hhx, hhy, hhz = ohx, ohy, ohz
-                nhx, nhy, nhz = push * ohx, push * ohy, push * ohz
-                if glossy:
-                    cx, cy, cz = q["c"]
-                    bx, by, bz = q["b"]
-                    qx, qy, qz = q["q"]
-                    b_inv, dn2, g_inv = q["b_inv"], q["dn2"], q["g_inv"]
-                    qd = g_inv * g_inv * g_inv * tk._dot3(qx, qy, qz, dhx, dhy, dhz)
-                    rhx = g_inv * dhx - qd * qx
-                    rhy = g_inv * dhy - qd * qy
-                    rhz = g_inv * dhz - qd * qz
-                    nr2 = 2.0 * tk._dot3(nx, ny, nz, rhx, rhy, rhz)
-                    bhx, bhy, bhz = rhx - nr2 * nx, rhy - nr2 * ny, rhz - nr2 * nz
-                    nhx = nhx - (dn2 * rhx + nr2 * bx)
-                    nhy = nhy - (dn2 * rhy + nr2 * by)
-                    nhz = nhz - (dn2 * rhz + nr2 * bz)
-                    cd = b_inv * b_inv * b_inv * tk._dot3(cx, cy, cz, bhx, bhy, bhz)
-                    dhx = b_inv * bhx - cd * cx
-                    dhy = b_inv * bhy - cd * cy
-                    dhz = b_inv * bhz - cd * cz
-                nhx = nhx + zc * dhx
-                nhy = nhy + zc * dhy
-                nhz = nhz + zc * dhz
-                t1x, t1y, t1z = cs * dhx, cs * dhy, cs * dhz
-                t2x, t2y, t2z = ss * dhx, ss * dhy, ss * dhz
-                nhx = nhx + (o1y * t2z - o1z * t2y)
-                nhy = nhy + (o1z * t2x - o1x * t2z)
-                nhz = nhz + (o1x * t2y - o1y * t2x)
-                t1x = t1x + (t2y * nz - t2z * ny)
-                t1y = t1y + (t2z * nx - t2x * nz)
-                t1z = t1z + (t2x * ny - t2y * nx)
-                sd = o1x * t1x + o1y * t1y + o1z * t1z
-                p1x = o1_inv * (t1x - o1x * sd)
-                p1y = o1_inv * (t1y - o1y * sd)
-                p1z = o1_inv * (t1z - o1z * sd)
-                nhx = nhx + torch.where(use_a, p1y, zeros)
-                nhy = nhy + torch.where(use_a, -p1x, p1z)
-                nhz = nhz + torch.where(use_a, zeros, -p1y)
+                hhx = hhy = hhz = nhx = nhy = nhz = zeros
+                if b + 1 < cfg.max_bounces:
+                    o1x, o1y, o1z = q["o1"]
+                    o1_inv, use_a, cs, ss, zc = (q["o1_inv"], q["use_a"], q["cs"], q["ss"],
+                                                 q["zc"])
+                    ohx, ohy, ohz = oh
+                    dhx, dhy, dhz = dh
+                    hhx, hhy, hhz = ohx, ohy, ohz
+                    nhx, nhy, nhz = push * ohx, push * ohy, push * ohz
+                    if glossy:
+                        cx, cy, cz = q["c"]
+                        bx, by, bz = q["b"]
+                        qx, qy, qz = q["q"]
+                        b_inv, dn2, g_inv = q["b_inv"], q["dn2"], q["g_inv"]
+                        qd = g_inv * g_inv * g_inv * tk._dot3(qx, qy, qz, dhx, dhy, dhz)
+                        rhx = g_inv * dhx - qd * qx
+                        rhy = g_inv * dhy - qd * qy
+                        rhz = g_inv * dhz - qd * qz
+                        nr2 = 2.0 * tk._dot3(nx, ny, nz, rhx, rhy, rhz)
+                        bhx, bhy, bhz = rhx - nr2 * nx, rhy - nr2 * ny, rhz - nr2 * nz
+                        nhx = nhx - (dn2 * rhx + nr2 * bx)
+                        nhy = nhy - (dn2 * rhy + nr2 * by)
+                        nhz = nhz - (dn2 * rhz + nr2 * bz)
+                        cd = b_inv * b_inv * b_inv * tk._dot3(cx, cy, cz, bhx, bhy, bhz)
+                        dhx = b_inv * bhx - cd * cx
+                        dhy = b_inv * bhy - cd * cy
+                        dhz = b_inv * bhz - cd * cz
+                    nhx = nhx + zc * dhx
+                    nhy = nhy + zc * dhy
+                    nhz = nhz + zc * dhz
+                    t1x, t1y, t1z = cs * dhx, cs * dhy, cs * dhz
+                    t2x, t2y, t2z = ss * dhx, ss * dhy, ss * dhz
+                    nhx = nhx + (o1y * t2z - o1z * t2y)
+                    nhy = nhy + (o1z * t2x - o1x * t2z)
+                    nhz = nhz + (o1x * t2y - o1y * t2x)
+                    t1x = t1x + (t2y * nz - t2z * ny)
+                    t1y = t1y + (t2z * nx - t2x * nz)
+                    t1z = t1z + (t2x * ny - t2y * nx)
+                    sd = o1x * t1x + o1y * t1y + o1z * t1z
+                    p1x = o1_inv * (t1x - o1x * sd)
+                    p1y = o1_inv * (t1y - o1y * sd)
+                    p1z = o1_inv * (t1z - o1z * sd)
+                    nhx = nhx + torch.where(use_a, p1y, zeros)
+                    nhy = nhy + torch.where(use_a, -p1x, p1z)
+                    nhz = nhz + torch.where(use_a, zeros, -p1y)
 
-            spx, spy, spz = q["p"]
-            rad = q["rad"]
-            relx, rely, relz = spx - ox, spy - oy, spz - oz
-            tca = tk._dot3(relx, rely, relz, dnx, dny, dnz)
-            qx, qy, qz = relx - tca * dnx, rely - tca * dny, relz - tca * dnz
-            det = rad * rad - tk._dot3(qx, qy, qz, qx, qy, qz)
-            gate = det > 0.0
-            inv_thc = torch.where(gate, torch.rsqrt(torch.where(gate, det, zeros + 1.0)), zeros)
-            a_ = torch.where(q["far"], 1.0, -1.0) * inv_thc
-            ux, uy, uz = a_ * qx, a_ * qy, a_ * qz
-            corr = 1.0 + tk._dot3(ux, uy, uz, dnx, dny, dnz)
-            kpx, kpy, kpz = corr * dnx - ux, corr * dny - uy, corr * dnz - uz
-            kdx, kdy, kdz = corr * relx + tca * ux, corr * rely + tca * uy, corr * relz + tca * uz
-            kr = a_ * rad
+                spx, spy, spz = q["p"]
+                rad = q["rad"]
+                relx, rely, relz = spx - ox, spy - oy, spz - oz
+                tca = tk._dot3(relx, rely, relz, dnx, dny, dnz)
+                qx, qy, qz = relx - tca * dnx, rely - tca * dny, relz - tca * dnz
+                det = rad * rad - tk._dot3(qx, qy, qz, qx, qy, qz)
+                gate = det > 0.0
+                inv_thc = torch.where(gate, torch.rsqrt(torch.where(gate, det, zeros + 1.0)),
+                                      zeros)
+                a_ = torch.where(q["far"], 1.0, -1.0) * inv_thc
+                ux, uy, uz = a_ * qx, a_ * qy, a_ * qz
+                corr = 1.0 + tk._dot3(ux, uy, uz, dnx, dny, dnz)
+                kpx, kpy, kpz = corr * dnx - ux, corr * dny - uy, corr * dnz - uz
+                kdx = corr * relx + tca * ux
+                kdy = corr * rely + tca * uy
+                kdz = corr * relz + tca * uz
+                kr = a_ * rad
 
-            if nee:
-                wdr = dlw * (ct[0] * m[0] * le[0] * cc[0] + ct[1] * m[1] * le[1] * cc[1]
-                             + ct[2] * m[2] * le[2] * cc[2])
-                bvx = l_inv * (nx - ldx * dr)
-                bvy = l_inv * (ny - ldy * dr)
-                bvz = l_inv * (nz - ldz * dr)
-                nhx, nhy, nhz = nhx + wdr * ldx, nhy + wdr * ldy, nhz + wdr * ldz
-                lhx, lhy, lhz = wdr * bvx, wdr * bvy, wdr * bvz
-                hhx, hhy, hhz = hhx - lhx, hhy - lhy, hhz - lhz
-                geom(4 * li + 1, lhx, hit)
-                geom(4 * li + 2, lhy, hit)
-                geom(4 * li + 3, lhz, hit)
-                geom(4 * li + 0, -lhy, hit)
-            if aov is not None and first:
-                nhx, nhy, nhz = nhx + aov[0], nhy + aov[1], nhz + aov[2]
+                if nee:
+                    wdr = dlw * (ct[0] * m[0] * le[0] * cc[0] + ct[1] * m[1] * le[1] * cc[1]
+                                 + ct[2] * m[2] * le[2] * cc[2])
+                    bvx = l_inv * (nx - ldx * dr)
+                    bvy = l_inv * (ny - ldy * dr)
+                    bvz = l_inv * (nz - ldz * dr)
+                    nhx, nhy, nhz = nhx + wdr * ldx, nhy + wdr * ldy, nhz + wdr * ldz
+                    lhx, lhy, lhz = wdr * bvx, wdr * bvy, wdr * bvz
+                    hhx, hhy, hhz = hhx - lhx, hhy - lhy, hhz - lhz
+                    adds += [(True, 4 * li + 1, lhx, hit_g), (True, 4 * li + 2, lhy, hit_g),
+                             (True, 4 * li + 3, lhz, hit_g), (True, 4 * li + 0, -lhy, hit_g)]
+                if aov is not None and first:
+                    nhx, nhy, nhz = nhx + aov[0], nhy + aov[1], nhz + aov[2]
 
-            ax, ay, az = flip * nhx, flip * nhy, flip * nhz
-            sd = nux * ax + nuy * ay + nuz * az
-            ppx = n_inv * (ax - nux * sd)
-            ppy = n_inv * (ay - nuy * sd)
-            ppz = n_inv * (az - nuz * sd)
-            hhx, hhy, hhz = hhx + ppx, hhy + ppy, hhz + ppz
-            phx, phy, phz = -ppx, -ppy, -ppz
+                ax, ay, az = flip * nhx, flip * nhy, flip * nhz
+                sd = nux * ax + nuy * ay + nuz * az
+                ppx = n_inv * (ax - nux * sd)
+                ppy = n_inv * (ay - nuy * sd)
+                ppz = n_inv * (az - nuz * sd)
+                hhx, hhy, hhz = hhx + ppx, hhy + ppy, hhz + ppz
+                phx, phy, phz = -ppx, -ppy, -ppz
 
-            t_hat = dx * hhx + dy * hhy + dz * hhz
-            if aov is not None and first:
-                t_hat = t_hat + aov[6]
-            tu_hat = t_hat * inv_len if first else t_hat
-            r_hat = tu_hat * kr
-            phx, phy, phz = phx + tu_hat * kpx, phy + tu_hat * kpy, phz + tu_hat * kpz
-            new_oh = [hhx - tu_hat * kpx, hhy - tu_hat * kpy, hhz - tu_hat * kpz]
-            new_dh = [t_best * hhx, t_best * hhy, t_best * hhz]
-            dnhx, dnhy, dnhz = tu_hat * kdx, tu_hat * kdy, tu_hat * kdz
-            if first:
-                il_hat = t_hat * (t_best / inv_len)
-                il_hat = il_hat + (dx * dnhx + dy * dnhy + dz * dnhz)
-                sdot = -(inv_len * inv_len * inv_len) * il_hat
-                new_dh = [new_dh[0] + (inv_len * dnhx + sdot * dx),
-                          new_dh[1] + (inv_len * dnhy + sdot * dy),
-                          new_dh[2] + (inv_len * dnhz + sdot * dz)]
-            else:
-                new_dh = [new_dh[0] + dnhx, new_dh[1] + dnhy, new_dh[2] + dnhz]
-            oh = [torch.where(hit, a, b_) for a, b_ in zip(new_oh, oh)]
-            dh = [torch.where(hit, a, b_) for a, b_ in zip(new_dh, dh)]
-            geom_sphere(hit, idx, 0, r_hat)
-            geom_sphere(hit, idx, 1, phx)
-            geom_sphere(hit, idx, 2, phy)
-            geom_sphere(hit, idx, 3, phz)
+                t_hat = dx * hhx + dy * hhy + dz * hhz
+                if aov is not None and first:
+                    t_hat = t_hat + aov[6]
+                tu_hat = t_hat * inv_len if first else t_hat
+                r_hat = tu_hat * kr
+                phx, phy, phz = phx + tu_hat * kpx, phy + tu_hat * kpy, phz + tu_hat * kpz
+                new_oh = [hhx - tu_hat * kpx, hhy - tu_hat * kpy, hhz - tu_hat * kpz]
+                new_dh = [t_best * hhx, t_best * hhy, t_best * hhz]
+                dnhx, dnhy, dnhz = tu_hat * kdx, tu_hat * kdy, tu_hat * kdz
+                if first:
+                    il_hat = t_hat * (t_best / inv_len)
+                    il_hat = il_hat + (dx * dnhx + dy * dnhy + dz * dnhz)
+                    sdot = -(inv_len * inv_len * inv_len) * il_hat
+                    new_dh = [new_dh[0] + (inv_len * dnhx + sdot * dx),
+                              new_dh[1] + (inv_len * dnhy + sdot * dy),
+                              new_dh[2] + (inv_len * dnhz + sdot * dz)]
+                else:
+                    new_dh = [new_dh[0] + dnhx, new_dh[1] + dnhy, new_dh[2] + dnhz]
+                oh = [torch.where(hit, a, b_) for a, b_ in zip(new_oh, oh)]
+                dh = [torch.where(hit, a, b_) for a, b_ in zip(new_dh, dh)]
+                for param, v in enumerate((r_hat, phx, phy, phz)):
+                    adds += [(True, 4 * i + param, v, sel_g[i]) for i in range(n)]
 
             for ch in range(3):
                 cmv = clip01_grad(m[ch] * e[ch]) if first else 1.0
                 src = dl * le[ch] + hb[ch] if nee else hb[ch]
                 ae = ct[ch] * (m[ch] * cmv)
                 acb = ct[ch] * (m[ch] * src)
-                for i in range(n):
-                    sel = hit & (idx == i)
-                    shade[6 * i + ch] = shade[6 * i + ch] + torch.where(sel, ae, zeros)
-                    shade[6 * i + 3 + ch] = shade[6 * i + 3 + ch] + torch.where(sel, acb, zeros)
+                adds += [(False, 6 * i + ch, ae, sel_g[i]) for i in range(n)]
+                adds += [(False, 6 * i + 3 + ch, acb, sel_g[i]) for i in range(n)]
                 if nee:
-                    al = ct[ch] * (m[ch] * dl * cc[ch])
-                    shade[6 * li + ch] = shade[6 * li + ch] + torch.where(hit, al, zeros)
+                    adds.append((False, 6 * li + ch, ct[ch] * (m[ch] * dl * cc[ch]), hit_g))
                 if aov is not None and first:
-                    for i in range(n):
-                        shade[6 * i + 3 + ch] = shade[6 * i + 3 + ch] + torch.where(
-                            hit & (idx == i), aov[3 + ch], zeros)
+                    adds += [(False, 6 * i + 3 + ch, aov[3 + ch], sel_g[i]) for i in range(n)]
                 hb[ch] = torch.where(hit, cmv * e[ch] + src * cc[ch], hb[ch])
+            run_turns(adds)
 
-        u, v = tape[0][5]["uv"]
-        w = [(1.0 - u) * (1.0 - v), u * (1.0 - v), (1.0 - u) * v, u * v]
-        for a in range(3):
-            geom(4 * n + a, oh[a], everywhere)
-        for c in range(4):
-            for a in range(3):
-                geom(4 * n + 3 + 3 * c + a, w[c] * dh[a], everywhere)
+        if with_geom and tape:
+            u, v = tape[0][5]["uv"]
+            w = [(1.0 - u) * (1.0 - v), u * (1.0 - v), (1.0 - u) * v, u * v]
+            adds = [(True, 4 * n + a, oh[a], inside) for a in range(3)]
+            adds += [(True, 4 * n + 3 + 3 * c + a, w[c] * dh[a], inside)
+                     for c in range(4) for a in range(3)]
+            run_turns(adds)
     return shade, gsum
 
 
 def _flat_sums(n: int, shade, geom, loss):
-    """Per-pixel values of the kernel's outputs, summed over pixels -> [10N + 16]."""
+    """The sums of the lane groups (``geom`` None: exact zeros) and the
+    per-pixel loss, summed in double -> [10N + 16]."""
+    if geom is None:
+        geom = [shade[0].new_zeros(())] * (4 * n + 15)
     out = []
     for i in range(n):
         out += [geom[4 * i + p] for p in range(4)] + shade[6 * i: 6 * i + 6]
@@ -322,20 +375,36 @@ class CudaNeeGradKernel:
 
     def _function(self):
         if self._fn is None:
-            self._lib, self._fn = load_function(SOURCE, "pt_nee_grad_launch", [
+            self._lib, self._fn = load_function(SOURCE, "pt_nee_grad_launch_padded", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int,
             ])
         return self._fn
 
+    def occupancy(self, mode: str, block: int, num_spheres: int, pad_shared: int = 0) -> dict:
+        """What the card gives a ``block`` x ``block`` launch of ``mode`` that
+        asks for ``pad_shared`` dynamic shared bytes beyond its own: resident
+        blocks an SM, registers a thread, dynamic shared bytes a block, local
+        bytes a thread."""
+        self._function()
+        out = (ctypes.c_int * 4)()
+        err = self._lib.pt_nee_grad_occupancy(MODES.index(mode), block, num_spheres,
+                                              pad_shared, out)
+        if err != 0:
+            raise RuntimeError(f"NEE grad kernel occupancy query failed: cudaError {err}")
+        return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
+
     def launch(self, mode: str, scene_block, cam_block, seed, cfg: RenderConfig, pixels, *,
-               local_h: int, spp: int, device: torch.device):
+               local_h: int, spp: int, device: torch.device, pad_shared: int = 0):
         """Launch ``mode`` on the current stream of ``device`` (asynchronous).
-        fused -> (sums, colour); replay -> sums."""
+        fused -> (sums, colour); replay -> sums. ``pad_shared``: dynamic
+        shared bytes to ask for beyond the block's own, so that fewer blocks
+        fit an SM; only the occupancy curve of ``scripts/
+        torch_sweep_occupancy.py`` and ``chip_smoke.py`` passes it."""
         fn = self._function()
         scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
         n_out = 10 * scene_np.shape[0] + 16
@@ -355,7 +424,7 @@ class CudaNeeGradKernel:
                 cfg.push_ray_origin, cfg.light_index, MODES.index(mode), block,
                 pixels.data_ptr(),
                 None if color is None else color.data_ptr(), partial.data_ptr(),
-                sums.data_ptr(), stream,
+                sums.data_ptr(), stream, pad_shared,
             )
         if err != 0:
             raise RuntimeError(f"NEE grad kernel ({mode}) launch failed: cudaError {err}")
@@ -372,10 +441,6 @@ def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels
     if cfg.max_bounces > MAX_BOUNCES:
         raise ValueError(f"the NEE gradient kernel takes at most {MAX_BOUNCES} bounces, "
                          f"got {cfg.max_bounces}")
-    shared = 4 * n_slots(scene_block.shape[0]) * cfg.block * cfg.block
-    if shared > MAX_SHARED_BYTES:
-        raise ValueError(f"{what}: a {cfg.block}x{cfg.block} block needs {shared} bytes of "
-                         f"shared memory for its accumulators, above {MAX_SHARED_BYTES}")
     shape = (local_h, cfg.width, 3)
     if pixels.dtype != torch.float32 or tuple(pixels.shape) != shape:
         raise ValueError(f"per-pixel input must be float32 {shape}, got "

@@ -60,18 +60,40 @@ OPS_PER_SEGMENT = {
     "forward_diffuse": 568.0,  # the forward kernel, 14 channels
     "forward_nee": 898.0,  # the same with the shadow ray
     "color_nee": 877.8,  # colour-only forward under NEE
-    "nee_grad_fused": 1973.6,  # K3 fused as the TPU kernel does it: forward + sweep, one pass
     # The TPU's in-kernel-AD replay under NEE diffuse (docs/ROOFLINE.md section
     # 5): the code jax.vjp generates, not the hand-derived sweep.
     "ad_replay_nee_jaxpr": 1988.6,
-    # The hand-derived all-parameter backward (K4; on NEE diffuse also K3's
-    # replay, the same sweep): a taped forward sample plus the reverse sweep
-    # with run-time-indexed accumulators, counted on the plain version by
-    # scripts/torch_count_ops.py with the same rules (9 spheres, 5 bounces).
-    "ad_diffuse": 874.8,  # forward 606.8 + sweep 268.0
-    "ad_nee": 1299.8,  # 940.8 + 359.0
-    "ad_glossy": 992.4,  # 678.0 + 314.4
-    "ad_nee_glossy": 1417.4,  # 1012.0 + 405.4
+    # The TPU's one-pass fused form of K3 (docs/ROOFLINE.md section 5a).
+    "nee_grad_one_pass_jaxpr": 1973.6,
+    # The port's gradient kernels, counted on their plain versions by
+    # scripts/torch_count_ops.py with the same rules (9 spheres, 5 bounces):
+    # a taped forward sample plus the sweep, each as the kernels do it: the
+    # winner kept by its index and the sums indexed at run time (the plain
+    # versions' masked select or add for each sphere is counted for one
+    # sphere), each add into a lane group's sums a select, an add and, into
+    # a double, a conversion.
+    # The all-parameter backward (K4) against a colour + AOV cotangent:
+    "ad_diffuse": 800.6,  # forward 566.8 + sweep 233.8
+    "ad_nee": 1213.6,  # 900.8 + 312.8
+    "ad_glossy": 918.2,  # 638.0 + 280.2
+    "ad_nee_glossy": 1331.2,  # 972.0 + 359.2
+    # ... against a colour cotangent alone: without NEE the shading-only
+    # instance, whose tape is the index and the throughput; on NEE diffuse
+    # also K3's replay, the same instance.
+    "ad_diffuse_color": 607.4,  # 562.8 + 44.6
+    "ad_nee_color": 1211.6,  # 900.8 + 310.8
+    "ad_glossy_color": 678.6,  # 634.0 + 44.6
+    "ad_nee_glossy_color": 1329.2,  # 972.0 + 357.2
+    # K3 fused as the kernel runs it: a colour pass over the pixel's samples
+    # (890.8), then the replay ...
+    "nee_grad_two_pass": 2102.4,
+    # ... and what its bound is taken from: the loss and its gradients need
+    # one pass, so the smaller of the two-pass and the one-pass count.
+    "nee_grad_fused": 1973.6,
+    # The product-chain kernel: K2 fused and dump (cotangent-free
+    # accumulators), K5 replay.
+    "grad_fused": 605.6,  # 562.8 + 42.8
+    "grad_replay": 608.0,  # 562.8 + 45.2
 }
 
 

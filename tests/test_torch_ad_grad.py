@@ -375,12 +375,14 @@ def test_wrapper_rejects_bad_input(state, bad):
 
 
 def test_largest_scene_and_block_fit_shared_memory(state):
-    """11 spheres at the largest block edge: 184 accumulator floats a thread
-    x 256 threads x 4 bytes = 188,416, inside a block's 232,448."""
+    """11 spheres at the largest block edge: 184 words of sums a lane pair x
+    128 pairs, a loss float a thread and the sphere table are 95,672 bytes,
+    inside a block's 232,448."""
     _, _, scene, cam, _ = state
     cfg = port_cfg("glossy", width=8, height=8, spp=1, block=16)
     sb = torch.cat([scene.packed(), scene.packed()[:2]])
-    assert 4 * nk.n_slots(11) * 16 * 16 == 188416 <= nk.MAX_SHARED_BYTES
+    assert nk.shared_bytes(11, 16) == 4 * (nk.n_slots(11) * 128 + 256 + 110) == 95672
+    assert nk.shared_bytes(11, 16) <= nk.MAX_SHARED_BYTES
     out = ak.replay(sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg,
                     torch.zeros(10, 8, 8), local_h=8, spp=1)
     assert out.shape == (126,) and not out.any()

@@ -9,7 +9,7 @@ without JAX; from the root of a checkout:
 Tolerances are those of ``nee_grad_kernel.agreement``, which K4 shares with
 the NEE kernel, as in chip_smoke.py: every gradient sum within rtol 1e-4
 plus 1e-6 of the largest of its kind (kernel and plain version add each
-pixel's terms in the same order and sum over pixels in double); slabs and
+lane group's terms in the same order and sum over groups in double); slabs and
 sample ranges against the frame 1e-4 of the largest of the kind.
 """
 
@@ -202,3 +202,76 @@ def test_wrapper_rejects_bad_input(dev, bad):
         ct = ct.cpu()
     with pytest.raises(ValueError):
         ak.replay(sb, cb, tk.make_seed_block(cfg), cfg, ct, local_h=8, spp=1, device=dev)
+
+
+# -- the shading-only instance, the colour-only cotangent and the lane groups ---------
+
+@pytest.mark.parametrize("brdf", ["diffuse", "glossy"])
+def test_shading_only_instance_equals_the_full_one_and_plain(dev, brdf):
+    """A colour-only cotangent [3, h, W] without NEE runs the shading-only
+    instance: the full instance's sums bit for bit (seven planes of zeros),
+    exact zeros in the geometry and camera entries, its plain version under
+    ``agreement``, and the same bits when launched twice."""
+    cfg = _cfg(brdf, False)
+    sb, cb = _blocks(cfg)
+    seed = tk.make_seed_block(cfg, 2)
+    kw = dict(local_h=H, spp=SPP, device=dev)
+    full = _cotangent(dev, (0, 1, 2))
+    only = full[:3].contiguous()
+    assert not ak.instance(cfg, 3)["geom"] and ak.instance(cfg, 10)["geom"]
+    got = ak.replay(sb, cb, seed, cfg, only, **kw)
+    assert torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw))
+    assert torch.equal(got, ak.replay(sb, cb, seed, cfg, only, **kw))
+    _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, only, **kw))
+    block = ak.block_from_sums(got)
+    assert got.abs().max() > 0
+    assert not block[:9, :4].any() and not block[9:, :3].any()
+
+
+@pytest.mark.parametrize("brdf", ["diffuse", "glossy"])
+def test_colour_only_cotangent_under_nee(dev, brdf):
+    """Under NEE three planes give what ten with zeros give, bit for bit; on
+    NEE diffuse that is also the NEE kernel's replay."""
+    cfg = _cfg(brdf, True)
+    sb, cb = _blocks(cfg)
+    seed = tk.make_seed_block(cfg, 2)
+    kw = dict(local_h=H, spp=SPP, device=dev)
+    full = _cotangent(dev, (0, 1, 2))
+    only = full[:3].contiguous()
+    got = ak.replay(sb, cb, seed, cfg, only, **kw)
+    assert torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw))
+    _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, only, **kw))
+    assert ak.block_from_sums(got)[:9, :4].abs().max() > 0
+    if brdf == "diffuse":
+        k3 = nk.replay(sb, cb, seed, cfg, only.permute(1, 2, 0).contiguous(), **kw)
+        assert torch.equal(got, k3)
+
+
+@pytest.mark.parametrize("block", [3, 5, 16])
+@pytest.mark.parametrize("brdf,nee,channels", [("glossy", False, 3), ("glossy", True, 10)])
+def test_lane_groups_at_other_blocks_and_ragged_frames(dev, brdf, nee, channels, block):
+    """Lane pairs at block edges that leave the last thread without a
+    partner (3 x 3, 5 x 5), at the largest block, and on a frame whose last
+    blocks hang over both edges: the plain version follows the kernel's
+    groups."""
+    cfg = RenderConfig(width=123, height=61, spp=SPP, brdf=brdf, nee=nee, block=block)
+    sb, cb = _blocks(cfg)
+    seed = tk.make_seed_block(cfg, 2)
+    ct = _cotangent(dev, range(channels))[:channels, :61, :123].contiguous()
+    kw = dict(local_h=61, spp=SPP, device=dev)
+    got = ak.replay(sb, cb, seed, cfg, ct, **kw)
+    _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    assert torch.equal(got, ak.replay(sb, cb, seed, cfg, ct, **kw))
+
+
+def test_resident_blocks_an_sm(dev):
+    """Every instance keeps more than the 5 blocks of 8 x 8 threads resident
+    that one set of sums a thread allowed; the kernel's shared bytes are the
+    wrapper's."""
+    rows = ak.CUDA_KERNEL.instances(8, 9)
+    assert len(rows) == 8
+    for name, occ in rows.items():
+        assert occ["blocks_per_sm"] > 5, (name, occ)
+        assert occ["shared_bytes"] == nk.shared_bytes(9, 8, "shading only" not in name)
+        assert occ["registers"] <= 128
+    assert ak.CUDA_KERNEL.instances(16, 11)["K4 nee_glossy colour+aov"]["blocks_per_sm"] >= 1

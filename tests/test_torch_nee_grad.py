@@ -334,10 +334,22 @@ def test_wrapper_rejects_bad_input(state, bad):
     elif bad == "nee":
         cfg = dataclasses.replace(cfg, nee=False)
     sb = scene.packed()
-    if bad == "shared":  # 16 spheres: 254 floats a thread x 256 threads > 227 KB
-        cfg = dataclasses.replace(cfg, block=16)
-        sb = torch.cat([sb, sb[:7]])
-    with pytest.raises(ValueError, match="shared memory" if bad == "shared" else None):
+    if bad == "shared":
+        # 16 spheres at a 16 x 16 block, the largest launch: 254 words a lane
+        # pair x 128 pairs, a loss float a thread and the sphere table are
+        # 131,712 bytes, which fit a block's 227 KB, so no launch is refused
+        # for its shared memory; a sphere or a block edge more is refused.
+        assert nk.shared_bytes(16, 16) == 131712 <= nk.MAX_SHARED_BYTES
+        cfg16 = dataclasses.replace(cfg, block=16)
+        sb16 = torch.cat([sb, sb[:7]])
+        sums, _ = nk.fused(sb16, tk.camera_block(cam, cfg16), tk.make_seed_block(cfg16), cfg16,
+                           target, **kw)
+        assert sums.shape == (176,)
+        with pytest.raises(ValueError, match="spheres"):
+            nk.fused(torch.cat([sb16, sb[:1]]), tk.camera_block(cam, cfg16),
+                     tk.make_seed_block(cfg16), cfg16, target, **kw)
+        cfg = dataclasses.replace(cfg, block=17)
+    with pytest.raises(ValueError, match="block edge" if bad == "shared" else None):
         nk.fused(sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg, target, **kw)
 
 

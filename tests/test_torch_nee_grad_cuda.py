@@ -8,8 +8,8 @@ without JAX; from the root of a checkout:
 
 Tolerances are those of ``nee_grad_kernel.agreement``, as in chip_smoke.py:
 every gradient sum within rtol 1e-4 plus 1e-6 of the largest of its kind
-(kernel and plain version add each pixel's terms in the same order and sum
-over pixels in double); where two orders of operations meet (replay against
+(kernel and plain version add each lane group's terms in the same order and
+sum over groups in double); where two orders of operations meet (replay against
 fused) 1e-4 of the largest of the kind;
 mean colour off by more than 1e-3 on <= 1% of pixels. The probes: within
 1e-6 of the largest value (the plain version's fused steps round through
@@ -124,12 +124,21 @@ def test_ragged_edges_and_block_sizes(dev, block):
 
 
 def test_refuses_a_block_beyond_shared_memory(dev):
-    """16 spheres need 254 accumulator floats a thread: 260 KB a 16x16 block."""
+    """16 spheres at a 16x16 block, the largest launch: 254 words of sums a
+    lane pair, 131,712 bytes a block, which fit 227 KB and launch; the
+    kernel's own check refuses a launch whose shared memory, with a pad, is
+    above the card's."""
     cfg = dataclasses.replace(CFG, block=16)
     sb, cb, target = _inputs(dev, cfg)
-    with pytest.raises(ValueError, match="shared memory"):
-        nk.fused(torch.cat([sb, sb[:7]]), cb, tk.make_seed_block(cfg), cfg, target, local_h=64,
-                 spp=4, device=dev)
+    sb16 = torch.cat([sb, sb[:7]])
+    seed = tk.make_seed_block(cfg)
+    kw = dict(local_h=64, spp=4, device=dev)
+    sums, _ = nk.fused(sb16, cb, seed, cfg, target, **kw)
+    _assert_agree(sums, nk.fused_plain(sb16, cb, seed, cfg, target, **kw)[0])
+    assert nk.shared_bytes(16, 16) <= nk.MAX_SHARED_BYTES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        nk.CUDA_KERNEL.launch("fused", sb16, cb, seed, cfg, target,
+                              pad_shared=nk.MAX_SHARED_BYTES, **kw)
 
 
 def test_many_blocks_match_plain(dev):
@@ -255,3 +264,51 @@ def test_probe_readings_are_plausible(dev):
     assert set(lat) == set(rf.LATENCY_MODES) and all(v > 0 for v in lat.values())
     assert lat["mul_then_add"] > 1.5 * lat["mul"] and lat["add_add"] > 1.5 * lat["add"]
     assert lat["mul_then_add"] > 1.2 * lat["fma"] and lat["fma_fma"] > 1.5 * lat["fma"]
+
+
+# -- the lane groups and the resident blocks --------------------------------------
+
+@pytest.mark.parametrize("block", [3, 5, 16])
+@pytest.mark.parametrize("mode", ["fused", "replay"])
+def test_lane_groups_at_other_blocks_and_ragged_frames(dev, mode, block):
+    """Lane pairs at block edges that leave the last thread without a
+    partner (3 x 3, 5 x 5), at the largest block, and on a frame whose last
+    blocks hang over both edges: the plain version follows the kernel's
+    groups, and two launches give the same bits."""
+    cfg = RenderConfig(width=123, height=61, spp=4, nee=True, block=block)
+    sb, cb, target = _inputs(dev, cfg, 61)
+    seed = tk.make_seed_block(cfg, 2)
+    kw = dict(local_h=61, spp=4, device=dev)
+    if mode == "fused":
+        sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
+        ref_sums, ref_color = nk.fused_plain(sb, cb, seed, cfg, target, **kw)
+        _assert_agree(color, ref_color, "color")
+        again = nk.fused(sb, cb, seed, cfg, target, **kw)[0]
+    else:
+        ct = ((target - 0.5) / 4).contiguous()
+        sums = nk.replay(sb, cb, seed, cfg, ct, **kw)
+        ref_sums = nk.replay_plain(sb, cb, seed, cfg, ct, **kw)
+        again = nk.replay(sb, cb, seed, cfg, ct, **kw)
+    _assert_agree(sums, ref_sums)
+    assert torch.equal(sums, again)
+
+
+def test_resident_blocks_an_sm(dev):
+    """Both modes keep more than the 5 blocks of 8 x 8 threads resident that
+    one set of sums a thread allowed; the kernel's shared bytes are the
+    wrapper's; a pad takes blocks away, which the occupancy curve uses."""
+    for mode in nk.MODES:
+        occ = nk.CUDA_KERNEL.occupancy(mode, 8, 9)
+        assert occ["blocks_per_sm"] > 5, (mode, occ)
+        assert occ["shared_bytes"] == nk.shared_bytes(9, 8)
+        assert occ["registers"] <= 128
+        assert nk.CUDA_KERNEL.occupancy(mode, 16, 16)["shared_bytes"] == \
+            nk.shared_bytes(16, 16)
+    assert nk.CUDA_KERNEL.occupancy("replay", 8, 9, pad_shared=100000)["blocks_per_sm"] == 1
+    sb, cb, target = _inputs(dev)
+    seed = tk.make_seed_block(CFG, 2)
+    kw = dict(local_h=64, spp=4, device=dev)
+    ct = ((target - 0.5) / 4).contiguous()
+    padded = nk.CUDA_KERNEL.launch("replay", sb, cb, seed, CFG, ct, pad_shared=100000, **kw)
+    assert torch.equal(padded, nk.replay(sb, cb, seed, CFG, ct, **kw))
+    assert nk.CUDA_KERNEL.occupancy("replay", 8, 9)["blocks_per_sm"] > 5
