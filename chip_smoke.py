@@ -3,8 +3,8 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs sixteen phases, each printing its own lines; any failure raises and
-exits non-zero.
+and runs seventeen phases, each printing its own lines; any failure raises
+and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
    and Triton versions.
@@ -16,12 +16,17 @@ exits non-zero.
    of ``trace_kernel.agreement``: albedo equal on >= 99.9% of pixels;
    colour (1e-3), normal (2e-6), depth (rtol 5e-4) and each variance or
    Welford (n, mean, M2) channel (1e-3 of its range) out of tolerance on
-   <= 1%.
+   <= 1%; and beyond those rules, max |kernel - plain| must be 0: built
+   without contraction, the kernel is its plain version to the bit.
 4. The render path: the CLI renders the default frame (512x512, 4 spp, 5
    bounces) on cuda:0 through the kernel; the EXR and 8 bitmaps are read
-   back and all 14 channels are held against the plain version, same rules.
+   back and all 14 channels are held against the plain version, same rules
+   (to the bit).
 5. Timing: median of 10 CUDA-event-timed runs after warm-up, kernel and
-   plain version, at 512x512x4 spp and 512x512x32 spp.
+   plain version, at 512x512x4 spp and 512x512x32 spp; then the colour sums
+   of the NEE and glossy inverse steps (256x256x16 NEE, 256x256x8 glossy) by
+   CUDA events and by ``torch.profiler`` (the kernel alone), each beside its
+   bound (``color_nee``, ``color_glossy`` operations a segment).
 6. The grad kernel's three modes against their plain versions on the card
    at 128x64 and 4 spp (the dump also at row offset 16 and sample offset
    5), under ``grad_kernel.agreement``: gradient sums and loss within rtol
@@ -47,7 +52,8 @@ exits non-zero.
    versions, which take ~1 s a call at 32 spp: median of 2), the dump and
    the cross-estimator loss and gradients of one inverse step
    (``grad_kernel.cross_grads``, the step's own path) at 256x256x8, and the
-   whole inverse step (kernel only). The last kernel output of each line is
+   whole inverse step (kernel only); the dump also by ``torch.profiler``
+   beside its CUDA-event time. The last kernel output of each line is
    held against the last plain one under phase 6's rules (fused: sums and
    colour; replay: sums; dump: colour and accumulators; cross-estimator:
    loss and gradients as sums), so the kernels are also checked at the main
@@ -155,6 +161,13 @@ exits non-zero.
    NEE ones of K4 held to the bits of the full instance, which phase 15
    holds against its plain version at that size; and the NEE and glossy
    inverse steps' device time and idle share from phases 12 and 15.
+17. The bit gate of the forward kernel and the product-chain gradient
+   kernel: ``kernel_digests`` (sha256 of the bytes K1 writes in its three
+   modes under the four configurations at phase 3's case and in its colour
+   passes at the inverse steps' sizes, of K2's fused and dump outputs at
+   256x256x8 and 512x512x32, of K5's sums at 512x512x32) must equal
+   ``KERNEL_DIGESTS``, recorded from the thread-a-pixel kernels before their
+   redesign; a mismatch names the nvcc that recorded them and this one.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -199,7 +212,9 @@ def phase(n, title):
 
 def compare(label, got, ref, mode, spp):
     """Hold ``got`` against ``ref`` on every channel and print one line per
-    check; raise if any share is above its ceiling. -> max |got - ref|."""
+    check; raise if any share is above its ceiling, or if the trace kernel
+    (built without contraction) is not its plain version to the bit. -> max
+    |got - ref|."""
     from pathtrace_tpu_torch.ops.trace_kernel import agreement
 
     checks, max_err = agreement(got, ref, mode, spp)
@@ -210,7 +225,128 @@ def compare(label, got, ref, mode, spp):
     failed = [name for name, _, _, ok in checks if not ok]
     if failed:
         raise RuntimeError(f"kernel disagrees with the plain version: {label}: {failed}")
+    if max_err != 0.0:
+        raise RuntimeError(f"kernel is not its plain version to the bit: {label}")
     return max_err
+
+
+# ---- the bit gate of K1, K2 and K5 (phase 17) --------------------------------------
+
+DIGEST_CONFIGS = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"},
+                  "nee_glossy": {"nee": True, "brdf": "glossy"}}
+
+
+# sha256 of the outputs of the thread-a-pixel kernels of PR 1 and PR 2, as
+# they stood before their redesign (scripts/torch_kernel_occupancy.py
+# --digests on an H100), and the nvcc that built them.
+DIGEST_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+KERNEL_DIGESTS = {
+    "K1 diffuse channels 128x64x4": "754bc2d1f09b4c2638965462467af372614ce06cce1152aeaeb701c340c9e9d9",
+    "K1 diffuse partials 128x64x4": "0f29f160865b8a4e23386e96675ecedfcd8404eb3ec12b887f6fec0e9afbcbc9",
+    "K1 diffuse color 128x64x4": "1a1a2c967f6fac96698a814afe081b0001f5b0824f691e8210b47e3b06d38ed6",
+    "K1 nee channels 128x64x4": "828e818c7025305daeaa3859d4acdc2b39a5556d34f74a73d7c5f68fc7ea9e10",
+    "K1 nee partials 128x64x4": "34d28a27da2c5c67d3f03c426157b516dcacf5394183d632a1fa5967c49eb625",
+    "K1 nee color 128x64x4": "7ce3efbe08feced8f0f9ab3aee65a05018e357f828c684bf1fa061ce9ab9400b",
+    "K1 glossy channels 128x64x4": "698bc71ff31c681025e26064bdc73b36adabea2dfba6447edd6628a47ff04e16",
+    "K1 glossy partials 128x64x4": "19c452fb39b3361ad0456c239237ab162ae4e4a4c82cbf9bd5b3aef5d34d1c4e",
+    "K1 glossy color 128x64x4": "2564560090e7823713da7b240228d016313aa6171b7afb45a0a70d44f3f79e9a",
+    "K1 nee_glossy channels 128x64x4": "d1f121885b56ea8dd24aaf3f79c5257f161f91d4554d5209580aab42156252e1",
+    "K1 nee_glossy partials 128x64x4": "37276576c06f84b2d24ccb0999f3371a5a02af81d84a664eb6c5d1141a666384",
+    "K1 nee_glossy color 128x64x4": "e7f382f2ec7fe3ca6580819f1df6cac47844299b9bbae23827478bd863ca0185",
+    "K1 nee color 256x256x16": "a5a5b3c3ec23272d1933559c0cfac407e8911f4fc31236cd8abe19013514d4cd",
+    "K1 glossy color 256x256x8": "9918a4db871fda663da6a4aed391d20b02daccb823adf911c8b35b00ae549a95",
+    "K2 fused 256x256x8": "f26b224cd57283f2548179c68b4cf935dc5824b803e1f9f3197758b40bad21ab",
+    "K2 dump 256x256x8": "d1020599ce4d62d0c40e0b074726bf13c880aeeb1ec21e14e67056f3d279e733",
+    "K2 fused 512x512x32": "fe16d38aee7155a8e8548522887a81d871b2d1a0d1c8d0078ca3e9e147843dbf",
+    "K2 dump 512x512x32": "27baa862e3ba55d8ab8c4dcc54ec031bb24fee335e6140489b67477a9ad130e6",
+    "K5 replay 512x512x32": "6d994e4e8d2b864f1353b1adbd2e70d5897b7a5cf47c7bb856728a1a23d3ece5",
+}
+
+
+def kernel_digests(dev, tk, gk):
+    """{case: sha256 of the bytes a kernel wrote} over the cases of the bit
+    gate: K1 in its three modes under the four configurations at phase 3's
+    case (128x64 of a 128x96 frame, 4 spp, row offset 16, sample offset 5)
+    and its colour sums at the inverse steps' sizes (256x256x16 NEE, 256x256x8
+    glossy); K2 fused (sums, colour) and dump (colour, accumulators) at
+    256x256x8 and 512x512x32; K5 replay at 512x512x32. The target of the fused
+    mode is a uniform draw from numpy's generator at seed 0, the replay's
+    cotangent (target - 0.5) / 1000."""
+    import hashlib
+
+    import torch
+    from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+
+    sb, cam = cornell_box().packed(), Camera.create()
+
+    def sha(*tensors):
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for case, extra in DIGEST_CONFIGS.items():
+        cfg = RenderConfig(width=128, height=96, spp=4, **extra)
+        cb, seed = tk.camera_block(cam, cfg), tk.make_seed_block(cfg, 0, 5, 16)
+        for mode in MODES:
+            out[f"K1 {case} {mode} 128x64x4"] = sha(
+                tk.trace(sb, cb, seed, cfg, local_h=64, spp=4, mode=mode, device=dev))
+    for case, spp in (("nee", 16), ("glossy", 8)):
+        cfg = RenderConfig(width=256, height=256, spp=spp, **DIGEST_CONFIGS[case])
+        out[f"K1 {case} color 256x256x{spp}"] = sha(tk.trace(
+            sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg, local_h=256, spp=spp,
+            mode="color", device=dev))
+    for size, spp in ((256, 8), (512, 32)):
+        cfg = RenderConfig(width=size, height=size, spp=spp)
+        cb, seed = tk.camera_block(cam, cfg), tk.make_seed_block(cfg)
+        kw = dict(local_h=size, spp=spp, device=dev)
+        target = torch.from_numpy(np.random.default_rng(0).uniform(
+            size=(size, size, 3)).astype(np.float32)).to(dev)
+        out[f"K2 fused {size}x{size}x{spp}"] = sha(*gk.fused(sb, cb, seed, cfg, target, **kw))
+        out[f"K2 dump {size}x{size}x{spp}"] = sha(*gk.dump(sb, cb, seed, cfg, **kw))
+        if size == 512:
+            ct = ((target - 0.5) / 1000).contiguous()
+            out[f"K5 replay {size}x{size}x{spp}"] = sha(gk.replay(sb, cb, seed, cfg, ct, **kw))
+    return out
+
+
+def kernel_profiler_ms(fn, iters, match):
+    """(device ms a call of the kernels whose name holds ``match``, device ms
+    a call of all device work) over ``iters`` calls under ``torch.profiler``:
+    the kernel's own time, without the host's launch gap that a CUDA-event
+    time of a single call includes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3 / iters) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kernel = sum(ms for key, ms in rows if match in key)
+    if not kernel > 0:
+        raise RuntimeError(f"torch.profiler saw no device time of {match}")
+    return kernel, sum(ms for _, ms in rows)
+
+
+def digest_phase_17(dev, tk, gk, nvcc):
+    """The bit gate: every digest of ``kernel_digests`` equal to the one
+    recorded from the kernels before their redesign."""
+    phase(17, "the bit gate: digests of K1, K2 and K5 outputs against the recorded ones")
+    got = kernel_digests(dev, tk, gk)
+    differ = sorted(k for k in set(got) | set(KERNEL_DIGESTS) if got.get(k) != KERNEL_DIGESTS.get(k))
+    for k, v in got.items():
+        print(f"  {k:32s} {v[:16]} {'DIFFERS' if k in differ else 'ok'}")
+    print(f"  recorded with {DIGEST_NVCC}; this build: {nvcc}")
+    if differ:
+        raise RuntimeError(f"outputs differ from the recorded digests ({DIGEST_NVCC}; this "
+                           f"build {nvcc}): {differ}")
 
 
 # (mode, name in the kernels line, the TPU kernel it replaces)
@@ -465,6 +601,10 @@ def grad_phase_8(dev, scene, cam, gk, tk):
     held("dump", grad_compare(f"{label}/colour", got[0], ref[0], "color"),
          grad_compare(f"{label}/acc", got[1], ref[1], "acc"))
     out["dump", "kernel"], out["dump", "plain"] = med["kernel"], med["plain"]
+    prof, _ = kernel_profiler_ms(lambda: gk.dump(sb, cb, seed, cfg, **kw), 2 * TIMING_ITERS,
+                                 "grad_kernel")
+    print(f"{label}: events {med['kernel']:.4f} ms a call (the host's launch gap included), "
+          f"torch.profiler {prof:.4f} ms of the kernel alone")
     target = torch.full((256, 256, 3), 0.25, device=dev)
     label = "cross-estimator loss+grads of one inverse step 256x256x8"
     _, got, ref = turns(label, lambda: gk.cross_grads(scene, cam, cfg, 0, target, device=dev),
@@ -1389,7 +1529,8 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    print("nvcc: " + run([build.find_nvcc(), "--version"]).splitlines()[-1])
+    nvcc = run([build.find_nvcc(), "--version"]).splitlines()[-1]
+    print(f"nvcc: {nvcc}")
     try:
         import triton
 
@@ -1477,6 +1618,25 @@ def main() -> int:
                   f"{mrays_per_sec(512, 512, spp, 5, med / 1e3):.1f} Mrays/s "
                   f"(runs {min(times[name, spp]):.4f}..{max(times[name, spp]):.4f} ms)")
 
+    # The colour passes of the NEE and glossy inverse steps (two launches a
+    # step): CUDA events, the profiler, and the bound.
+    for key, extra, spp in (("color_nee", {"nee": True}, 16),
+                            ("color_glossy", {"brdf": "glossy"}, 8)):
+        cfg = RenderConfig(width=256, height=256, spp=spp, **extra)
+        cb = tk.camera_block(cam, cfg)
+        seed = tk.make_seed_block(cfg)
+        fn = functools.partial(tk.trace, sb, cb, seed, cfg, local_h=256, spp=spp, mode="color",
+                               device=dev)
+        ms, _ = time_fn(fn, warmup=2, iters=2 * TIMING_ITERS, device=dev)
+        prof, _ = kernel_profiler_ms(fn, 2 * TIMING_ITERS, "pathtrace_kernel")
+        bound = rf.bound_ms(rf.count_segments(scene, cam, cfg, 0, dev), rf.OPS_PER_SEGMENT[key],
+                            PUBLISHED_F32_FLOPS)
+        print(f"kernel 256x256x{spp} spp x5 colour sums ({key}): events "
+              f"{statistics.median(ms):.4f} ms (runs {min(ms):.4f}..{max(ms):.4f}), profiler "
+              f"{prof:.4f} ms; bound {bound:.4f} ms ({rf.OPS_PER_SEGMENT[key]} operations a "
+              f"segment at {PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s), share of bound "
+              f"{bound / prof:.3f} by the profiler")
+
     grad_err = grad_phase_6(dev, scene, cam, gk, tk)
     grad_launches = grad_phase_7(dev, scene, cam, gk, tk)
     grad_times, grad_err_8 = grad_phase_8(dev, scene, cam, gk, tk)
@@ -1490,6 +1650,7 @@ def main() -> int:
     ad_times, ad_err_15 = ad_phase_15(dev, scene, cam, ak, nk, tk)
     sweep_times, ad_err_16, nee_err_16 = sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times,
                                                         ad_times)
+    digest_phase_17(dev, tk, gk, nvcc)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):

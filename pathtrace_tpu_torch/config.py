@@ -15,8 +15,10 @@ MAX_BOUNCES = 5
 PUSH_RAY_ORIGIN = 0.05
 BACKENDS = ("auto", "torch", "cuda")
 BRDFS = ("diffuse", "glossy")
-# The largest block edge: the kernel is compiled with __launch_bounds__ of
-# MAX_BLOCK**2 threads (csrc/trace_kernel.cu), so any block up to it launches.
+# The largest block edge, in pixels: the kernels are compiled with
+# __launch_bounds__ of MAX_BLOCK**2 = 256 threads (csrc/common.cuh), and a
+# block of K1 or K2 takes as many sample lanes a pixel as fit in them
+# (ops/trace_kernel.py::sample_lanes), so any block up to it launches.
 MAX_BLOCK = 16
 
 

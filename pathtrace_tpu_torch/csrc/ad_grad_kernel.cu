@@ -138,7 +138,7 @@ int shared_bytes(bool nee, bool aov, int num_spheres, int threads) {
 extern "C" int pt_ad_grad_occupancy(int glossy, int nee, int aov, int block,
                                     int num_spheres, int* out) {
   const int threads = block * block;
-  return (int)sweep_occupancy(kernel_of(glossy, nee, aov, threads <= kSmallThreads), threads,
+  return (int)kernel_occupancy(kernel_of(glossy, nee, aov, threads <= kSmallThreads), threads,
                               shared_bytes(nee, aov, num_spheres, threads), out);
 }
 

@@ -19,8 +19,11 @@
 namespace pt {
 
 constexpr int kMaxSpheres = 16;
-constexpr int kMaxBlock = 16;  // largest block edge
+constexpr int kMaxBlock = 16;  // largest block edge, in pixels
+constexpr int kMaxThreads = 256;  // a K1 or K2 block: its pixels x sample lanes
+constexpr int kMaxLanes = 4;  // sample lanes a pixel in K1 and K2
 constexpr int kReduceThreads = 256;
+constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
 constexpr float kTBig = 1.0e6f;
 constexpr float kTwoPi = 6.283185307179586f;
 
@@ -185,13 +188,19 @@ struct BounceTape {
 // emission (clamped to [0, 1] at the first bounce) and the throughput
 // (mr, mg, mb) takes the hit sphere's albedo. With TAPED, a hit also fills
 // tape; the arithmetic is the same either way.
+//
+// The sphere tests read p.sph[i], the same row in every lane: the constant
+// bank broadcasts it. The rows read by a per-lane index (the winner's, and
+// under NEE the light's) come from `table`: the block's copy in shared
+// memory, where any index a lane holds reads a field in one wavefront
+// (K2), or p.sph itself (K1, and the sweep's forward in K3 and K4).
 template <bool FIRST, bool GLOSSY, bool NEE, bool TAPED>
-__device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& rng,
-                                              int bounce, float& ox, float& oy,
-                                              float& oz, float& dx, float& dy,
-                                              float& dz, float& mr, float& mg,
-                                              float& mb, Sample& out,
-                                              int& hit_index, BounceTape& tape) {
+__device__ __forceinline__ bool segment_taped(const TraceParams& p, const Sphere* table,
+                                              const Rng& rng, int bounce, float& ox,
+                                              float& oy, float& oz, float& dx, float& dy,
+                                              float& dz, float& mr, float& mg, float& mb,
+                                              Sample& out, int& hit_index,
+                                              BounceTape& tape) {
   float dnx = dx, dny = dy, dnz = dz, inv_len = 1.0f;
   if (FIRST) {
     // Primary rays are unnormalized (reference depth convention).
@@ -218,7 +227,7 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
   }
   if (sel < 0) return false;
   hit_index = sel;
-  const Sphere& s = p.sph[sel];
+  const Sphere& s = table[sel];
   if (TAPED) {
     tape.ox = ox;
     tape.oy = oy;
@@ -254,7 +263,7 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
     // getDirectLighting (pathtrace.cu:109-148): light direction from the
     // unpushed hit, shadow ray and its range from the pushed origin.
     const int li = p.light_index;
-    const Sphere& l = p.sph[li];
+    const Sphere& l = table[li];
     const float lb_x = l.px, lb_y = l.py - l.rad, lb_z = l.pz;
     const float sox = hx + nx * p.push;
     const float soy = hy + ny * p.push;
@@ -364,16 +373,38 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
   return true;
 }
 
+// The same segment with its rows read from the kernel parameter.
+template <bool FIRST, bool GLOSSY, bool NEE, bool TAPED>
+__device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& rng,
+                                              int bounce, float& ox, float& oy,
+                                              float& oz, float& dx, float& dy,
+                                              float& dz, float& mr, float& mg,
+                                              float& mb, Sample& out,
+                                              int& hit_index, BounceTape& tape) {
+  return segment_taped<FIRST, GLOSSY, NEE, TAPED>(p, p.sph, rng, bounce, ox, oy, oz, dx, dy,
+                                                  dz, mr, mg, mb, out, hit_index, tape);
+}
+
+// Untaped, with the rows read by index from the block's `table`.
 template <bool FIRST, bool GLOSSY, bool NEE>
-__device__ __forceinline__ bool segment(const TraceParams& p, const Rng& rng,
-                                        int bounce, float& ox, float& oy,
-                                        float& oz, float& dx, float& dy,
-                                        float& dz, float& mr, float& mg,
-                                        float& mb, Sample& out, int& hit_index) {
+__device__ __forceinline__ bool segment(const TraceParams& p, const Sphere* table,
+                                        const Rng& rng, int bounce, float& ox, float& oy,
+                                        float& oz, float& dx, float& dy, float& dz,
+                                        float& mr, float& mg, float& mb, Sample& out,
+                                        int& hit_index) {
   BounceTape unused;
-  return segment_taped<FIRST, GLOSSY, NEE, false>(p, rng, bounce, ox, oy, oz, dx,
-                                                  dy, dz, mr, mg, mb, out,
-                                                  hit_index, unused);
+  return segment_taped<FIRST, GLOSSY, NEE, false>(p, table, rng, bounce, ox, oy, oz, dx, dy,
+                                                  dz, mr, mg, mb, out, hit_index, unused);
+}
+
+// Copies the N rows of p.sph into a block's shared `table` (10 floats a row:
+// row i, field f at word 10 i + f; gcd(10, 32) = 2, so one field of the 16
+// rows lies in 16 distinct banks). Every thread of the block calls it; the
+// caller synchronises before the first read.
+__device__ __forceinline__ void copy_sphere_table(const TraceParams& p, float* table, int tid,
+                                                  int threads) {
+  const float* src = &p.sph[0].rad;
+  for (int k = tid; k < 10 * p.num_spheres; k += threads) table[k] = src[k];
 }
 
 // d clip(v, 0, 1) / dv with jnp.clip's tie-split at the boundary: 1 inside,
@@ -404,6 +435,41 @@ reduce_partials(const T* __restrict__ partial, int num_blocks, int n_out,
     __syncthreads();
   }
   if (threadIdx.x == 0) out[k] = (float)buf[0];
+}
+
+// Lane j's `v` within this thread's group of `lanes` neighbouring lanes
+// (K1, K2: the sample lanes of a pixel); every lane of `mask` calls it. One
+// lane is its own group: no shuffle.
+template <class T>
+__device__ __forceinline__ T lane_value(unsigned mask, T v, int j, int lanes) {
+  return lanes == 1 ? v : __shfl_sync(mask, v, j, lanes);
+}
+
+// log2 of `lanes` if a K1 or K2 block of block x block pixels may take that
+// many sample lanes (1, 2 or 4, at most kMaxThreads threads), else -1.
+inline int lane_bits_of(int block, int lanes) {
+  for (int b = 0; (1 << b) <= kMaxLanes; ++b) {
+    if (lanes == (1 << b)) return (block * block) << b <= kMaxThreads ? b : -1;
+  }
+  return -1;
+}
+
+// What the card gives a launch of `fn` with `threads` threads and `smem`
+// dynamic shared bytes a block: out[0] resident blocks an SM, out[1]
+// registers a thread, out[2] = smem, out[3] local (stack) bytes a thread.
+inline cudaError_t kernel_occupancy(const void* fn, int threads, int smem, int* out) {
+  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, threads, smem);
+  out[1] = attr.numRegs;
+  out[2] = smem;
+  out[3] = (int)attr.localSizeBytes;
+  return err;
 }
 
 }  // namespace pt

@@ -158,7 +158,7 @@ extern "C" int pt_nee_grad_occupancy(int mode, int block, int num_spheres, int p
                                      int* out) {
   const void* fn = kernel_of(mode, block * block <= kSmallThreads);
   const int smem = SweepLayout(true, num_spheres, block * block).bytes() + pad_shared;
-  return (int)sweep_occupancy(fn, block * block, smem, out);
+  return (int)kernel_occupancy(fn, block * block, smem, out);
 }
 
 // C entry point, bound with ctypes. scene [num_spheres, 10], cam [5, 3] and

@@ -95,7 +95,6 @@
 namespace pt {
 
 constexpr int kMaxBounces = 16;
-constexpr int kMaxSharedBytes = 232448;  // 227 KB a block on sm_90
 constexpr int kLanes = 2;                // threads that share one set of sums
 constexpr int kSmallThreads = 64;        // the default 8 x 8 block
 constexpr int kSmallMinBlocks = 8;        // resident blocks an SM it is bounded for
@@ -556,8 +555,7 @@ struct SweepBlock {
       : lay(geom, p.num_spheres, threads), words(static_cast<float*>(smem)) {
     const unsigned mask = __activemask();  // every thread of the block is here
     for (int k = tid; k < lay.sph_off; k += threads) words[k] = 0.0f;
-    const float* rows = &p.sph[0].rad;
-    for (int k = tid; k < 10 * p.num_spheres; k += threads) words[lay.sph_off + k] = rows[k];
+    copy_sphere_table(p, words + lay.sph_off, tid, threads);
     __syncthreads();
     const int group = tid / kLanes;
     acc = {static_cast<double*>(smem) + group, words + lay.shade_off + group, lay.groups,
@@ -615,23 +613,5 @@ struct SweepBlock {
     }
   }
 };
-
-// What the card gives a launch of `fn` with `threads` threads and `smem`
-// dynamic shared bytes a block: out[0] resident blocks an SM, out[1]
-// registers a thread, out[2] = smem, out[3] local (stack) bytes a thread.
-inline cudaError_t sweep_occupancy(const void* fn, int threads, int smem, int* out) {
-  if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, threads, smem);
-  out[1] = attr.numRegs;
-  out[2] = smem;
-  out[3] = (int)attr.localSizeBytes;
-  return err;
-}
 
 }  // namespace pt

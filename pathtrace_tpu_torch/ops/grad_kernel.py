@@ -57,6 +57,9 @@ from pathtrace_tpu_torch.scene import Scene
 SOURCE = CSRC / "grad_kernel.cu"
 MODES = ("fused", "dump", "replay")
 MAX_BOUNCES = 16  # the kernel's tape holds 4 bits a bounce in 64 bits
+# Sample lanes a pixel at most: the lanes' reverse sweeps take turns, so
+# four lanes serialise more than they fill (PERF.md, PR 6).
+MAX_LANES = 2
 
 
 def require_diffuse(cfg: RenderConfig, what: str):
@@ -148,10 +151,30 @@ def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, 
     return torch.stack(sums)
 
 
+# -- the dump's stores (csrc/grad_kernel.cu) ------------------------------------
+
+def dump_store_plan(width: int, local_h: int, block: int, num_spheres: int, lanes: int):
+    """The dump's stores of the accumulators as the kernel makes them: the
+    ``lanes`` sample lanes of a pixel split its row of [local_h, W, 6N], lane
+    j storing k = j, j + L, ... from the block's shared accumulators
+    [6N + 1][pixels] (pixel q's k at word k * pixels + q) -> arrays
+    ``address`` (the float written), ``row``, ``col``, ``k``, ``thread``,
+    ``lane`` and ``shared`` (the word read), one entry a store."""
+    n6, pixels = 6 * num_spheres, block * block
+    bx, by, t, k = np.meshgrid(np.arange(-(-width // block)), np.arange(-(-local_h // block)),
+                               np.arange(pixels * lanes), np.arange(n6), indexing="ij")
+    lane, q = t % lanes, t // lanes
+    row, col = by * block + q // block, bx * block + q % block
+    keep = (row < local_h) & (col < width) & (k % lanes == lane)
+    out = dict(address=(row * width + col) * n6 + k, row=row, col=col, k=k, thread=t,
+               lane=lane, shared=k * pixels + q)
+    return {name: v[keep] for name, v in out.items()}
+
+
 # -- the CUDA kernel -------------------------------------------------------------
 
 class CudaGradKernel:
-    """ctypes binding of ``pt_grad_launch``. ``launches[mode]`` counts the
+    """ctypes binding of ``pt_grad_launch_padded``. ``launches[mode]`` counts the
     kernel launches made through ``launch`` in each mode."""
 
     def __init__(self):
@@ -161,25 +184,46 @@ class CudaGradKernel:
 
     def _function(self):
         if self._fn is None:
-            self._lib, self._fn = load_function(SOURCE, "pt_grad_launch", [
+            self._lib, self._fn = load_function(SOURCE, "pt_grad_launch_padded", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ])
         return self._fn
 
+    def occupancy(self, mode: str, cfg: RenderConfig, num_spheres: int,
+                  pad_shared: int = 0, lanes: int | None = None) -> dict:
+        """What the card gives a launch of ``mode`` with ``cfg``'s block edge
+        and spp that asks for ``pad_shared`` dynamic shared bytes beyond its
+        own: resident blocks an SM, registers a thread, dynamic shared bytes
+        a block, local bytes a thread."""
+        self._function()
+        if lanes is None:
+            lanes = tk.sample_lanes(cfg.spp, cfg.block, cfg.width * cfg.height,
+                                    tk.device_sm_count(torch.cuda.current_device()), MAX_LANES)
+        out = (ctypes.c_int * 4)()
+        err = self._lib.pt_grad_occupancy(MODES.index(mode), cfg.block, lanes, num_spheres,
+                                          pad_shared, out)
+        if err != 0:
+            raise RuntimeError(f"grad kernel occupancy query failed: cudaError {err}")
+        return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
+
     def launch(self, mode: str, scene_block, cam_block, seed, cfg: RenderConfig, pixels, *,
-               local_h: int, spp: int, device: torch.device):
+               local_h: int, spp: int, device: torch.device, pad_shared: int = 0,
+               lanes: int | None = None):
         """Launch ``mode`` on the current stream of ``device`` (asynchronous).
         fused -> (sums, colour); dump -> (colour, accumulators); replay ->
-        sums."""
+        sums. ``pad_shared``, ``lanes``: as ``trace_kernel.CudaTraceKernel.
+        launch``."""
         fn = self._function()
         scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
         n6 = 6 * scene_np.shape[0]
         w, block = cfg.width, cfg.block
+        if lanes is None:
+            lanes = tk.sample_lanes(spp, block, local_h * w, tk.device_sm_count(device), MAX_LANES)
         f32 = dict(dtype=torch.float32, device=device)
         color = acc = partial = sums = None
         if mode in ("fused", "dump"):
@@ -200,8 +244,8 @@ class CudaGradKernel:
                 scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
                 seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
-                cfg.push_ray_origin, MODES.index(mode), block, ptr(pixels), ptr(color),
-                ptr(acc), ptr(partial), ptr(sums), stream,
+                cfg.push_ray_origin, MODES.index(mode), block, lanes, ptr(pixels), ptr(color),
+                ptr(acc), ptr(partial), ptr(sums), stream, pad_shared,
             )
         if err != 0:
             raise RuntimeError(f"grad kernel ({mode}) launch failed: cudaError {err}")

@@ -1,8 +1,11 @@
 """The forward path-trace kernel and its plain PyTorch version.
 
 ``csrc/trace_kernel.cu`` replaces ``pathtrace_tpu/ops/pallas_trace.py::
-_pathtrace_kernel``: one CUDA thread per pixel loops over its samples and
-bounces and writes one channels-last vector, in one of three modes:
+_pathtrace_kernel``: the L sample lanes of a pixel (``sample_lanes``: one
+for a frame that fills the card, up to 4 for a smaller one) trace its
+samples round by round, add them into the pixel's sums in sample order
+(``lane_schedule``, ``add_order``) and write one channels-last vector, in one
+of three modes:
 
 - ``"channels"``: 14 finished channels (means + variances);
 - ``"partials"``: 22 mergeable channels, 10 raw sums + Welford
@@ -41,6 +44,13 @@ from pathtrace_tpu_torch.render import FEATURES, unpack_channels
 T_BIG = 1.0e6
 TWO_PI = 6.283185307179586
 MAX_SPHERES = 16
+MAX_THREADS = 256  # a block of the kernels K1 and K2: pixels x sample lanes
+MAX_LANES = 4
+# Threads an SM below which a launch of one thread a pixel leaves the card
+# short of warps: 32 warps, what an SM keeps of a kernel at 64 registers.
+FILL_THREADS = 1024
+SPHERE_ROW_WORDS = 10  # a row of the shared sphere table: radius, position, emission, albedo
+SHARED_BANKS = 32
 MODES = {"channels": 14, "partials": 22, "color": 3}
 # Names of the statistics channels 10.. of each mode.
 STAT_CHANNELS = {
@@ -361,6 +371,69 @@ def trace_plain(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBl
     return torch.stack(chans, dim=-1)
 
 
+# -- the kernels' schedule (csrc/trace_kernel.cu; csrc/grad_kernel.cu too) ------
+
+def sample_lanes(spp: int, block: int, pixels: int, sm_count: int,
+                 max_lanes: int = MAX_LANES) -> int:
+    """L, the sample lanes of a pixel in a launch of K1 (``max_lanes`` 4) or
+    K2 (2) over ``pixels`` pixels on a card of ``sm_count`` SMs. One lane
+    where a thread a pixel already gives every SM ``FILL_THREADS`` threads
+    (a 512x512 frame on an H100: more lanes only add shuffles and, in K2,
+    turns), and at 1 spp; else the largest power of two up to ``max_lanes``
+    and up to ``spp`` whose block of ``block`` x ``block`` pixels x L threads
+    stays within ``MAX_THREADS`` (a 256x256 frame at 4+ spp in the default
+    8x8 block: 4 in K1, 2 in K2)."""
+    if pixels >= FILL_THREADS * sm_count:
+        return 1
+    lanes = 1
+    while 2 * lanes <= min(spp, max_lanes) and block * block * 2 * lanes <= MAX_THREADS:
+        lanes *= 2
+    return lanes
+
+
+def device_sm_count(device) -> int:
+    """The SMs of a CUDA ``device`` (cached by torch)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def add_order(spp: int, lanes: int) -> list:
+    """The samples of a pixel in the order its sums take them (K1) and its
+    accumulators take their sweeps (K2): round r's lanes j = 0..L-1 hold
+    samples r L + j, applied lowest lane first; an idle lane of the last
+    round adds nothing."""
+    return [base + j for base in range(0, spp, lanes) for j in range(lanes) if base + j < spp]
+
+
+def lane_schedule(width: int, height: int, block: int, spp: int,
+                  lanes: int) -> Dict[str, np.ndarray]:
+    """Every (pixel, sample) a launch with ``lanes`` sample lanes traces, as
+    the kernels assign them: a grid of ceil(W / block) x ceil(h / block)
+    blocks of block^2 x L threads, thread t lane t % L of pixel q = t // L at
+    (q % block, q // block) in its block, lane j tracing samples j, j + L,
+    ... -> arrays ``block_x``, ``block_y``, ``thread``, ``lane``, ``round``,
+    ``sample``, ``row``, ``col``, one entry a traced sample."""
+    bx, by, t, r = np.meshgrid(np.arange(-(-width // block)), np.arange(-(-height // block)),
+                               np.arange(block * block * lanes), np.arange(-(-spp // lanes)),
+                               indexing="ij")
+    lane, q = t % lanes, t // lanes
+    out = dict(block_x=bx, block_y=by, thread=t, lane=lane, round=r, sample=r * lanes + lane,
+               row=by * block + q // block, col=bx * block + q % block)
+    keep = (out["row"] < height) & (out["col"] < width) & (out["sample"] < spp)
+    return {k: v[keep] for k, v in out.items()}
+
+
+def store_lane(channel: int, lanes: int) -> int:
+    """The lane of a pixel that stores its output ``channel``."""
+    return channel % lanes
+
+
+def sphere_table_banks(num_spheres: int, field: int) -> np.ndarray:
+    """The shared-memory banks of one field of the rows of the sphere table
+    (row i, field f at word 10 i + f): a warp whose lanes hold any sphere
+    indices reads that field in one wavefront when these are distinct."""
+    return (SPHERE_ROW_WORDS * np.arange(num_spheres) + field) % SHARED_BANKS
+
+
 # -- the CUDA kernel -----------------------------------------------------------
 
 def host_arrays(scene_block, cam_block, seed: SeedBlock):
@@ -374,8 +447,10 @@ def host_arrays(scene_block, cam_block, seed: SeedBlock):
 
 
 class CudaTraceKernel:
-    """ctypes binding of ``pt_trace_launch``. ``launches`` counts the
-    kernel launches made through ``launch``."""
+    """ctypes binding of ``pt_trace_launch_padded``. ``launches`` counts the
+    kernel launches made through ``launch``. ``lanes`` of ``launch`` and
+    ``occupancy`` defaults to ``sample_lanes`` for the launch and the card;
+    only measurements pass another."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
@@ -384,22 +459,45 @@ class CudaTraceKernel:
 
     def _function(self):
         if self._fn is None:
-            self._lib, self._fn = load_function(SOURCE, "pt_trace_launch", [
+            self._lib, self._fn = load_function(SOURCE, "pt_trace_launch_padded", [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ])
         return self._fn
 
+    def occupancy(self, mode: str, cfg: RenderConfig, pad_shared: int = 0,
+                  lanes: int | None = None) -> dict:
+        """What the card gives a launch of ``mode`` under ``cfg`` (BRDF, NEE,
+        block edge, spp) that asks for ``pad_shared`` dynamic shared bytes
+        beyond its own: resident blocks an SM, registers a thread, dynamic
+        shared bytes a block, local bytes a thread."""
+        self._function()
+        if lanes is None:
+            lanes = sample_lanes(cfg.spp, cfg.block, cfg.width * cfg.height,
+                                 device_sm_count(torch.cuda.current_device()))
+        out = (ctypes.c_int * 4)()
+        err = self._lib.pt_trace_occupancy(MODES[mode], int(cfg.brdf == "glossy"),
+                                           int(cfg.nee), cfg.block, lanes, pad_shared, out)
+        if err != 0:
+            raise RuntimeError(f"trace kernel occupancy query failed: cudaError {err}")
+        return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
+
     def launch(self, scene_block, cam_block, seed: SeedBlock, cfg: RenderConfig, *,
-               local_h: int, spp: int, mode: str, device: torch.device) -> torch.Tensor:
+               local_h: int, spp: int, mode: str, device: torch.device,
+               pad_shared: int = 0, lanes: int | None = None) -> torch.Tensor:
         """Launch on the current stream of ``device`` -> [local_h, W, C]
-        float32 (asynchronous, like any CUDA op)."""
+        float32 (asynchronous, like any CUDA op). ``pad_shared``: dynamic
+        shared bytes to ask for beyond the block's own, so that fewer blocks
+        fit an SM; only the occupancy curve of ``scripts/
+        torch_kernel_occupancy.py`` passes it."""
         fn = self._function()
         scene_np, cam_np, seed_np = host_arrays(scene_block, cam_block, seed)
         n_ch = MODES[mode]
+        if lanes is None:
+            lanes = sample_lanes(spp, cfg.block, local_h * cfg.width, device_sm_count(device))
         out = torch.empty((local_h, cfg.width, n_ch), dtype=torch.float32, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -409,7 +507,7 @@ class CudaTraceKernel:
                 _f32(1.0 / cfg.height), spp, _f32(1.0 / spp), cfg.max_bounces,
                 int(cfg.resolved_jitter), cfg.push_ray_origin,
                 cfg.light_index if cfg.nee else -1, int(cfg.brdf == "glossy"),
-                n_ch, cfg.block, out.data_ptr(), stream,
+                n_ch, cfg.block, lanes, out.data_ptr(), stream, pad_shared,
             )
         if err != 0:
             raise RuntimeError(f"trace kernel launch failed: cudaError {err}")

@@ -60,6 +60,9 @@ OPS_PER_SEGMENT = {
     "forward_diffuse": 568.0,  # the forward kernel, 14 channels
     "forward_nee": 898.0,  # the same with the shadow ray
     "color_nee": 877.8,  # colour-only forward under NEE
+    # The glossy colour pass (K1, 3 channels), which no jaxpr counts: the
+    # untaped forward of the plain version, by scripts/torch_count_ops.py.
+    "color_glossy": 633.0,
     # The TPU's in-kernel-AD replay under NEE diffuse (docs/ROOFLINE.md section
     # 5): the code jax.vjp generates, not the hand-derived sweep.
     "ad_replay_nee_jaxpr": 1988.6,

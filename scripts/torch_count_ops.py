@@ -37,7 +37,8 @@ divided by the bounces:
 - ``total``: forward + sweep, the count behind a bound.
 
 ``count_all`` gives the entries of ``utils/roofline.py::OPS_PER_SEGMENT``:
-the all-parameter backward (K4) by configuration, against a colour + AOV
+the forward kernel's glossy colour pass (``color_glossy``, the untaped
+forward), the all-parameter backward (K4) by configuration, against a colour + AOV
 cotangent and against a colour cotangent alone (without NEE that is the
 shading-only instance; on NEE diffuse it is also K3's replay), and the
 product-chain kernel (K2 fused and dump, K5 replay). For K3's fused mode it
@@ -202,6 +203,9 @@ def count_all(size: int = 16, bounces: int = 5) -> tuple[dict, dict]:
     ops["nee_grad_two_pass"] = rows["ad_nee_color"]["forward_untaped"] + ops["ad_nee_color"]
     ops["nee_grad_fused"] = min(ops["nee_grad_two_pass"],
                                 OPS_PER_SEGMENT["nee_grad_one_pass_jaxpr"])
+    # The forward kernel's glossy colour pass (K1, 3 channels): the untaped
+    # forward, which no jaxpr of the JAX package counts.
+    ops["color_glossy"] = rows["ad_glossy_color"]["forward_untaped"]
     for key, replay in (("grad_fused", False), ("grad_replay", True)):
         rows[key] = count_chain(replay, size, bounces)
         ops[key] = rows[key]["total"]

@@ -209,3 +209,22 @@ def test_unported_configs_raise_on_cuda(dev, extra):
     assert torch.isfinite(loss) and loss > 0
     assert torch.isfinite(ds.color).all() and (ds.color != 0).sum() >= 3
     assert ds.color.device == dev and dc.position.device == dev
+
+
+@pytest.mark.parametrize("mode", list(gk.MODES))
+@pytest.mark.parametrize("block", [5, 8])
+def test_sample_lanes_keep_every_bit(dev, mode, block):
+    """1, 2 or 4 sample lanes a pixel add their sweeps into its accumulators
+    in sample order: every output is the one-lane launch's, bit for bit,
+    also in a ragged frame whose blocks hold partial warps."""
+    cfg = RenderConfig(width=45, height=37, spp=5, block=block)
+    sb, cb, target = _inputs(dev, cfg, 37)
+    seed = tk.make_seed_block(cfg, 1, 3)
+    kw = dict(local_h=37, spp=5, device=dev)
+    px = None if mode == "dump" else (target if mode == "fused" else target / 5)
+    ref = gk.CUDA_KERNEL.launch(mode, sb, cb, seed, cfg, px, lanes=1, **kw)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for lanes in (2, 4):
+        got = gk.CUDA_KERNEL.launch(mode, sb, cb, seed, cfg, px, lanes=lanes, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), f"{lanes} lanes"

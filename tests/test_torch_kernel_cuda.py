@@ -107,3 +107,40 @@ def test_wrapper_raises_on_bad_input_on_cuda(dev):
     with pytest.raises(ValueError):
         tk.trace(sb.double(), cb, tk.make_seed_block(cfg), cfg, local_h=8, spp=1,
                  mode="channels")
+
+
+@pytest.mark.parametrize("config", ["diffuse", "nee", "glossy", "nee_glossy"])
+@pytest.mark.parametrize("mode", list(tk.MODES))
+def test_kernel_equals_plain_to_the_bit(dev, config, mode):
+    """Built without contraction, the kernel draws the plain version's bits
+    in every mode and configuration: max |kernel - plain| is 0. The sample
+    lanes add each pixel's samples in sample order, so this holds for any
+    lane count."""
+    extra = {"nee_glossy": {"nee": True, "brdf": "glossy"}}.get(config, CONFIGS.get(config))
+    cfg = RenderConfig(width=128, height=96, spp=4, **extra)
+    sb, cb = _host_blocks(cfg)
+    seed = tk.make_seed_block(cfg, 0, 5, 16)
+    kw = dict(local_h=64, spp=4, mode=mode, device=dev)
+    ref = tk.trace_plain(sb, cb, seed, cfg, **kw)
+    assert torch.equal(tk.trace(sb, cb, seed, cfg, **kw), ref)
+    for lanes in (1, 2, 4):
+        got = tk.CUDA_KERNEL.launch(sb, cb, seed, cfg, lanes=lanes, **kw)
+        assert torch.equal(got, ref), f"{lanes} lanes"
+
+
+def test_outputs_keep_the_recorded_digests(dev):
+    """The bit gate of chip_smoke.py phase 17: K1, K2 and K5 write the bytes
+    recorded from the thread-a-pixel kernels."""
+    import importlib.util
+    from pathlib import Path
+
+    from pathtrace_tpu_torch.ops import grad_kernel as gk
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.kernel_digests(dev, tk, gk)
+    differ = sorted(k for k in set(got) | set(smoke.KERNEL_DIGESTS)
+                    if got.get(k) != smoke.KERNEL_DIGESTS.get(k))
+    assert not differ, f"digests differ (recorded with {smoke.DIGEST_NVCC}): {differ}"

@@ -234,3 +234,14 @@ def test_counted_operations_of_every_gradient_instance(counted_ops, key):
             rf.OPS_PER_SEGMENT["nee_grad_two_pass"], abs=0.05)
         assert ops[key] == min(two_pass, rf.OPS_PER_SEGMENT["nee_grad_one_pass_jaxpr"])
     assert ops[key] > rf.OPS_PER_SEGMENT["forward_diffuse"]
+
+
+def test_counted_operations_of_the_glossy_colour_pass(counted_ops):
+    """``OPS_PER_SEGMENT["color_glossy"]``, the bound of K1's glossy colour
+    pass, is the script's untaped glossy forward: the taped forward inside
+    ``ad_glossy_color`` less the index it keeps, one select a bounce."""
+    ops, rows = counted_ops
+    assert ops["color_glossy"] == pytest.approx(rf.OPS_PER_SEGMENT["color_glossy"], abs=0.05)
+    assert ops["color_glossy"] == pytest.approx(rows["ad_glossy_color"]["forward"] - 1.0)
+    assert rf.OPS_PER_SEGMENT["forward_diffuse"] < ops["color_glossy"] < \
+        rf.OPS_PER_SEGMENT["color_nee"]
