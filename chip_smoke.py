@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs seventeen phases, each printing its own lines; any failure raises
+and runs eighteen phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -102,7 +102,12 @@ and exits non-zero.
    67 TFLOP/s with a fused multiply-add as two, or bytes over 3.35 TB/s,
    whichever gives more. ``bound_ms_unfused_measured`` is the same count
    over the multiply-only rate the probe measured in this run: the least
-   time for a build without FMA contraction, which these kernels are.
+   time for a build without FMA contraction, which these kernels are. The
+   latency probe is one dependent chain a thread, so its bound is the
+   chain's 1,048,576 steps at an FMA's dependent-issue latency (4 cycles,
+   Volta through Hopper) over the SM clock ``nvidia-smi`` reads as
+   ``clocks.max.sm`` (``bound_model`` "latency" in the kernels line; its
+   throughput bound beside it as ``bound_ms_throughput``).
 12. Timing of the NEE grad kernel (fused and replay at 512x512x32, the
    cross-estimator and the whole NEE inverse step at 256x256x16) against
    the plain versions, each last kernel output held against the last plain
@@ -168,6 +173,28 @@ and exits non-zero.
    256x256x8 and 512x512x32, of K5's sums at 512x512x32) must equal
    ``KERNEL_DIGESTS``, recorded from the thread-a-pixel kernels before their
    redesign; a mismatch names the nvcc that recorded them and this one.
+18. The denoised frame and the interactive loop (the reference's second
+   mode, SURVEY.md §3.2), with the denoiser's weights made in the process
+   by ``models.init_model`` (seed 0) and written with
+   ``train.save_checkpoint`` to a temporary directory; each part sets the
+   trace kernel's launch count to 0 before it and reads it after: (a)
+   ``cli.main(["-d", ...])`` renders and denoises the default frame
+   (512x512, 4 spp) on cuda:0 through K1 and cuDNN (f32, TF32 off); the
+   EXR's other channels must be the re-rendered frame's bits, and its
+   denoised colour the same model's forward on the CPU on that buffer within
+   1e-4; (b) a ``ProgressiveRenderer`` on the default device, batches of 4,
+   8 and 20 spp at 512x512: three launches, bit-equal to the plain version's
+   partials of the same batches merged, and equal to one 32-spp render
+   within rtol/atol 1e-3; (c) a ``FrameStepper(progressive=True,
+   denoising=True)``: 8 steps at 512x512x4 with a move between steps 4 and
+   5, accumulating 4, 8, 16, 32 spp and again from 4, one launch a step,
+   finite AOVs and uint8 frames; (d) ``cli.main(["-i", "--frames", "3",
+   "-d", ...])`` writes 3 BMPs; (e) CUDA-event times (median of 20 after
+   warm-up) of the CNN alone at 512x512 in f32 and in TF32, each beside its
+   operation count (convolutions, a multiply-add as two) and the share of
+   the published peak, of the render alone, of the denoised frame (render +
+   CNN; ``torch.profiler``'s device time and K1's part of it beside it), and
+   of one progressive ``FrameStepper.step`` after a move.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -622,6 +649,10 @@ def grad_phase_8(dev, scene, cam, gk, tk):
 # ---- the NEE gradient path (phases 9, 10, 12) and the probes (phase 11) ------------
 
 PUBLISHED_F32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, FMA counted as 2
+# Cycles from an FFMA's issue to the issue of an FFMA that reads its result:
+# 4 on Volta through Hopper by published microbenchmarks (Jia et al. 2018,
+# "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking").
+FMA_DEPENDENT_CYCLES = 4
 PUBLISHED_BYTES_PER_S = 3.35e12
 NEE_INVERSE_STEPS = 400
 
@@ -871,13 +902,25 @@ def probe_phase_11(dev, rf):
             rec["peak"] = dict(ms=ms, plain_ms=pms, ops_ms=1e3 * flops / PUBLISHED_F32_FLOPS,
                                bytes_ms=1e3 * 12.0 * xs.numel() / PUBLISHED_BYTES_PER_S)
     xs, as_ = rf.probe_inputs(rf.LATENCY_GRID * 8, dev)
+    # The latency probe is one dependent chain a thread: its least time is the
+    # chain's steps one after another at the FMA's dependent-issue latency and
+    # the card's highest SM clock, not its operations over the f32 peak.
+    sm_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"]).splitlines()[0])
     for mode in rf.LATENCY_MODES:
         full = mode == "fma"  # the timed row; a plain run at full depth takes a minute
         ms, pms = at_depth("latency", mode, xs, as_, rf.LATENCY_ITERS if full else 64, 1)
         if full:
-            flops = 2.0 * xs.numel() * rf.LATENCY_ITERS * rf.INNER
+            steps = rf.LATENCY_ITERS * rf.INNER
+            flops = 2.0 * xs.numel() * steps
             rec["latency"] = dict(ms=ms, plain_ms=pms, ops_ms=1e3 * flops / PUBLISHED_F32_FLOPS,
-                                  bytes_ms=1e3 * 12.0 * xs.numel() / PUBLISHED_BYTES_PER_S)
+                                  bytes_ms=1e3 * 12.0 * xs.numel() / PUBLISHED_BYTES_PER_S,
+                                  latency_ms=1e3 * steps * FMA_DEPENDENT_CYCLES / (sm_mhz * 1e6),
+                                  steps=steps, sm_mhz=sm_mhz)
+            r = rec["latency"]
+            print(f"  latency bound: {steps} dependent steps x {FMA_DEPENDENT_CYCLES} cycles / "
+                  f"{sm_mhz:.0f} MHz (nvidia-smi clocks.max.sm) = {r['latency_ms']:.4f} ms; "
+                  f"throughput bound {max(r['ops_ms'], r['bytes_ms']):.4f} ms")
 
     for k in rf.CUDA_KERNEL.launches:
         rf.CUDA_KERNEL.launches[k] = 0
@@ -1501,6 +1544,218 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
     return out, worst, err_nee
 
 
+
+# ---- the denoised frame, progressive accumulation and the interactive loop (phase 18) --
+
+DENOISE_ATOL = 1e-4  # the card's f32 CNN against the CPU forward, absolute
+PROGRESSIVE_BATCHES = (4, 8, 20)
+STEPPER_SPP = [4, 8, 16, 32, 4, 8, 16, 32]  # 8 steps at 4 spp, a move between steps 4 and 5
+PUBLISHED_TF32_FLOPS = 495e12  # NVIDIA H100 SXM data sheet, dense
+
+
+def cnn_operations(model, x):
+    """Operations of one forward of ``model`` on ``x``, counted over its
+    convolutions: 2 x (input channels x kernel area) for the multiply-adds of
+    an output element, plus its bias add. BatchNorm, ReLU, the resizes and
+    the adds are left out (one or two operations an element of an
+    activation, under 1% of the total)."""
+    import torch
+    from torch import nn
+
+    counts = []
+
+    def hook(module, _, out):
+        k = module.kernel_size[0] * module.kernel_size[1]
+        counts.append(out.numel() * (2 * module.in_channels // module.groups * k + 1))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(counts)
+
+
+def denoise_phase_18(dev, tk, smi):
+    """The reference's second mode end to end (SURVEY.md §3.2): render, CNN,
+    display, interactive control, on the card through K1 and cuDNN. Raises
+    on any failure. -> {name: ms}."""
+    import dataclasses
+
+    import torch
+    from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+    from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.interactive import FrameStepper
+    from pathtrace_tpu_torch.io.bmp import read_bmp
+    from pathtrace_tpu_torch.io.exr import load_aovs_exr
+    from pathtrace_tpu_torch.models import init_model, preprocess_channels
+    from pathtrace_tpu_torch.models.infer import cudnn_tf32, denoise_channels, load_pretrained
+    from pathtrace_tpu_torch.progressive import ProgressiveRenderer, merge_partials
+    from pathtrace_tpu_torch.render import (finalize_aovs, render_aovs, render_channels,
+                                            unpack_channels)
+    from pathtrace_tpu_torch.train import save_checkpoint
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(18, "the denoised frame (CLI -d), progressive accumulation, FrameStepper and the "
+              "interactive loop at 512x512 on cuda:0; weights from init_model(seed 0)")
+    scene, cam = cornell_box(), Camera.create()
+    cfg = RenderConfig(width=512, height=512, spp=4)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_denoise_")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, init_model(torch.Generator().manual_seed(0)))
+
+        # (a) The CLI's denoised frame, held to the CPU forward on the same buffer.
+        prefix = os.path.join(tmp, "frame")
+        tk.CUDA_KERNEL.launches = 0
+        rc = cli.main(["-d", "--checkpoint", ckpt, "--size", "512", "-s", "4", "--device", "0",
+                       "--nobitmap", "-o", prefix])
+        launches = tk.CUDA_KERNEL.launches
+        if rc != 0 or launches < 1:
+            raise RuntimeError(f"CLI -d exited {rc} after {launches} trace kernel launches")
+        got = load_aovs_exr(prefix + ".exr")
+        buf = render_channels(scene, cam, cfg, 1, dev)  # the CLI's frame 1, K1's bits again
+        raw = {k: v.cpu().numpy() for k, v in unpack_channels(buf).items()}
+        same = [k for k in raw if k != "color" and np.array_equal(got[k], raw[k])]
+        if len(same) != len(raw) - 1:
+            raise RuntimeError(f"the EXR's AOVs are not the re-rendered frame's: only {same}")
+        want = denoise_channels(buf.cpu(), ckpt).numpy()
+        err = float(np.abs(got["color"] - want).max())
+        inside = float(((want > 0.0) & (want < 1.0)).mean())
+        print(f"(a) CLI -d 512x512x4: {launches} trace kernel launches; denoised colour "
+              f"(EXR) vs the CPU forward on the same buffer: max |diff| {err:.3g} "
+              f"(<= {DENOISE_ATOL}); {inside:.3f} of the values inside (0, 1)")
+        if not err <= DENOISE_ATOL or not np.isfinite(got["color"]).all():
+            raise RuntimeError("the denoised frame disagrees with the CPU forward")
+
+        # (b) Progressive batches on the default device: kernel route = the
+        # plain partials of the same batches to the bit; = one 32-spp render
+        # to the 1e-3 rule.
+        tk.CUDA_KERNEL.launches = 0
+        prog = ProgressiveRenderer(scene, cam, cfg)
+        for spp in PROGRESSIVE_BATCHES:
+            prog.accumulate(spp)
+        got = prog.aovs()
+        launches = tk.CUDA_KERNEL.launches
+        if launches != len(PROGRESSIVE_BATCHES) or prog.device.type != "cuda":
+            raise RuntimeError(f"progressive: {launches} launches on {prog.device}")
+        sb, cb = scene.packed(), tk.camera_block(cam, cfg)
+        merged, offset = None, 0
+        for spp in PROGRESSIVE_BATCHES:
+            part = tk.partials_from_block(tk.trace_plain(
+                sb, cb, tk.make_seed_block(cfg, 0, offset), cfg, local_h=512, spp=spp,
+                mode="partials", device=dev))
+            merged = part if merged is None else merge_partials(*merged, *part)
+            offset += spp
+        plain = finalize_aovs(*merged, offset)
+        differ = [k for k in got if not torch.equal(got[k], plain[k])]
+        mono = render_aovs(scene, cam, dataclasses.replace(cfg, spp=offset), 0, dev)
+        worst = {k: float(((got[k] - mono[k]).abs() - 1e-3 * mono[k].abs()).max())
+                 for k in got}
+        print(f"(b) ProgressiveRenderer 512x512, batches {PROGRESSIVE_BATCHES}: {launches} "
+              f"trace kernel launches; kernel route vs plain route on the same batches: "
+              f"{'bit-equal' if not differ else f'DIFFER in {differ}'}; vs one {offset}-spp "
+              f"render, largest excess over rtol/atol 1e-3: {max(worst.values()):.3g}")
+        if differ:
+            raise RuntimeError(f"progressive kernel route is not its plain route: {differ}")
+        if not max(worst.values()) <= 1e-3:
+            raise RuntimeError(f"progressive batches differ from one render: {worst}")
+
+        # (c) The viewer's stepper: progressive, denoised, one move.
+        tk.CUDA_KERNEL.launches = 0
+        stepper = FrameStepper(scene, cam, cfg, denoising=True, checkpoint=ckpt,
+                               progressive=True)
+        seen = []
+        for i in range(len(STEPPER_SPP)):
+            if i == 4:
+                stepper.move("forward", 0.1)
+            rgb = stepper.step()
+            if rgb.dtype != np.uint8 or rgb.shape != (512, 512, 3):
+                raise RuntimeError(f"stepper frame {i}: {rgb.dtype} {rgb.shape}")
+            if not all(torch.isfinite(v).all() for v in stepper._prog.aovs().values()):
+                raise RuntimeError(f"stepper frame {i}: non-finite AOVs")
+            seen.append(stepper.spp_accumulated)
+        launches = tk.CUDA_KERNEL.launches
+        print(f"(c) FrameStepper(progressive, denoising) 512x512x4, a move after step 4: spp "
+              f"{seen}, {launches} trace kernel launches, frames uint8 [512, 512, 3]")
+        if seen != STEPPER_SPP or launches != len(STEPPER_SPP):
+            raise RuntimeError(f"stepper spp {seen} (want {STEPPER_SPP}), {launches} launches")
+
+        # (d) The interactive loop through the CLI.
+        tk.CUDA_KERNEL.launches = 0
+        out = os.path.join(tmp, "run", "out")
+        rc = cli.main(["-i", "--frames", "3", "-d", "--checkpoint", ckpt, "--size", "512",
+                       "--device", "0", "-o", out, "--metrics", os.path.join(tmp, "m.jsonl")])
+        frames = sorted(os.listdir(os.path.join(tmp, "run", "frames")))
+        launches = tk.CUDA_KERNEL.launches
+        print(f"(d) CLI -i --frames 3 -d: exit {rc}, {frames}, {launches} trace kernel launches")
+        if rc != 0 or len(frames) != 3 or launches != 3:
+            raise RuntimeError("the interactive loop did not write 3 frames")
+        if read_bmp(os.path.join(tmp, "run", "frames", frames[-1])).shape != (512, 512, 3):
+            raise RuntimeError("a frame of the interactive loop has the wrong shape")
+
+        # (e) Times by CUDA events, median of 20 after warm-up.
+        model = load_pretrained(ckpt, dev)
+        x = preprocess_channels(buf)[None]
+        n_ops = cnn_operations(model, x)
+        times = {}
+
+        def cnn(tf32):
+            with torch.inference_mode(), cudnn_tf32(tf32):
+                return model(x)
+
+        for name, fn in (("cnn_f32", lambda: cnn(False)), ("cnn_tf32", lambda: cnn(True)),
+                         ("cnn_f32 ", lambda: cnn(False)), ("cnn_tf32 ", lambda: cnn(True))):
+            ms, _ = time_fn(fn, warmup=3, iters=TIMING_ITERS, device=dev)
+            times.setdefault(name.strip(), []).extend(ms)
+        render = lambda: render_channels(scene, cam, cfg, 1, dev)  # noqa: E731
+        frame = lambda: denoise_channels(render_channels(scene, cam, cfg, 1, dev), ckpt)  # noqa
+        times["render"], _ = time_fn(render, warmup=3, iters=2 * TIMING_ITERS, device=dev)
+        times["denoised_frame"], _ = time_fn(frame, warmup=3, iters=2 * TIMING_ITERS,
+                                             device=dev)
+        k1_ms, device_ms = kernel_profiler_ms(frame, 2 * TIMING_ITERS, "pathtrace_kernel")
+
+        def step_after_move():
+            stepper.move("right", 1.0 / 120.0)
+            return stepper.step()
+
+        times["step"], _ = time_fn(step_after_move, warmup=3, iters=2 * TIMING_ITERS,
+                                   device=dev)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        # The CNN's device time alone (every kernel it launches), beside the
+        # events' time, which holds the host's launches.
+        device = {tf32: kernel_profiler_ms(lambda: cnn(tf32), 2 * TIMING_ITERS, "")[1]
+                  for tf32 in (False, True)}
+        print(f"(e) card: {smi}; CUDA events, median of {2 * TIMING_ITERS} after warm-up "
+              f"(runs min..max):")
+        for key, tf32, label, peak in (
+                ("cnn_f32", False, "CNN alone 512x512, f32 (TF32 off)", PUBLISHED_F32_FLOPS),
+                ("cnn_tf32", True, "CNN alone 512x512, TF32", PUBLISHED_TF32_FLOPS)):
+            rate = n_ops / (med[key] / 1e3)
+            print(f"  {label}: {med[key]:.4f} ms ({min(times[key]):.4f}..{max(times[key]):.4f});"
+                  f" {n_ops} operations (convolutions, a multiply-add as two) = "
+                  f"{rate / 1e12:.2f} TFLOP/s, {rate / peak:.3f} of the published "
+                  f"{peak / 1e12:.0f} TFLOP/s; torch.profiler device time {device[tf32]:.4f} ms "
+                  f"({n_ops / (device[tf32] / 1e3) / peak:.3f} of the peak), device idle "
+                  f"{1.0 - device[tf32] / med[key]:.3f}")
+        print(f"  render alone 512x512x4 (K1 + host): {med['render']:.4f} ms "
+              f"({min(times['render']):.4f}..{max(times['render']):.4f})")
+        print(f"  denoised frame 512x512x4 (render + preprocess + CNN f32): "
+              f"{med['denoised_frame']:.4f} ms ({min(times['denoised_frame']):.4f}.."
+              f"{max(times['denoised_frame']):.4f}); torch.profiler device time a frame "
+              f"{device_ms:.4f} ms, of it K1 {k1_ms:.4f} ms; device idle "
+              f"{1.0 - device_ms / med['denoised_frame']:.3f} of the frame")
+        print(f"  progressive FrameStepper.step after a move (render 4 spp + CNN + fade + copy "
+              f"to the host): {med['step']:.4f} ms ({min(times['step']):.4f}.."
+              f"{max(times['step']):.4f}); the stepper's own clock {stepper.last_ms:.4f} ms")
+        return med
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1651,6 +1906,7 @@ def main() -> int:
     sweep_times, ad_err_16, nee_err_16 = sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times,
                                                         ad_times)
     digest_phase_17(dev, tk, gk, nvcc)
+    denoise_phase_18(dev, tk, smi)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):
@@ -1711,14 +1967,23 @@ def main() -> int:
     for probe, replaces in (("peak", "pathtrace_tpu/utils/roofline.py:386"),
                             ("latency", "scripts/fma_probe.py:115")):
         r = probes[probe]
-        kernels.append({
+        entry = {
             "name": f"probe_kernel[{probe}]", "route": "cuda",
             "source": "pathtrace_tpu_torch/csrc/probe_kernel.cu", "replaces": replaces,
             "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
             "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
             "library_ms": None, "bound_ms_unfused_measured": None,
-        })
+        }
+        if probe == "latency":
+            # A dependent chain: bound by its operations' latency, not their
+            # rate. "bound_by" keeps the line's two words (bytes, operations);
+            # "bound_model" says which time of the operations bounds it.
+            entry.update(bound_ms=r["latency_ms"], bound_model="latency",
+                         bound_ms_throughput=max(r["ops_ms"], r["bytes_ms"]),
+                         sm_clock_mhz=r["sm_mhz"], dependent_steps=r["steps"],
+                         fma_dependent_cycles=FMA_DEPENDENT_CYCLES)
+        kernels.append(entry)
     print(f"card: {smi}; bound = segments x operations a segment / the published "
           f"{PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s (measured here: FMA "
           f"{peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s); unfused = the same over the measured "

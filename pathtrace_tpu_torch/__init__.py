@@ -9,9 +9,16 @@ respect to the scene and the camera (``grad.py``: hand-written CUDA
 gradient kernels for the diffuse estimators, ``csrc/grad_kernel.cu``
 without NEE and ``csrc/nee_grad_kernel.cu`` with it, geometry and camera
 gradients included; autograd through the wavefront otherwise) and recovers
-scene parameters from a target image (``inverse.py``).
+scene parameters from a target image (``inverse.py``). It denoises the
+frame with the FPN CNN (``models/``: ``torch.nn``, cuDNN on the card),
+accumulates frames progressively (``progressive.py``) and runs the
+interactive loop and the browser viewer (``interactive.py``, ``viewer.py``).
 ``utils/roofline.py`` measures the card's f32 peak and latencies
 (``csrc/probe_kernel.cu``). It imports torch and numpy, never jax.
+
+Every entry point runs on the current CUDA device unless it is given
+``device="cpu"`` (``render.resolve_device``); with no CUDA device and no
+device given it raises.
 """
 
 __version__ = "0.1.0"

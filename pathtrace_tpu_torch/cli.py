@@ -1,14 +1,18 @@
-"""Command-line interface: the single-frame render.
+"""Command-line interface: the single frame, the interactive loop, the viewer.
 
 The reference's flag names, short options and defaults (``src/main.cu:
 20-46``, as in ``pathtrace_tpu.cli``): size 512, 4 samples, camera
-(50, 52, 295.6) yaw -90 pitch 0, output ``output/out``. It renders one
-frame, prints ``Render completed in Xms (Y fps)`` and writes an EXR plus 8
-bitmaps (``--nobitmap`` drops the bitmaps). ``--threads-per-block`` is the
-kernel's CUDA block edge. ``--device`` takes a CUDA device index (default
-0) or ``cpu``: with no CUDA device the CLI exits with an error unless
-``--device cpu`` is given. The denoiser (``-d``), the interactive mode
-(``-i``) and the viewer are not ported yet and exit with an error.
+(50, 52, 295.6) yaw -90 pitch 0, output ``output/out``. By default it
+renders one frame, prints ``Render completed in Xms (Y fps)`` and writes an
+EXR plus 8 bitmaps (``--nobitmap`` drops the bitmaps); ``-d`` first passes
+the colour AOV through the denoise CNN of ``--checkpoint`` (a missing
+checkpoint is an error). ``-i`` runs the headless frame loop for
+``--frames`` frames (0: until interrupted), writing BMPs into ``frames/``
+beside the ``-o`` prefix, with per-frame JSONL records to ``--metrics``;
+``--viewer`` serves the browser viewer on ``--viewer-port``.
+``--threads-per-block`` is the kernel's CUDA block edge. ``--device`` takes
+a CUDA device index (default 0) or ``cpu``: with no CUDA device the CLI
+exits with an error unless ``--device cpu`` is given.
 
 Run as ``python -m pathtrace_tpu_torch.cli [options]``.
 """
@@ -55,10 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--samples", type=int, default=4, help="Number of samples per pixel")
     p.add_argument("--device", type=_device_arg, default=0,
                    help="CUDA device index to render on, or 'cpu'")
-    p.add_argument("-d", "--denoising", action="store_true",
-                   help="Use denoising neural network (not ported yet).")
+    p.add_argument("-d", "--denoising", action="store_true", help="Use denoising neural network.")
     p.add_argument("-i", "--interactive", action="store_true",
-                   help="Interactive mode (not ported yet).")
+                   help="Interactive mode - will render single frame only if not set.")
     p.add_argument("--nobitmap", action="store_true", help="Don't output bitmaps for each channel")
     p.add_argument("-o", "--output", type=str, default="output/out", help="Prefix of output file/path")
     p.add_argument("-x", "--camera-x", type=float, default=50.0, help="Starting camera position x")
@@ -77,7 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp-chunk", type=int, default=0,
                    help="Torch backend: trace spp in chunks of this size (bounds memory)")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
-    p.add_argument("--viewer", action="store_true", help="Live browser viewer (not ported yet)")
+    p.add_argument("--frames", type=int, default=0,
+                   help="Interactive mode: stop after N frames (0 = until interrupted)")
+    p.add_argument("--viewer", action="store_true",
+                   help="Serve a live browser viewer (WASD/mouse/TAB, the reference's GLFW "
+                        "window, Window.h:16-193) instead of the headless frame writer")
+    p.add_argument("--viewer-port", type=int, default=8764)
+    p.add_argument("--metrics", type=str, default=None,
+                   help="Append per-frame JSONL metrics to this file (interactive mode)")
+    p.add_argument("--checkpoint", type=str, default="denoise_cnn_ckpt",
+                   help="Denoise-CNN checkpoint directory (for --denoising)")
     p.add_argument("--exr-compression", choices=["none", "zips", "zip"], default="zip")
     return p
 
@@ -112,15 +124,19 @@ def _render_ms(render, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, on in (("--denoising", args.denoising), ("--interactive", args.interactive),
-                     ("--viewer", args.viewer)):
-        if on:
-            print(f"ERROR: {flag} is not ported yet", file=sys.stderr)
-            return 2
     device, err = _resolve_device(args.device)
     if err:
         print(f"ERROR: {err}", file=sys.stderr)
         return 1
+    if args.denoising:
+        from pathtrace_tpu_torch.models.infer import load_pretrained
+
+        try:  # loads the model once, outside the timed render
+            load_pretrained(args.checkpoint, device)
+        except FileNotFoundError as e:
+            print(f"ERROR: no denoiser checkpoint in {args.checkpoint!r} ({e.strerror}: "
+                  f"{e.filename})", file=sys.stderr)
+            return 1
 
     width = height = args.size
     print("pathtrace-torch 0.1")
@@ -129,7 +145,11 @@ def main(argv=None) -> int:
     print(f"Samples per pixel: {args.samples}")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"Using device: {device} ({name})")
-    print(f"Output file prefix: {args.output}")
+    if args.interactive or args.viewer:
+        print("Running in interactive mode: "
+              + ("denoising is on" if args.denoising else "denoising is off"))
+    else:
+        print(f"Output file prefix: {args.output}")
     print(f"Camera: {args.camera_x} {args.camera_y} {args.camera_z} "
           f"{args.camera_yaw} {args.camera_pitch}")
 
@@ -148,11 +168,32 @@ def main(argv=None) -> int:
     cam = Camera.create(position=(args.camera_x, args.camera_y, args.camera_z),
                         yaw=args.camera_yaw, pitch=args.camera_pitch)
 
+    if args.viewer:
+        from pathtrace_tpu_torch.viewer import serve
+
+        serve(scene, cam, cfg, denoising=args.denoising, checkpoint=args.checkpoint,
+              port=args.viewer_port, device=device)
+        return 0
+    if args.interactive:
+        from pathtrace_tpu_torch.interactive import run_interactive
+
+        run_interactive(scene, cam, cfg, denoising=args.denoising, max_frames=args.frames,
+                        checkpoint=args.checkpoint,
+                        out_dir=os.path.join(os.path.dirname(args.output), "frames"),
+                        metrics_path=args.metrics, device=device)
+        return 0
+
     # The first call builds the kernel (once per source change) and warms up.
     first_ms, _ = _render_ms(lambda: render_aovs(scene, cam, cfg, 0, device), device)
     render_ms, aovs = _render_ms(lambda: render_aovs(scene, cam, cfg, 1, device), device)
     print(f"Render completed in {render_ms:.3f}ms ({1000.0 / render_ms:.1f} fps)"
           f" [first call incl. build: {first_ms:.0f}ms]")
+    if args.denoising:
+        from pathtrace_tpu_torch.models.infer import denoise_aovs
+
+        denoise_ms, color = _render_ms(lambda: denoise_aovs(aovs, args.checkpoint), device)
+        aovs = dict(aovs, color=color)
+        print(f"Denoise completed in {denoise_ms:.3f}ms")
     print()
 
     aovs = {k: np.asarray(v.detach().cpu()) for k, v in aovs.items()}

@@ -20,6 +20,17 @@ BRDFS = ("diffuse", "glossy")
 # block of K1 or K2 takes as many sample lanes a pixel as fit in them
 # (ops/trace_kernel.py::sample_lanes), so any block up to it launches.
 MAX_BLOCK = 16
+# Channel count of the AOV feature buffer (reference include/OutputBuffer.h).
+NUM_CHANNELS = 14
+# Channel layout of the packed feature buffer, the reference's buffer writes
+# (src/pathtrace.cu:240-254), as pathtrace_tpu.config.CHANNEL_NAMES.
+CHANNEL_NAMES = (
+    "color_r", "color_g", "color_b",
+    "normal_x", "normal_y", "normal_z",
+    "albedo_r", "albedo_g", "albedo_b",
+    "depth",
+    "color_var", "normal_var", "albedo_var", "depth_var",
+)
 
 
 @dataclasses.dataclass(frozen=True)

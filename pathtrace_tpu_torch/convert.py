@@ -1,14 +1,19 @@
-"""Carry a scene and a camera across from the JAX package.
+"""Carry a scene, a camera and the denoiser's weights across from the JAX
+package.
 
-The renderer has no learned weights: its scene and camera are the whole
-state. These take the JAX package's parameters as numpy arrays
-(``np.asarray(jax_scene.radius)``, ...) and return the port's objects, so
-both packages compute on the same values; ``grads_to_numpy`` goes the other
-way for gradients, so that both packages' seven gradient blocks can be
-compared by name. No JAX import is needed here.
+The renderer's scene and camera are its whole state. These take the JAX
+package's parameters as numpy arrays (``np.asarray(jax_scene.radius)``, ...)
+and return the port's objects, so both packages compute on the same values;
+``grads_to_numpy`` goes the other way for gradients, so that both packages'
+seven gradient blocks can be compared by name. The denoiser's Flax variables,
+as a nested dict of numpy arrays, become the port's state dict
+(``denoise_state_dict_from_flax``). No JAX import is needed here.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -44,3 +49,44 @@ def grads_to_numpy(d_scene: Scene, d_cam: Camera) -> dict:
     out = {name: getattr(d_scene, name) for name in ("radius", "position", "emission", "color")}
     out.update(cam_position=d_cam.position, yaw=d_cam.yaw, pitch=d_cam.pitch)
     return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in out.items()}
+
+
+# Flax leaf name -> torch state-dict name, per collection.
+_PARAM_NAMES = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def denoise_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``{"params": ..., "batch_stats": ...}`` of ``DenoiseCNN`` (nested
+    dicts of numpy arrays) -> the state dict of the port's
+    ``models.denoise_cnn.DenoiseCNN``. Conv kernels go HWIO -> OIHW; BatchNorm
+    ``scale``/``bias`` become ``weight``/``bias``, ``mean``/``var`` become
+    ``running_mean``/``running_var``, and ``num_batches_tracked`` is 0. The
+    module paths are the Flax tree's (``block1.Conv_0``, ``lat_0``, ...)."""
+    out = OrderedDict()
+    for path, value in _flatten(variables["params"]):
+        leaf = path[-1]
+        if leaf not in _PARAM_NAMES:
+            raise ValueError(f"unexpected parameter {'/'.join(path)}")
+        array = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            if array.ndim != 4:
+                raise ValueError(f"conv kernel {'/'.join(path)} is not 4-D: {array.shape}")
+            array = array.transpose(3, 2, 0, 1)
+        out[".".join(path[:-1] + (_PARAM_NAMES[leaf],))] = torch.from_numpy(array.copy())
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        if path[-1] not in _STAT_NAMES:
+            raise ValueError(f"unexpected batch statistic {'/'.join(path)}")
+        module = ".".join(path[:-1])
+        out[f"{module}.{_STAT_NAMES[path[-1]]}"] = torch.from_numpy(
+            np.array(value, np.float32))
+        out[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return out

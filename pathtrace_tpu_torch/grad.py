@@ -42,7 +42,8 @@ from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.config import RenderConfig
 from pathtrace_tpu_torch.ops import grad_kernel
 from pathtrace_tpu_torch.ops import variance as var_lib
-from pathtrace_tpu_torch.render import _trace_chunk, finalize_aovs, resolve_backend
+from pathtrace_tpu_torch.render import (_trace_chunk, finalize_aovs, resolve_backend,
+                                        resolve_device)
 from pathtrace_tpu_torch.scene import Scene
 
 SCENE_FIELDS = ("radius", "position", "emission", "color")
@@ -67,10 +68,6 @@ def _accumulate_checkpointed(scene, cam, cfg: RenderConfig, frame):
     return sums, moments
 
 
-def _device(scene, device) -> torch.device:
-    return scene.device if device is None else torch.device(device)
-
-
 def render_aovs_diff(scene, cam, cfg: RenderConfig, frame=0, device=None):
     """Differentiable AOV dict on the ``"torch"`` backend, whatever
     ``cfg.backend`` says (for given AOV cotangents on the kernels see
@@ -80,7 +77,7 @@ def render_aovs_diff(scene, cam, cfg: RenderConfig, frame=0, device=None):
     geometry only through the NEE Lambert term (``cfg.nee``). Depth and
     normal are continuously differentiable in sphere position and radius and
     in the camera pose for interior rays."""
-    device = _device(scene, device)
+    device = resolve_device(device)
     sums, moments = _accumulate_checkpointed(scene.to(device), cam.to(device), cfg, frame)
     return finalize_aovs(sums, moments, cfg.spp)
 
@@ -89,7 +86,7 @@ def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.T
     """Differentiable colour image [H, W, 3]: on ``"cuda"`` a kernel forward
     and a kernel or contraction backward for every configuration
     (``grad_kernel.render_color``), autograd on ``"torch"``."""
-    device = _device(scene, device)
+    device = resolve_device(device)
     if resolve_backend(cfg, device) == "cuda":
         return grad_kernel.render_color(scene, cam, cfg, frame, device)
     return render_aovs_diff(scene, cam, cfg, frame, device)["color"]
@@ -120,7 +117,7 @@ def render_loss_grads(scene, cam, cfg: RenderConfig, frame=0, target=None, devic
     the product-chain kernel for diffuse or of the NEE kernel for NEE
     diffuse; for glossy one colour pass of the forward kernel and one launch
     of the all-parameter backward."""
-    device = _device(scene, device)
+    device = resolve_device(device)
     if target is None:
         target = torch.zeros((cfg.height, cfg.width, 3), device=device)
     target = torch.as_tensor(target, dtype=torch.float32, device=device)
@@ -137,7 +134,7 @@ def render_scalar_grads(scene, cam, cfg: RenderConfig, frame=0, device=None):
     """Gradients of the mean image luminance, the probe of the finite-
     difference tests (albedo and emission; and geometry under NEE). On
     ``"cuda"`` through ``grad_kernel.render_color``, any configuration."""
-    device = _device(scene, device)
+    device = resolve_device(device)
 
     def f(scene_, cam_):
         return torch.mean(var_lib.luminance(render_color(scene_, cam_, cfg, frame, device)))
@@ -149,7 +146,7 @@ def render_geometry_grads(scene, cam, cfg: RenderConfig, frame=0, device=None):
     """Gradients of a geometry probe, mean depth (scaled to O(1)) plus mean
     normal-y, which is continuous in sphere position and radius and in the
     camera pose: the finite-difference oracle for geometry."""
-    device = _device(scene, device)
+    device = resolve_device(device)
 
     def f(scene_, cam_):
         aovs = render_aovs_diff(scene_, cam_, cfg, frame, device)

@@ -41,7 +41,7 @@ from pathtrace_tpu_torch.grad import SCENE_FIELDS as FIELDS
 from pathtrace_tpu_torch.grad import render_color
 from pathtrace_tpu_torch.ops import grad_kernel
 from pathtrace_tpu_torch.ops.sampling import clip01, clip01_grad
-from pathtrace_tpu_torch.render import render_aovs, resolve_backend
+from pathtrace_tpu_torch.render import render_aovs, resolve_backend, resolve_device
 from pathtrace_tpu_torch.scene import Scene
 
 
@@ -87,9 +87,9 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
     different natural scales. ``grad_mask`` ({field: 0/1 tensor
     broadcastable to the field}) freezes entries: Adam normalizes step
     sizes, so even tiny gradients would walk every unmasked entry ~lr a
-    step. Everything runs on ``device`` (default: the scene's).
+    step. Everything runs on ``device`` (default: the current CUDA device).
     """
-    device = base_scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     if isinstance(learning_rate, dict):
         missing = set(optimize) - set(learning_rate)
         if missing:
@@ -157,7 +157,7 @@ def recover_scene(true_scene: Scene, corrupted_scene: Scene, cam, cfg: RenderCon
     """Render a target from ``true_scene`` (frame 987654, ``target_spp``
     samples), then optimize ``corrupted_scene``'s fields in ``optimize`` to
     match it. Returns (recovered_scene, losses)."""
-    device = true_scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     target_cfg = cfg if target_spp is None else dataclasses.replace(cfg, spp=target_spp)
     target = render_aovs(true_scene, cam, target_cfg, frame=987654, device=device)["color"]
     state, step_fn, _ = make_inverse_step(corrupted_scene, cam, cfg, target, optimize,

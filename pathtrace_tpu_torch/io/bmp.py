@@ -14,8 +14,9 @@ import struct
 import numpy as np
 
 
-def write_bmp(path, image: np.ndarray):
-    """Write [H, W, 3] or [H, W] uint8/float data as a 24-bit BMP.
+def encode_bmp(image: np.ndarray) -> bytes:
+    """[H, W, 3] or [H, W] uint8/float data -> the bytes of a 24-bit BMP (also
+    the live viewer's wire format).
 
     Float inputs are mapped with clamp(255*v); single-channel input is
     replicated to grey RGB. Rows are stored bottom-up, BGR, 4-byte aligned
@@ -36,12 +37,19 @@ def write_bmp(path, image: np.ndarray):
 
     rows = np.zeros((h, row_size), np.uint8)
     rows[:, : w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)  # bottom-up BGR
+    return b"".join((
+        b"BM",
+        struct.pack("<IHHI", header_size + data_size, 0, 0, header_size),
+        struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, data_size, 2835, 2835, 0, 0),
+        rows.tobytes(),
+    ))
 
+
+def write_bmp(path, image: np.ndarray):
+    """Write [H, W, 3] or [H, W] uint8/float data as a 24-bit BMP
+    (``encode_bmp``'s bytes)."""
     with open(path, "wb") as f:
-        f.write(b"BM")
-        f.write(struct.pack("<IHHI", header_size + data_size, 0, 0, header_size))
-        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, data_size, 2835, 2835, 0, 0))
-        f.write(rows.tobytes())
+        f.write(encode_bmp(image))
 
 
 def read_bmp(path) -> np.ndarray:

@@ -47,6 +47,7 @@ from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.grad_kernel import _device, _per_pixel
+from pathtrace_tpu_torch.render import resolve_device
 # The two kernels share their output layout and the rules that hold a
 # kernel against its plain version, by kind of entry.
 from pathtrace_tpu_torch.ops.nee_grad_kernel import (  # noqa: F401
@@ -242,7 +243,7 @@ def ad_aov_grads(scene, cam, cfg: RenderConfig, frame, ct_color=None, ct_normal=
     """(d_scene, d_camera) of sum over pixels of ct_color . colour + ct_normal .
     normal + ct_albedo . albedo + ct_depth * depth, the AOVs being the
     spp-mean channels: all parameters, any configuration, one launch."""
-    device = scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     ct = pack_cotangents(cfg, ct_color, ct_normal, ct_albedo, ct_depth, device=device)
     block = ad_grads_block_slab(scene, cam, cfg, frame, ct, device=device)
     return grads_from_block(scene, cam, cfg, block)

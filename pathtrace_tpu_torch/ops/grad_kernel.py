@@ -52,6 +52,7 @@ from pathtrace_tpu_torch.config import RenderConfig
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
+from pathtrace_tpu_torch.render import resolve_device
 from pathtrace_tpu_torch.scene import Scene
 
 SOURCE = CSRC / "grad_kernel.cu"
@@ -468,7 +469,7 @@ def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=N
         return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device)
     from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 
-    device = scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     ct = ak.pack_cotangents(cfg, cotangent, device=device)
     return ak.ad_grads_block_slab(scene, cam, cfg, frame, ct, device=device)
 
@@ -596,7 +597,7 @@ def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.T
     and albedo, and positions, radii and the camera get exact zeros. NEE
     diffuse and glossy: the forward kernel's colour sums forward, one replay
     launch backward (K3, K4); gradients reach all seven leaves."""
-    device = scene.device if device is None else torch.device(device)
+    device = resolve_device(device)
     fn = _DumpColor if route(cfg) == "chain" else _ReplayColor
     return fn.apply(cfg, frame, device, scene.radius, scene.position, scene.emission,
                     scene.color, cam.position, cam.yaw, cam.pitch)

@@ -39,7 +39,7 @@ from pathtrace_tpu_torch import rng
 from pathtrace_tpu_torch.config import MAX_BLOCK, RenderConfig
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.variance import LUMA, Moments
-from pathtrace_tpu_torch.render import FEATURES, unpack_channels
+from pathtrace_tpu_torch.render import FEATURES, resolve_device, unpack_channels
 
 T_BIG = 1.0e6
 TWO_PI = 6.283185307179586
@@ -610,8 +610,9 @@ def agreement(got: torch.Tensor, ref: torch.Tensor, mode: str, spp: int):
 
 def host_blocks(scene, cam, cfg, device):
     """(scene block, camera block, device): the blocks are built on the host,
-    since the kernel takes them by value."""
-    device = scene.device if device is None else torch.device(device)
+    since the kernel takes them by value. ``device`` None is the current CUDA
+    device (``render.resolve_device``)."""
+    device = resolve_device(device)
     cpu = torch.device("cpu")
     return scene.to(cpu).packed(), camera_block(cam.to(cpu), cfg), device
 

@@ -30,6 +30,17 @@ from pathtrace_tpu_torch.ops.trace import trace_paths
 FEATURES = ("color", "normal", "albedo", "depth")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the current CUDA device for None,
+    or an error where there is none (the CPU is never chosen silently), else
+    ``torch.device(device)``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device available; pass device="cpu" to run on the CPU')
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def resolve_backend(cfg: RenderConfig, device: torch.device) -> str:
     """The backend ``cfg.backend`` names on ``device``."""
     if cfg.backend != "auto":
@@ -147,9 +158,9 @@ def unpack_channels(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def render_aovs(scene, cam, cfg: RenderConfig, frame=0, device=None) -> Dict[str, torch.Tensor]:
-    """Render one frame on ``device`` (default: the scene's) -> dict of
-    AOVs, each [H, W, C] or [H, W]."""
-    device = scene.device if device is None else torch.device(device)
+    """Render one frame on ``device`` (default: the current CUDA device;
+    ``"cpu"`` must be asked for) -> dict of AOVs, each [H, W, C] or [H, W]."""
+    device = resolve_device(device)
     if resolve_backend(cfg, device) == "cuda":
         from pathtrace_tpu_torch.ops import trace_kernel
 

@@ -6,11 +6,16 @@ The reference brackets each kernel with cudaEvents and prints ms/fps
 
     Mrays/s = W * H * spp * max_bounces / time
 
-(path segments per second).
+(path segments per second). ``trace`` records a ``torch.profiler`` trace
+of a block; ``MetricsLogger`` prints per-frame or per-step fields and
+appends them to a JSONL file.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import time
 from typing import Callable, List, Tuple
 
 import torch
@@ -43,3 +48,42 @@ def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 10,
 
 def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: float) -> float:
     return width * height * spp * max_bounces / seconds / 1e6
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace of the block, written to ``log_dir`` as a
+    Chrome trace (``*.pt.trace.json``); the card's kernels are recorded where
+    there is a CUDA device. Yields the profiler, whose ``key_averages()``
+    sums the time by operation."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+class MetricsLogger:
+    """Structured per-frame/per-step metrics to stdout and an optional JSONL
+    file (``pathtrace_tpu.utils.timing.MetricsLogger``)."""
+
+    def __init__(self, jsonl_path=None, quiet=False):
+        self.path = jsonl_path
+        self.quiet = quiet
+        self._fh = open(jsonl_path, "a") if jsonl_path else None
+
+    def log(self, **fields):
+        fields.setdefault("ts", time.time())
+        if not self.quiet:
+            printable = {k: v for k, v in fields.items() if k != "ts"}
+            print(" ".join(f"{k}={v}" for k, v in printable.items()))
+        if self._fh:
+            self._fh.write(json.dumps(fields) + "\n")
+            self._fh.flush()
+
+    def close(self):
+        if self._fh:
+            self._fh.close()
+            self._fh = None

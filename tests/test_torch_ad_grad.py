@@ -131,7 +131,7 @@ def test_loss_grads_match_jnp_ad(state, name):
     loss_j, (ds_j, dc_j) = jax.value_and_grad(loss_fn, argnums=(0, 1))(jscene, jcam)
     want = jax_grads_to_numpy(ds_j, dc_j)
     loss, (ds, dc) = ak.ad_loss_and_grads(scene, cam, port_cfg(name), 0,
-                                          torch.from_numpy(target))
+                                          torch.from_numpy(target), device="cpu")
     got = grads_to_numpy(ds, dc)
     edge = name == "nee_glossy"
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=5e-4 if edge else 1e-4)
@@ -160,7 +160,7 @@ def test_depth_and_normal_cotangents_match_jnp_ad(state, name):
     ct_normal[..., 1] = 1.0 / npix
     ct_depth = torch.full((HEIGHT, WIDTH), 1e-4 / npix)
     got = grads_to_numpy(*ak.ad_aov_grads(scene, cam, port_cfg(name), 0, ct_normal=ct_normal,
-                                          ct_depth=ct_depth))
+                                          ct_depth=ct_depth, device="cpu"))
     assert_blocks_close(got, jax_grads_to_numpy(ds_j, dc_j), names=GEOMETRY)
     assert all(np.abs(got[k]).max() > 0 for k in GEOMETRY)
     assert not got["emission"].any() and not got["color"].any()
@@ -176,7 +176,7 @@ def test_albedo_cotangent_matches_jnp_ad(state, name):
 
     _, (ds_j, _) = jax.value_and_grad(probe, argnums=(0, 1))(jscene, jcam)
     ds, dc = ak.ad_aov_grads(scene, cam, port_cfg(name), 0,
-                             ct_albedo=torch.ones(HEIGHT, WIDTH, 3))
+                             ct_albedo=torch.ones(HEIGHT, WIDTH, 3), device="cpu")
     want = np.asarray(ds_j.color)
     np.testing.assert_allclose(ds.color.numpy(), want, rtol=2e-3, atol=1e-5 * np.abs(want).max())
     assert not ds.position.any() and not ds.emission.any() and not dc.position.any()
@@ -190,7 +190,7 @@ def test_albedo_cotangent_matches_the_pallas_kernel(state):
         jscene, jcam, jax_cfg("diffuse", spp=1, max_bounces=2), 0,
         ct_albedo=jnp.ones((HEIGHT, WIDTH, 3), jnp.float32), interpret=True)
     ds, dc = ak.ad_aov_grads(scene, cam, port_cfg("diffuse", spp=1, max_bounces=2), 0,
-                             ct_albedo=torch.ones(HEIGHT, WIDTH, 3))
+                             ct_albedo=torch.ones(HEIGHT, WIDTH, 3), device="cpu")
     got, want = grads_to_numpy(ds, dc), jax_grads_to_numpy(ds_p, dc_p)
     np.testing.assert_allclose(got["color"], want["color"], rtol=2e-3,
                                atol=1e-5 * np.abs(want["color"]).max())
@@ -206,7 +206,7 @@ def test_glossy_loss_grads_match_the_pallas_kernel(state):
         jscene, jcam, jax_cfg("glossy", spp=1, max_bounces=2), 0, jnp.asarray(target),
         interpret=True)
     loss, (ds, dc) = ak.ad_loss_and_grads(scene, cam, port_cfg("glossy", spp=1, max_bounces=2),
-                                          0, torch.from_numpy(target))
+                                          0, torch.from_numpy(target), device="cpu")
     np.testing.assert_allclose(float(loss), float(loss_p), rtol=1e-4)
     assert_blocks_close(grads_to_numpy(ds, dc), jax_grads_to_numpy(ds_p, dc_p))
 
@@ -234,14 +234,14 @@ def test_slabs_and_sample_ranges_add_up(state, name):
     cfg = port_cfg(name)
     ct = np.random.default_rng(2).normal(size=(10, HEIGHT, WIDTH)).astype(np.float32) / SPP
     ct[9] *= 1e-4
-    whole = ak.ad_grads_block_slab(scene, cam, cfg, 4, torch.from_numpy(ct))
+    whole = ak.ad_grads_block_slab(scene, cam, cfg, 4, torch.from_numpy(ct), device="cpu")
     assert whole.shape == (14, nk.BLOCK_COLS)
     parts = 0
     for row in (0, 8):
         for offset, spp in ((0, 1), (1, 1)):
             parts = parts + ak.ad_grads_block_slab(
                 scene, cam, cfg, 4, torch.from_numpy(ct[:, row:row + 8].copy()), row_offset=row,
-                local_h=8, spp=spp, sample_offset=offset)
+                local_h=8, spp=spp, sample_offset=offset, device="cpu")
     assert_agree(flat(parts), flat(whole), ak.CROSS_ATOL)
 
 
@@ -289,21 +289,21 @@ def test_entry_points_dispatch_glossy_to_k4(state, name):
     _, _, scene, cam, target = state
     cfg = port_cfg(name)
     target = torch.from_numpy(target)
-    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, cfg, 0, target)
-    loss_k, (ds_k, dc_k) = ak.ad_loss_and_grads(scene, cam, cfg, 0, target)
+    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, cfg, 0, target, device="cpu")
+    loss_k, (ds_k, dc_k) = ak.ad_loss_and_grads(scene, cam, cfg, 0, target, device="cpu")
     got, want = grads_to_numpy(ds, dc), grads_to_numpy(ds_k, dc_k)
     assert torch.equal(loss, loss_k) and all(np.array_equal(got[k], want[k]) for k in got)
-    loss_f, d_e, d_c, color = gk.fused_loss_grads(scene, cam, cfg, 0, target)
+    loss_f, d_e, d_c, color = gk.fused_loss_grads(scene, cam, cfg, 0, target, device="cpu")
     assert torch.equal(loss_f, loss) and torch.equal(d_e, ds.emission)
     assert torch.equal(d_c, ds.color)
-    assert torch.equal(color, tk.render_color_sums(scene, cam, cfg, 0) / SPP)
+    assert torch.equal(color, tk.render_color_sums(scene, cam, cfg, 0, device="cpu") / SPP)
     ct = 2.0 * (color - target) / color.numel()
-    d_e, d_c = gk.render_color_grads(scene, cam, cfg, 0, ct)
+    d_e, d_c = gk.render_color_grads(scene, cam, cfg, 0, ct, device="cpu")
     assert torch.equal(d_e, ds.emission) and torch.equal(d_c, ds.color)
 
     leaves = {k: getattr(scene, k).clone().requires_grad_(True) for k in SCENE_FIELDS}
     cam_leaves = [x.clone().requires_grad_(True) for x in (cam.position, cam.yaw, cam.pitch)]
-    img = port_grad.render_color(Scene(**leaves), Camera(*cam_leaves), cfg, 0)
+    img = port_grad.render_color(Scene(**leaves), Camera(*cam_leaves), cfg, 0, device="cpu")
     assert torch.equal(img.detach(), color)
     port_grad.l2_image_loss(img, target).backward()
     got = {k: v.grad.numpy() for k, v in leaves.items()}
@@ -327,14 +327,15 @@ def test_kernel_inverse_step_matches_autograd(state, name):
     color[0, 0], color[1, 1], color[2, 2], color[3, 0] = 1.0, 0.0, 1.25, -0.5
     start = Scene(scene.radius, scene.position, scene.emission, color)
     fields = ("emission", "color", "position", "radius")
-    state_, step_fn, _ = port_inverse.make_inverse_step(start, cam, cfg, target, fields, 1e-3)
+    state_, step_fn, _ = port_inverse.make_inverse_step(start, cam, cfg, target, fields, 1e-3,
+                                                        device="cpu")
     _, loss = step_fn(state_)
     got = {k: p.grad for k, p in state_.params.items()}
 
     leaves = {k: getattr(start, k).clone().requires_grad_(True) for k in fields}
     s = port_inverse.apply_params(start, leaves)
-    a = port_grad.render_color(s, cam, cfg, 0)
-    b = port_grad.render_color(s, cam, cfg, 1)
+    a = port_grad.render_color(s, cam, cfg, 0, device="cpu")
+    b = port_grad.render_color(s, cam, cfg, 1, device="cpu")
     loss_ad = torch.mean((a - target) * (b - target))
     want = dict(zip(fields, torch.autograd.grad(loss_ad, [leaves[k] for k in fields])))
     torch.testing.assert_close(loss, loss_ad.detach(), rtol=1e-5, atol=0)
@@ -344,7 +345,7 @@ def test_kernel_inverse_step_matches_autograd(state, name):
     assert bool(got["position"].any()) == cfg.nee
     # The edges carry half the unclipped gradient, the outside none.
     _, d = gk.cross_grads(port_inverse.apply_params(start, {"color": color}), cam, cfg, 0,
-                          target)
+                          target, device="cpu")
     assert d["color"].any()
     assert torch.equal(got["color"][0, 0], 0.5 * d["color"][0, 0])
     assert torch.equal(got["color"][1, 1], 0.5 * d["color"][1, 1])

@@ -92,7 +92,7 @@ def test_glossy_inverse_steps_match_jax(jax_run, backend):
     scene, cam, target, losses, grads, params = jax_run
     cfg = RenderConfig(backend=backend, **KW)
     state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, torch.from_numpy(target),
-                                                  OPTIMIZE, dict(RATES))
+                                                  OPTIMIZE, dict(RATES), device="cpu")
     for i in range(STEPS):
         state, loss = step_fn(state)
         np.testing.assert_allclose(float(loss), losses[i], rtol=5e-3)
@@ -120,9 +120,10 @@ def test_glossy_step_gradients_are_the_cross_grads(extra):
     cfg = RenderConfig(width=16, height=16, spp=2, max_bounces=3, seed=1, backend="cuda",
                        **extra)
     target = torch.zeros(16, 16, 3)
-    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target, FIELDS, 1e-3)
+    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target, FIELDS, 1e-3,
+                                                  device="cpu")
     _, loss = step_fn(state)
-    want_loss, want = gk.cross_grads(scene, cam, cfg, 0, target)
+    want_loss, want = gk.cross_grads(scene, cam, cfg, 0, target, device="cpu")
     assert torch.equal(loss, want_loss) and set(want) == set(FIELDS)
     for name in ("radius", "position", "emission"):
         assert torch.equal(state.params[name].grad, want[name])
@@ -145,7 +146,7 @@ def test_recover_glossy_wall_albedo_moves_toward_red(backend):
     corrupted_scene = type(scene)(scene.radius, scene.position, scene.emission, color)
     recovered, losses = inverse.recover_scene(scene, corrupted_scene, cam, cfg,
                                               optimize=("color",), steps=12, learning_rate=5e-2,
-                                              target_spp=16)
+                                              target_spp=16, device="cpu")
     assert np.all(np.isfinite(losses))
     wall = recovered.color[0]
     assert wall[0] > 0.55 and wall[1] < 0.45 and wall[2] < 0.45, wall

@@ -78,7 +78,8 @@ def test_loss_grads_match_jax(state):
     jscene, jcam, scene, cam, target = state
     loss_j, (ds_j, dc_j) = jax_grad.render_loss_grads(jscene, jcam, JAX_CFG, 0,
                                                       jnp.asarray(target))
-    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target))
+    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target),
+                                                 device="cpu")
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
     for field in ("emission", "color"):
         want = _np(getattr(ds_j, field))
@@ -91,7 +92,7 @@ def test_loss_grads_match_jax(state):
 def test_geometry_grads_match_jax(state):
     jscene, jcam, scene, cam, _ = state
     value_j, (ds_j, dc_j) = jax_grad.render_geometry_grads(jscene, jcam, JAX_CFG, 0)
-    value, (ds, dc) = port_grad.render_geometry_grads(scene, cam, CFG, 0)
+    value, (ds, dc) = port_grad.render_geometry_grads(scene, cam, CFG, 0, device="cpu")
     np.testing.assert_allclose(float(value), float(value_j), rtol=1e-4)
     assert_block_close([ds.position, ds.radius], [ds_j.position, ds_j.radius], 1e-3, 1e-4)
     assert_block_close([getattr(dc, f) for f in CAMERA_FIELDS],
@@ -105,7 +106,8 @@ def test_nee_scalar_grads_match_jax(state):
     value_j, (ds_j, dc_j) = jax_grad.render_scalar_grads(
         jscene, jcam, dataclasses.replace(JAX_CFG, nee=True), 0)
     value, (ds, dc) = port_grad.render_scalar_grads(scene, cam,
-                                                    dataclasses.replace(CFG, nee=True), 0)
+                                                    dataclasses.replace(CFG, nee=True), 0,
+                                                    device="cpu")
     np.testing.assert_allclose(float(value), float(value_j), rtol=1e-4)
     for field in ("emission", "color"):
         want = _np(getattr(ds_j, field))
@@ -130,7 +132,8 @@ def test_finite_difference_and_grad_config():
 def test_checkpointed_chunks_match_one_chunk(state):
     """Chunked, checkpointed autograd gives the gradients of one chunk."""
     _, _, scene, cam, _ = state
-    _, (g1, _) = port_grad.render_scalar_grads(scene, cam, CFG)
-    _, (g2, _) = port_grad.render_scalar_grads(scene, cam, dataclasses.replace(CFG, spp_chunk=2))
+    _, (g1, _) = port_grad.render_scalar_grads(scene, cam, CFG, device="cpu")
+    _, (g2, _) = port_grad.render_scalar_grads(scene, cam, dataclasses.replace(CFG, spp_chunk=2),
+                                               device="cpu")
     np.testing.assert_allclose(_np(g2.color), _np(g1.color), rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(_np(g2.emission), _np(g1.emission), rtol=1e-4, atol=1e-7)

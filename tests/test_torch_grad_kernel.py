@@ -97,7 +97,8 @@ def pallas_refs(state):
 
 def test_fused_plain_matches_pallas(state, pallas_refs):
     _, _, scene, cam, target = state
-    loss, d_e, d_c, color = gk.fused_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target))
+    loss, d_e, d_c, color = gk.fused_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target),
+                                                device="cpu")
     np.testing.assert_allclose(float(loss), float(pallas_refs["loss"]), rtol=1e-4)
     assert_grads_close(d_e, pallas_refs["d_e"])
     assert_grads_close(d_c, pallas_refs["d_c"])
@@ -108,7 +109,7 @@ def test_dump_slab_plain_matches_pallas(state, pallas_refs):
     """Row and sample offsets address the global lattice."""
     _, _, scene, cam, _ = state
     color, acc = gk.grad_acc_slab(scene, cam, CFG, 0, row_offset=ROW_OFFSET, local_h=LOCAL_H,
-                                  spp=SPP, sample_offset=SAMPLE_OFFSET)
+                                  spp=SPP, sample_offset=SAMPLE_OFFSET, device="cpu")
     assert acc.shape == (LOCAL_H, WIDTH, 54) and color.shape == (LOCAL_H, WIDTH, 3)
     assert_agree(color, torch.from_numpy(pallas_refs["slab_color"]), "color")
     assert_agree(acc, torch.from_numpy(pallas_refs["slab_acc"]), "acc")
@@ -116,7 +117,8 @@ def test_dump_slab_plain_matches_pallas(state, pallas_refs):
 
 def test_replay_plain_matches_pallas(state, pallas_refs):
     _, _, scene, cam, _ = state
-    d_e, d_c = gk.render_color_grads(scene, cam, CFG, 0, torch.from_numpy(pallas_refs["ct"]))
+    d_e, d_c = gk.render_color_grads(scene, cam, CFG, 0, torch.from_numpy(pallas_refs["ct"]),
+                                     device="cpu")
     assert_grads_close(d_e, pallas_refs["r_e"])
     assert_grads_close(d_c, pallas_refs["r_c"])
 
@@ -125,13 +127,13 @@ def test_plain_modes_agree(state):
     """fused = dump + contraction = replay on one lattice."""
     _, _, scene, cam, target = state
     target = torch.from_numpy(target)
-    loss, d_e, d_c, color = gk.fused_loss_grads(scene, cam, CFG, 0, target)
-    color_d, acc = gk.render_grad_acc(scene, cam, CFG, 0)
+    loss, d_e, d_c, color = gk.fused_loss_grads(scene, cam, CFG, 0, target, device="cpu")
+    color_d, acc = gk.render_grad_acc(scene, cam, CFG, 0, device="cpu")
     assert torch.equal(color, color_d)
     ct = 2.0 * (color - target) / DENOM
     fused = flat(d_e, d_c)
     assert_agree(flat(*gk.contract(ct, acc)), fused, "sums")
-    assert_agree(flat(*gk.render_color_grads(scene, cam, CFG, 0, ct)), fused, "sums")
+    assert_agree(flat(*gk.render_color_grads(scene, cam, CFG, 0, ct, device="cpu")), fused, "sums")
     assert_agree(loss[None], torch.mean((color - target) ** 2)[None], "sums")
 
 
@@ -143,10 +145,10 @@ def test_render_color_backward_is_the_contraction(state):
               for k in ("radius", "position", "emission", "color")}
     yaw = cam.yaw.clone().requires_grad_(True)
     img = port_grad.render_color(Scene(**leaves), type(cam)(cam.position, yaw, cam.pitch),
-                                 CFG, 2)
+                                 CFG, 2, device="cpu")
     ct = torch.from_numpy(np.random.default_rng(1).normal(size=img.shape).astype(np.float32))
     (img * ct).sum().backward()
-    color, acc = gk.render_grad_acc(scene, cam, CFG, 2)
+    color, acc = gk.render_grad_acc(scene, cam, CFG, 2, device="cpu")
     assert torch.equal(img.detach(), color)
     d_e, d_c = gk.contract(ct, acc)
     assert torch.equal(leaves["emission"].grad, d_e) and torch.equal(leaves["color"].grad, d_c)
@@ -160,12 +162,12 @@ def test_cross_grads_is_the_inverse_step_gradient(state):
     for the inverse step's cross-estimator, on the same lattice."""
     _, _, scene, cam, target = state
     target = torch.from_numpy(target)
-    loss, grads = gk.cross_grads(scene, cam, CFG, 1, target)
+    loss, grads = gk.cross_grads(scene, cam, CFG, 1, target, device="cpu")
     emission = scene.emission.clone().requires_grad_(True)
     color = scene.color.clone().requires_grad_(True)
     s = Scene(scene.radius, scene.position, emission, color)
-    a = port_grad.render_color(s, cam, CFG, 2)
-    b = port_grad.render_color(s, cam, CFG, 3)
+    a = port_grad.render_color(s, cam, CFG, 2, device="cpu")
+    b = port_grad.render_color(s, cam, CFG, 3, device="cpu")
     loss_ad = torch.mean((a - target) * (b - target))
     loss_ad.backward()
     assert_agree(loss[None], loss_ad.detach()[None], "sums")
@@ -186,14 +188,14 @@ def test_kernel_inverse_step_matches_autograd(state):
     mask[4] = 0.0
     state_, step_fn, _ = port_inverse.make_inverse_step(
         start, cam, CFG, target, ("emission", "color", "position"), 1e-3,
-        grad_mask={"emission": mask})
+        grad_mask={"emission": mask}, device="cpu")
     _, loss = step_fn(state_)
     got = {k: p.grad for k, p in state_.params.items()}
 
     leaves = {k: getattr(start, k).clone().requires_grad_(True) for k in ("emission", "color")}
     s = port_inverse.apply_params(start, leaves)
-    a = port_grad.render_color(s, cam, CFG, 0)
-    b = port_grad.render_color(s, cam, CFG, 1)
+    a = port_grad.render_color(s, cam, CFG, 0, device="cpu")
+    b = port_grad.render_color(s, cam, CFG, 1, device="cpu")
     loss_ad = torch.mean((a - target) * (b - target))
     d_e, d_c = torch.autograd.grad(loss_ad, [leaves["emission"], leaves["color"]])
     assert_agree(loss[None], loss_ad.detach()[None], "sums")
@@ -201,7 +203,7 @@ def test_kernel_inverse_step_matches_autograd(state):
     assert not got["position"].any()
     # The edges carry half the unclipped gradient, the outside none.
     _, d = gk.cross_grads(port_inverse.apply_params(start, {"color": color}), cam, CFG, 0,
-                          target)
+                          target, device="cpu")
     unclipped = d["color"]
     assert unclipped[0, 0] != 0 and unclipped[1, 1] != 0
     torch.testing.assert_close(got["color"][0, 0], 0.5 * unclipped[0, 0], rtol=1e-4, atol=0)
@@ -213,9 +215,9 @@ def test_cuda_backend_matches_torch_backend(state):
     autograd through the wavefront, both on the CPU."""
     _, _, scene, cam, target = state
     target = torch.from_numpy(target)
-    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, target)
+    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, target, device="cpu")
     loss_t, (ds_t, dc_t) = port_grad.render_loss_grads(
-        scene, cam, dataclasses.replace(CFG, backend="torch"), 0, target)
+        scene, cam, dataclasses.replace(CFG, backend="torch"), 0, target, device="cpu")
     np.testing.assert_allclose(float(loss), float(loss_t), rtol=1e-4)
     assert_grads_close(ds.emission, ds_t.emission)
     assert_grads_close(ds.color, ds_t.color)
@@ -242,16 +244,16 @@ def test_cuda_backend_raises_for_unported_configs(state, extra, entry):
                     local_h=8, spp=1)
         return
     if entry == "loss_grads":
-        loss, (ds, _) = port_grad.render_loss_grads(scene, cam, cfg, 0, target)
+        loss, (ds, _) = port_grad.render_loss_grads(scene, cam, cfg, 0, target, device="cpu")
         d_color, d_position = ds.color, ds.position
     elif entry == "render_color":
         leaves = [x.clone().requires_grad_(True) for x in (scene.position, scene.color)]
         s = Scene(scene.radius, leaves[0], scene.emission, leaves[1])
-        loss = port_grad.l2_image_loss(port_grad.render_color(s, cam, cfg), target)
+        loss = port_grad.l2_image_loss(port_grad.render_color(s, cam, cfg, device="cpu"), target)
         d_position, d_color = torch.autograd.grad(loss, leaves)
     else:
         state_, step_fn, _ = port_inverse.make_inverse_step(scene, cam, cfg, target,
-                                                            ("color", "position"))
+                                                            ("color", "position"), device="cpu")
         before = {k: v.detach().clone() for k, v in state_.params.items()}
         state_, loss = step_fn(state_)
         d_color = state_.params["color"].detach() - before["color"]
@@ -269,7 +271,7 @@ def test_agreement_sees_an_error(state, kind):
     """The comparison the card runs flags one wrong value, and a NaN."""
     _, _, scene, cam, _ = state
     cfg = dataclasses.replace(CFG, width=16, height=8, spp=1)
-    color, acc = gk.render_grad_acc(scene, cam, cfg, 0)
+    color, acc = gk.render_grad_acc(scene, cam, cfg, 0, device="cpu")
     ref = {"sums": flat(*gk.contract(color, acc)), "acc": acc, "color": color}[kind]
     checks, err = gk.agreement(ref.clone(), ref, kind)
     assert err == 0.0 and all(ok for *_, ok in checks)

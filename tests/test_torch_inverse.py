@@ -89,7 +89,7 @@ def test_inverse_steps_match_jax(jax_run, backend):
     cfg = RenderConfig(width=SIZE, height=SIZE, spp=SPP, max_bounces=BOUNCES, seed=SEED,
                        backend=backend)
     state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, torch.from_numpy(target),
-                                                  learning_rate=LR)
+                                                  learning_rate=LR, device="cpu")
     for i in range(STEPS):
         state, loss = step_fn(state)
         np.testing.assert_allclose(float(loss), losses[i], rtol=2e-3)
@@ -122,7 +122,7 @@ def test_recover_keeps_other_params():
     color[1] = 0.4
     corrupted = Scene(scene.radius, scene.position, scene.emission, color)
     recovered, losses = inverse.recover_scene(scene, corrupted, cam, cfg, optimize=("color",),
-                                              steps=5)
+                                              steps=5, device="cpu")
     assert len(losses) == 5 and np.all(np.isfinite(losses))
     for field in ("radius", "position", "emission"):
         assert torch.equal(getattr(recovered, field), getattr(scene, field))
@@ -139,7 +139,8 @@ def test_recover_wall_albedo_moves_toward_red(backend):
     color[0] = 0.5
     corrupted = Scene(scene.radius, scene.position, scene.emission, color)
     recovered, losses = inverse.recover_scene(scene, corrupted, cam, cfg, optimize=("color",),
-                                              steps=30, learning_rate=5e-2, target_spp=32)
+                                              steps=30, learning_rate=5e-2, target_spp=32,
+                                              device="cpu")
     assert np.all(np.isfinite(losses))
     wall = recovered.color[0]
     assert wall[0] > 0.55 and wall[1] < 0.45 and wall[2] < 0.45, wall
@@ -151,15 +152,15 @@ def test_learning_rates_and_grad_mask():
     target = torch.zeros(8, 8, 3)
     with pytest.raises(ValueError, match="missing"):
         inverse.make_inverse_step(scene, cam, cfg, target, ("color", "emission"),
-                                  {"color": 1e-2})
+                                  {"color": 1e-2}, device="cpu")
     _, _, opt = inverse.make_inverse_step(scene, cam, cfg, target, ("color",),
-                                          {"color": lambda n: 0.25})  # a schedule
+                                          {"color": lambda n: 0.25}, device="cpu")  # a schedule
     assert [g["lr"] for g in opt.param_groups] == [0.25]
     mask = torch.zeros(9, 1)
     mask[2] = 1.0  # the back wall: emission 0, on the clamp's edge, so its gradient is not 0
     state, step_fn, opt = inverse.make_inverse_step(
         scene, cam, cfg, target, ("color", "emission"), {"color": 1e-2, "emission": 0.5},
-        grad_mask={"emission": mask})
+        grad_mask={"emission": mask}, device="cpu")
     assert [g["lr"] for g in opt.param_groups] == [1e-2, 0.5]
     for _ in range(2):
         state, _ = step_fn(state)

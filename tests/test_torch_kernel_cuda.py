@@ -144,3 +144,71 @@ def test_outputs_keep_the_recorded_digests(dev):
     differ = sorted(k for k in set(got) | set(smoke.KERNEL_DIGESTS)
                     if got.get(k) != smoke.KERNEL_DIGESTS.get(k))
     assert not differ, f"digests differ (recorded with {smoke.DIGEST_NVCC}): {differ}"
+
+
+def _one_step(made):
+    state, step_fn, _ = made
+    return step_fn(state)[0]
+
+
+def _kernel_launches():
+    from pathtrace_tpu_torch.ops import grad_kernel as gk
+
+    return tk.CUDA_KERNEL.launches + sum(gk.CUDA_KERNEL.launches.values())
+
+
+@pytest.mark.parametrize("name", ["render_aovs", "render_channels", "render_color",
+                                  "render_loss_grads", "render_scalar_grads",
+                                  "render_geometry_grads", "make_inverse_step",
+                                  "recover_scene", "ProgressiveRenderer.accumulate",
+                                  "FrameStepper.step"])
+def test_entry_points_default_to_the_card(dev, name):
+    """With a CUDA device, device=None is the current CUDA device: the host-
+    built scene and camera render there through the kernels (K1, or the
+    product-chain kernel for the diffuse gradient paths). The geometry
+    gradients take autograd through the wavefront on any backend, so that
+    call launches none and is held to its output's device."""
+    from pathtrace_tpu_torch import grad, inverse, progressive, render
+    from pathtrace_tpu_torch.interactive import FrameStepper
+
+    cfg = RenderConfig(width=32, height=16, spp=2)
+    scene, cam = cornell_box(), Camera.create()
+    calls = {
+        "render_aovs": lambda: render.render_aovs(scene, cam, cfg)["color"],
+        "render_channels": lambda: render.render_channels(scene, cam, cfg),
+        "render_color": lambda: grad.render_color(scene, cam, cfg),
+        "render_loss_grads": lambda: grad.render_loss_grads(scene, cam, cfg)[0],
+        "render_scalar_grads": lambda: grad.render_scalar_grads(scene, cam, cfg)[1][0].color,
+        "render_geometry_grads": lambda: grad.render_geometry_grads(scene, cam, cfg)[1][0].radius,
+        "make_inverse_step": lambda: _one_step(inverse.make_inverse_step(
+            scene, cam, cfg, torch.zeros(16, 32, 3))).params["color"],
+        "recover_scene": lambda: inverse.recover_scene(scene, scene, cam, cfg, steps=1)[0].color,
+        "ProgressiveRenderer.accumulate": lambda: progressive.ProgressiveRenderer(
+            scene, cam, cfg).accumulate(2).aovs()["color"],
+        "FrameStepper.step": lambda: torch.from_numpy(
+            FrameStepper(scene, cam, cfg, progressive=True).step()).to(dev),
+    }
+    before = _kernel_launches()
+    out = calls[name]()
+    torch.cuda.synchronize()
+    assert out.device == dev
+    if name != "render_geometry_grads":
+        assert _kernel_launches() > before
+
+
+def test_denoiser_on_the_card_equals_the_host_forward(dev, tmp_path):
+    """The CNN on cuDNN in f32 (TF32 off) against the same weights on the CPU,
+    on a buffer the kernel rendered: within 1e-4."""
+    from pathtrace_tpu_torch.models import init_model
+    from pathtrace_tpu_torch.models.infer import denoise_channels, load_pretrained
+    from pathtrace_tpu_torch.train import save_checkpoint
+
+    save_checkpoint(str(tmp_path), init_model(torch.Generator().manual_seed(0)))
+    buf = render_channels(cornell_box(), Camera.create(), RenderConfig(width=96, height=64),
+                          device=dev)
+    model = load_pretrained(str(tmp_path))
+    assert next(model.parameters()).device == dev
+    got = denoise_channels(buf, str(tmp_path))
+    assert got.device == dev and got.shape == (64, 96, 3)
+    want = denoise_channels(buf.cpu(), str(tmp_path))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

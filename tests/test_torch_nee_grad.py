@@ -135,8 +135,10 @@ def test_loss_grads_entry_points_dispatch_to_the_nee_kernel(state, jax_ref, fuse
     """``render_loss_grads`` -> ``grad_kernel.loss_and_grads`` ->
     ``nee_loss_and_grads`` on "cuda": the fused mode, bit for bit."""
     _, _, scene, cam, target = state
-    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target))
-    loss_k, (ds_k, dc_k) = nk.nee_loss_and_grads(scene, cam, CFG, 0, torch.from_numpy(target))
+    loss, (ds, dc) = port_grad.render_loss_grads(scene, cam, CFG, 0, torch.from_numpy(target),
+                                                 device="cpu")
+    loss_k, (ds_k, dc_k) = nk.nee_loss_and_grads(scene, cam, CFG, 0, torch.from_numpy(target),
+                                                 device="cpu")
     block = nk.block_from_sums(fused_sums[2][0]) / DENOM
     assert torch.equal(loss, loss_k) and torch.equal(loss, block[9, nk.LOSS_COL])
     got, want = grads_to_numpy(ds, dc), grads_to_numpy(ds_k, dc_k)
@@ -172,19 +174,20 @@ def test_slabs_and_sample_ranges_add_up(state):
     lattice: two slabs x two sample ranges sum to the whole frame's block."""
     _, _, scene, cam, _ = state
     ct = np.random.default_rng(2).normal(size=(3, HEIGHT, WIDTH)).astype(np.float32) / SPP
-    whole = nk.nee_grads_block_slab(scene, cam, CFG, 4, torch.from_numpy(ct))
+    whole = nk.nee_grads_block_slab(scene, cam, CFG, 4, torch.from_numpy(ct), device="cpu")
     assert whole.shape == (14, nk.BLOCK_COLS)
     parts = 0
     for row in (0, 8):
         for offset, spp in ((0, 1), (1, 1)):
             parts = parts + nk.nee_grads_block_slab(
                 scene, cam, CFG, 4, torch.from_numpy(ct[:, row:row + 8]), row_offset=row,
-                local_h=8, spp=spp, sample_offset=offset)
+                local_h=8, spp=spp, sample_offset=offset, device="cpu")
     flat = lambda b: torch.cat([b[:9, :10].reshape(-1), b[9, :3], b[10:14, :3].reshape(-1),  # noqa: E731
                                 b[9, 10:11]])
     assert_agree(flat(parts), flat(whole), CROSS_ATOL)
     # The whole frame through nee_color_grads: the same launch, 1/spp folded there.
-    again = nk.nee_color_grads(scene, cam, CFG, 4, torch.from_numpy(ct * SPP).permute(1, 2, 0))
+    again = nk.nee_color_grads(scene, cam, CFG, 4, torch.from_numpy(ct * SPP).permute(1, 2, 0),
+                               device="cpu")
     assert torch.equal(again, whole)
 
 
@@ -218,11 +221,11 @@ def test_render_color_backward_is_the_replay(state):
     _, _, scene, cam, _ = state
     leaves = {k: getattr(scene, k).clone().requires_grad_(True) for k in SCENE_FIELDS}
     cam_leaves = [x.clone().requires_grad_(True) for x in (cam.position, cam.yaw, cam.pitch)]
-    img = port_grad.render_color(Scene(**leaves), Camera(*cam_leaves), CFG, 2)
-    assert torch.equal(img.detach(), tk.render_color_sums(scene, cam, CFG, 2) / SPP)
+    img = port_grad.render_color(Scene(**leaves), Camera(*cam_leaves), CFG, 2, device="cpu")
+    assert torch.equal(img.detach(), tk.render_color_sums(scene, cam, CFG, 2, device="cpu") / SPP)
     ct = torch.from_numpy(np.random.default_rng(1).normal(size=img.shape).astype(np.float32))
     (img * ct).sum().backward()
-    block = nk.nee_color_grads(scene, cam, CFG, 2, ct)
+    block = nk.nee_color_grads(scene, cam, CFG, 2, ct, device="cpu")
     want = grads_to_numpy(*nk.grads_from_block(scene, cam, CFG, block))
     got = {k: v.grad.numpy() for k, v in leaves.items()}
     got.update(cam_position=cam_leaves[0].grad.numpy(), yaw=cam_leaves[1].grad.numpy(),
@@ -251,7 +254,7 @@ def test_cross_grads_match_jnp_ad(state):
         return jnp.mean((a - target) * (b - target))
 
     loss_j, d_j = jax.value_and_grad(loss_fn)(jscene)
-    loss, d = gk.cross_grads(scene, cam, CFG, step, torch.from_numpy(target))
+    loss, d = gk.cross_grads(scene, cam, CFG, step, torch.from_numpy(target), device="cpu")
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=2e-3)
     assert set(d) == {"emission", "color", "position", "radius"}
     for name, g in d.items():

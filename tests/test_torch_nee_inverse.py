@@ -107,7 +107,8 @@ def port_step(scene, cam, target, backend):
     rates = {k: inverse.exponential_decay(*v) for k, v in RATES.items()}
     return inverse.make_inverse_step(scene, cam, cfg, torch.from_numpy(target),
                                      ("position", "radius"), rates,
-                                     grad_mask={"position": pos_mask, "radius": rad_mask})
+                                     grad_mask={"position": pos_mask, "radius": rad_mask},
+                                     device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
@@ -155,7 +156,8 @@ def test_kernel_route_step_matches_autograd_route():
     for backend in ("cuda", "torch"):
         cfg = RenderConfig(width=SIZE, height=SIZE, spp=SPP, max_bounces=BOUNCES, seed=SEED,
                            backend=backend, nee=True)
-        state, step_fn, _ = inverse.make_inverse_step(start, cam, cfg, target, FIELDS, 1e-3)
+        state, step_fn, _ = inverse.make_inverse_step(start, cam, cfg, target, FIELDS, 1e-3,
+                                                      device="cpu")
         _, loss = step_fn(state)
         got[backend] = (float(loss), {k: p.grad.numpy() for k, p in state.params.items()})
     np.testing.assert_allclose(got["cuda"][0], got["torch"][0], rtol=2e-3)
@@ -174,9 +176,10 @@ def test_nee_step_gradients_are_the_cross_grads():
     cfg = RenderConfig(width=16, height=16, spp=2, max_bounces=3, seed=1, backend="cuda",
                        nee=True)
     target = torch.zeros(16, 16, 3)
-    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target, FIELDS, 1e-3)
+    state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target, FIELDS, 1e-3,
+                                                  device="cpu")
     _, loss = step_fn(state)
-    want_loss, want = gk.cross_grads(scene, cam, cfg, 0, target)
+    want_loss, want = gk.cross_grads(scene, cam, cfg, 0, target, device="cpu")
     assert torch.equal(loss, want_loss)
     for name in ("radius", "position", "emission"):
         assert torch.equal(state.params[name].grad, want[name])
@@ -190,14 +193,14 @@ def test_scalar_schedule_and_constant_rates_mix():
     target = torch.zeros(8, 8, 3)
     state, step_fn, opt = inverse.make_inverse_step(
         scene, cam, cfg, target, ("position", "color"),
-        {"position": inverse.exponential_decay(0.5, 2, 0.25), "color": 1e-2})
+        {"position": inverse.exponential_decay(0.5, 2, 0.25), "color": 1e-2}, device="cpu")
     seen = []
     for _ in range(3):
         state, _ = step_fn(state)
         seen.append([g["lr"] for g in opt.param_groups])
     assert seen == [[0.5, 1e-2], [0.25, 1e-2], [0.125, 1e-2]]
     state, step_fn, opt = inverse.make_inverse_step(scene, cam, cfg, target, ("radius",),
-                                                    lambda step: 0.1 / (1 + step))
+                                                    lambda step: 0.1 / (1 + step), device="cpu")
     for _ in range(2):
         state, _ = step_fn(state)
     assert opt.param_groups[0]["lr"] == pytest.approx(0.05)

@@ -153,21 +153,21 @@ def test_count_segments(case):
     cam = Camera.create()
     cfg = RenderConfig(width=16, height=8, spp=3, max_bounces=4)
     if case == "closed box":  # nothing escapes the Cornell box
-        assert rf.count_segments(cornell_box(), cam, cfg) == 16 * 8 * 3 * 4
+        assert rf.count_segments(cornell_box(), cam, cfg, device="cpu") == 16 * 8 * 3 * 4
     elif case == "nee":
         import dataclasses
 
-        assert rf.count_segments(cornell_box(), cam, dataclasses.replace(cfg, nee=True)) \
-            == 16 * 8 * 3 * 4
+        assert rf.count_segments(cornell_box(), cam, dataclasses.replace(cfg, nee=True),
+                                 device="cpu") == 16 * 8 * 3 * 4
     elif case == "one bounce":
         import dataclasses
 
-        assert rf.count_segments(cornell_box(), cam,
-                                 dataclasses.replace(cfg, max_bounces=1)) == 16 * 8 * 3
+        assert rf.count_segments(cornell_box(), cam, dataclasses.replace(cfg, max_bounces=1),
+                                 device="cpu") == 16 * 8 * 3
     else:  # a far, tiny sphere: every primary ray escapes, and is the only segment
         far = Scene(np.array([1e-3], np.float32), np.array([[0.0, 1e4, 0.0]], np.float32),
                     np.zeros((1, 3), np.float32), np.ones((1, 3), np.float32))
-        assert rf.count_segments(far, cam, cfg) == 16 * 8 * 3
+        assert rf.count_segments(far, cam, cfg, device="cpu") == 16 * 8 * 3
 
 
 @pytest.fixture(scope="module")

@@ -224,7 +224,8 @@ def test_inverse_step_gradients_pass_a_colour_only_cotangent(name, monkeypatch):
         return replay(sb, cb, seed, cfg_, ct, **kw)
 
     monkeypatch.setattr(ak, "replay", spy)
-    loss, d = gk.cross_grads(cornell_box(), Camera.create(), cfg, 0, torch.rand(4, 8, 3))
+    loss, d = gk.cross_grads(cornell_box(), Camera.create(), cfg, 0, torch.rand(4, 8, 3),
+                             device="cpu")
     assert len(seen) == 2 and all(not i["aov"] for i in seen)
     assert all(i["geom"] == cfg.nee for i in seen)
     assert torch.isfinite(loss) and d["color"].abs().max() > 0
@@ -246,7 +247,7 @@ def test_shading_only_gradients_match_jnp_ad():
 
     loss_j, ds_j = jax.value_and_grad(loss_fn)(jscene)
     loss, (ds, dc) = ak.ad_loss_and_grads(cornell_box(), Camera.create(), cfg, 0,
-                                          torch.from_numpy(target))
+                                          torch.from_numpy(target), device="cpu")
     got = grads_to_numpy(ds, dc)
     np.testing.assert_allclose(float(loss), float(loss_j), rtol=1e-4)
     for field in ("emission", "color"):

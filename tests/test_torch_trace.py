@@ -44,9 +44,10 @@ def test_torch_backend_matches_jnp(config):
 def test_spp_chunks_match_unchunked():
     scene, cam = cornell_box(), Camera.create()
     cfg = RenderConfig(width=32, height=8, spp=6, backend="torch", max_bounces=3)
-    whole = render_channels(scene, cam, cfg).numpy()
+    whole = render_channels(scene, cam, cfg, device="cpu").numpy()
     for chunk in (2, 4):
-        parts = render_channels(scene, cam, dataclasses.replace(cfg, spp_chunk=chunk)).numpy()
+        parts = render_channels(scene, cam, dataclasses.replace(cfg, spp_chunk=chunk),
+                                device="cpu").numpy()
         np.testing.assert_allclose(parts[..., :10], whole[..., :10], rtol=1e-5, atol=1e-5)
         # Variances to 1e-5 of each channel's scale: depth is ~1e4, so its
         # moments carry f32 rounding of that size whichever way they merge.

@@ -165,14 +165,14 @@ def test_full_frame_entry_points_match_pallas(state, pallas_refs):
     _, _, scene, cam = state
     cfg = RenderConfig(width=WIDTH, height=LOCAL_H, spp=SPP)
     ref = pallas_refs["diffuse", "channels_frame"]
-    buf = tk.render_channels(scene, cam, cfg)
+    buf = tk.render_channels(scene, cam, cfg, device="cpu")
     assert_channels_close(buf.numpy(), ref)
-    aovs = tk.render_aovs(scene, cam, cfg)
+    aovs = tk.render_aovs(scene, cam, cfg, device="cpu")
     np.testing.assert_array_equal(aovs["albedo"].numpy(), ref[..., 6:9])
-    sums, moments = tk.render_partials(scene, cam, cfg)
+    sums, moments = tk.render_partials(scene, cam, cfg, device="cpu")
     np.testing.assert_array_equal((sums["color"] / SPP).numpy(), buf[..., 0:3].numpy())
     np.testing.assert_array_equal(variance(moments["depth"]).numpy(), buf[..., 13].numpy())
-    color = tk.render_color_sums(scene, cam, cfg, 0)
+    color = tk.render_color_sums(scene, cam, cfg, 0, device="cpu")
     np.testing.assert_array_equal(color.numpy(), sums["color"].numpy())
 
 
@@ -181,12 +181,13 @@ def test_slab_is_a_slice_of_the_frame(state):
     rows of the full frame, and two sample ranges merge into one."""
     _, _, scene, cam = state
     cfg = RenderConfig(width=32, height=16, spp=4, max_bounces=3)
-    s_full, m_full = tk.accumulate_frame_kernel(scene, cam, cfg, 0)
-    s_slab, m_slab = tk.accumulate_frame_kernel(scene, cam, cfg, 0, row_offset=8, local_h=8)
+    s_full, m_full = tk.accumulate_frame_kernel(scene, cam, cfg, 0, device="cpu")
+    s_slab, m_slab = tk.accumulate_frame_kernel(scene, cam, cfg, 0, row_offset=8, local_h=8,
+                                                device="cpu")
     np.testing.assert_array_equal(s_slab["color"].numpy(), s_full["color"][8:].numpy())
     np.testing.assert_array_equal(m_slab["depth"].m2.numpy(), m_full["depth"].m2[8:].numpy())
-    s_a, m_a = tk.accumulate_frame_kernel(scene, cam, cfg, 0, spp=2)
-    s_b, m_b = tk.accumulate_frame_kernel(scene, cam, cfg, 0, spp=2, sample_offset=2)
+    s_a, m_a = tk.accumulate_frame_kernel(scene, cam, cfg, 0, spp=2, device="cpu")
+    s_b, m_b = tk.accumulate_frame_kernel(scene, cam, cfg, 0, spp=2, sample_offset=2, device="cpu")
     np.testing.assert_allclose((s_a["color"] + s_b["color"]).numpy(),
                                s_full["color"].numpy(), rtol=1e-5, atol=1e-5)
     merged = merge_moments(m_a["color"], m_b["color"])
