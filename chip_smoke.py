@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs eighteen phases, each printing its own lines; any failure raises
+and runs nineteen phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -195,6 +195,34 @@ and exits non-zero.
    the published peak, of the render alone, of the denoised frame (render +
    CNN; ``torch.profiler``'s device time and K1's part of it beside it), and
    of one progressive ``FrameStepper.step`` after a move.
+19. The denoiser's training path at the JAX training CLI's defaults (33
+   poses at 256x256, 2 / 512 spp, 16 patches of 64x64 an image, the
+   full-width CNN, batch 5), weights from ``models.init_model`` (seed 0):
+   (a) one 512-spp ground-truth launch of K1 (rows 112-143 of pose 0, the
+   22- and 14-channel modes) against its plain version under phase 3's
+   rules, to the bit; then ``train.build_dataset`` and the validation pair
+   with the launch count set to 0 before and read after (68 launches: two a
+   pose and two for the validation pair); (b) three ``train_step``s on
+   cuda:0 against the same code on the CPU from the same weights and
+   batches: losses within rtol 1e-5, every weight, BN statistic and
+   momentum buffer within 2e-2 of its tensor's largest value plus 1e-6, the
+   update as a whole within 1e-3 of its norm; three ``simple_train_step``s
+   (Adam): losses within rtol 1e-5, the update within 0.2 of its norm; (c)
+   ``train.main`` for 4 epochs with a checkpoint and validation every 2:
+   68 launches, the last epoch's loss below the first's, finite PSNRs,
+   ``model_epoch.pt``, ``model_best.pt``, ``best.json``, ``metrics.jsonl``
+   and the preview BMPs written; the checkpoint restores epoch 4 with its
+   momentum buffers to the bit; from it, three steps of ``train_epoch``
+   (the dataset on the card) against three of ``loop_epoch`` under (b)'s
+   rules; ``--resume --epochs 1`` continues at epoch 5 on the loop route
+   twice and on ``--scan-epochs`` once, the scan route's update within 0.5
+   of the loop's norm, printed beside the loop's own run-to-run spread (the
+   card's backward adds in an order that changes between runs); then
+   ``cli.main(["-d", "--checkpoint", ...])`` denoises a 512x512x4 frame with
+   the trained weights; the native IO library's EXR and BMP against the
+   Python codec where it builds; (d) CUDA-event times of a ``train_step``
+   (median of 20) and of an epoch on each route (median of 5), the step's
+   device time and idle share by ``torch.profiler``, and its bound.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -1592,7 +1620,8 @@ def denoise_phase_18(dev, tk, smi):
     from pathtrace_tpu_torch.io.bmp import read_bmp
     from pathtrace_tpu_torch.io.exr import load_aovs_exr
     from pathtrace_tpu_torch.models import init_model, preprocess_channels
-    from pathtrace_tpu_torch.models.infer import cudnn_tf32, denoise_channels, load_pretrained
+    from pathtrace_tpu_torch.models.denoise_cnn import cudnn_tf32
+    from pathtrace_tpu_torch.models.infer import denoise_channels, load_pretrained
     from pathtrace_tpu_torch.progressive import ProgressiveRenderer, merge_partials
     from pathtrace_tpu_torch.render import (finalize_aovs, render_aovs, render_channels,
                                             unpack_channels)
@@ -1756,6 +1785,395 @@ def denoise_phase_18(dev, tk, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the denoiser's training path (phase 19) ---------------------------------------
+
+# The JAX training CLI's defaults (pathtrace_tpu/train.py:493-540): 33 poses
+# at 256x256, 16 patches of 64x64 an image, 2 / 512 spp, batch 5.
+TRAIN_SIZE, TRAIN_POSES, TRAIN_PATCH, TRAIN_PER_IMAGE = 256, 33, 64, 16
+TRAIN_SPP, TRAIN_SPP_GT, TRAIN_BATCH = 2, 512, 5
+GT_ROWS, GT_ROW_OFFSET = 32, 112  # the crop of the 512-spp launch held to its plain version
+# The card's training steps against the same port code on the CPU (losses
+# within rtol LOSS_RTOL): every tensor (weights, BN statistics, momentum)
+# within TRAIN_REL of its largest |value| plus TRAIN_ATOL, and the update as
+# a whole, the norm of the difference of the two updates over the norm of
+# one, within TRAIN_UPDATE_L2. Measured on an NVIDIA H100 (700 W): 0.0072
+# (a conv bias ahead of a BatchNorm, whose gradient mostly cancels), 2.2e-5
+# of the update, losses 4e-6.
+TRAIN_REL, TRAIN_ATOL, TRAIN_UPDATE_L2 = 2e-2, 1e-6, 1e-3
+LOSS_RTOL = 1e-5
+# Adam moves each weight by about lr whatever its gradient's size, so a
+# weight whose gradient is mostly rounding moves another way on each device:
+# the simple CNN's 3-step update is held as a whole only (measured 0.042).
+ADAM_LR, ADAM_UPDATE_L2 = 1e-4, 0.2
+# A whole epoch of each route through the CLI, against a gross fault only:
+# the two routes' updates spread apart run to run (see phase 19 (c)), by up
+# to 0.092 of the update's norm between two runs of one route.
+SCAN_EPOCH_L2 = 0.5
+# An epoch is 105 steps (1.4-2.9 s on an H100, by host): a median of 5 of
+# each route (525 steps) keeps the phase near three minutes.
+STEP_ITERS, EPOCH_ITERS = 20, 5
+
+
+def state_errors(got, want):
+    """(largest |got - want| over the largest |want| of its tensor, its name)
+    over every tensor of ``want`` (name -> tensor); BN's batch counters are
+    left out."""
+    worst = (0.0, "")
+    for name, ref in want.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        err = float((got[name].float() - ref.float()).abs().max())
+        scale = float(ref.abs().max())
+        worst = max(worst, (err / scale if scale > 0 else err, name))
+    return worst
+
+
+def update_l2(got, want, start):
+    """||(got - start) - (want - start)|| / ||want - start|| over every float
+    tensor of ``want``: how far one device's update is from the other's."""
+    num = den = 0.0
+    for name, ref in want.items():
+        if not ref.is_floating_point():
+            continue
+        num += float((got[name].cpu().double() - ref.double()).pow(2).sum())
+        den += float((ref.double() - start[name].cpu().double()).pow(2).sum())
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def hold_states(label, got, want):
+    """Hold a card-side state dict to a CPU-side one under TRAIN_REL and
+    TRAIN_ATOL; print the worst tensor. -> its share of its largest value."""
+    for name, ref in want.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        bound = TRAIN_REL * float(ref.abs().max()) + TRAIN_ATOL
+        if not float((got[name].float() - ref.float()).abs().max()) <= bound:
+            raise RuntimeError(f"{label}: {name} off by more than {bound:.3g}")
+    rel, name = state_errors(got, want)
+    print(f"  {label}: worst {rel:.3g} of its tensor's largest |value| ({name})")
+    return rel
+
+
+def train_phase_19(dev, tk, smi):
+    """The denoiser's training path at the JAX CLI's full defaults on the
+    card: the dataset through K1, the card's steps against the CPU's, the
+    training CLI with its checkpoints and resume, and the times. Raises on
+    any failure. -> {name: ms}."""
+    import copy
+    import dataclasses
+    import glob
+
+    import torch
+    from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+    from pathtrace_tpu_torch import cli, train
+    from pathtrace_tpu_torch.data.collect import random_pose, render_pair
+    from pathtrace_tpu_torch.io import native
+    from pathtrace_tpu_torch.io.bmp import encode_bmp, read_bmp, write_bmp
+    from pathtrace_tpu_torch.io.exr import load_aovs_exr, read_exr, write_exr
+    from pathtrace_tpu_torch.models import init_model
+    from pathtrace_tpu_torch.models.simple_cnn import create_simple_state, simple_train_step
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    phase(19, f"the training path at the JAX CLI's defaults on cuda:0: {TRAIN_POSES} poses at "
+              f"{TRAIN_SIZE}x{TRAIN_SIZE}, {TRAIN_SPP}/{TRAIN_SPP_GT} spp, {TRAIN_PER_IMAGE} "
+              f"patches of {TRAIN_PATCH}x{TRAIN_PATCH} an image, the full-width CNN, batch "
+              f"{TRAIN_BATCH}")
+    scene = cornell_box()
+    cfg = RenderConfig(width=TRAIN_SIZE, height=TRAIN_SIZE, spp=2, backend="auto")
+
+    # (a) One ground-truth launch (512 spp, the derived config of
+    # render_pair) against the plain version on a crop of rows, phase 3's
+    # rules, then the dataset and the validation pair.
+    pose = random_pose(np.random.default_rng(0))
+    cam = Camera.create(position=pose[:3], yaw=pose[3], pitch=pose[4])
+    gt_cfg = dataclasses.replace(cfg, spp=TRAIN_SPP_GT, spp_chunk=64, seed=cfg.seed + 1)
+    sb, cb = scene.packed(), tk.camera_block(cam, gt_cfg)
+    seed = tk.make_seed_block(gt_cfg, 0, 0, GT_ROW_OFFSET)
+    gt_err = 0.0
+    for mode in ("partials", "channels"):
+        kw = dict(local_h=GT_ROWS, spp=TRAIN_SPP_GT, mode=mode, device=dev)
+        got = tk.trace(sb, cb, seed, gt_cfg, **kw)
+        ref = tk.trace_plain(sb, cb, seed, gt_cfg, **kw)
+        print(f"(a) a {TRAIN_SPP_GT}-spp ground-truth launch, rows {GT_ROW_OFFSET}.."
+              f"{GT_ROW_OFFSET + GT_ROWS} of pose 0 ({tk.MODES[mode]} channels) vs plain:")
+        gt_err = max(gt_err, compare(f"gt{TRAIN_SPP_GT}/{mode}", got, ref, mode, TRAIN_SPP_GT))
+
+    tk.CUDA_KERNEL.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs, targets = train.build_dataset(
+        scene, cfg, n_poses=TRAIN_POSES, patch_size=TRAIN_PATCH,
+        patches_per_image=TRAIN_PER_IMAGE, spp_train=TRAIN_SPP, spp_gt=TRAIN_SPP_GT, seed=0,
+        device=dev)
+    vnoisy, vgt = render_pair(scene, train.DEFAULT_POSE, cfg, TRAIN_SPP, TRAIN_SPP_GT,
+                              frame=train.VALIDATION_FRAME, device=dev)
+    dataset_s = time.perf_counter() - t0
+    launches = tk.CUDA_KERNEL.launches
+    n = TRAIN_POSES * TRAIN_PER_IMAGE
+    print(f"(a) build_dataset + the validation pair: {dataset_s:.2f} s, {launches} trace kernel "
+          f"launches (want {2 * TRAIN_POSES + 2}); inputs {inputs.shape} "
+          f"({inputs.nbytes / 1e6:.1f} MB), targets {targets.shape} "
+          f"({targets.nbytes / 1e6:.1f} MB)")
+    if launches != 2 * TRAIN_POSES + 2:
+        raise RuntimeError(f"the dataset took {launches} trace kernel launches")
+    if inputs.shape != (n, TRAIN_PATCH, TRAIN_PATCH, 14) or targets.shape != (
+            n, TRAIN_PATCH, TRAIN_PATCH, 3):
+        raise RuntimeError(f"dataset shapes {inputs.shape}, {targets.shape}")
+    if not (np.isfinite(inputs).all() and np.isfinite(targets).all()
+            and targets.min() >= 0.0 and targets.max() <= 1.0 and np.isfinite(vgt).all()):
+        raise RuntimeError("the dataset holds non-finite values or targets outside [0, 1]")
+
+    # (b) Three steps on the card against the same code on the CPU, from the
+    # same weights and batches: the card's only correctness gate of the
+    # trainer (the machine has no JAX; the CPU is held to JAX by the tests).
+    model0 = init_model(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model0.parameters())
+    states = {d: train.create_state(copy.deepcopy(model0), d) for d in (dev, "cpu")}
+    losses = {d: [] for d in states}
+    for i in range(3):
+        batch = torch.from_numpy(inputs[TRAIN_BATCH * i: TRAIN_BATCH * (i + 1)])
+        target = torch.from_numpy(targets[TRAIN_BATCH * i: TRAIN_BATCH * (i + 1)])
+        for d, state in states.items():
+            losses[d].append(float(train.train_step(state, batch, target)))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses[dev], losses["cpu"]))
+    print(f"(b) 3 train_steps of the full-width DenoiseCNN ({n_params} parameters, "
+          f"{4 * n_params / 1e6:.1f} MB f32), batches of {TRAIN_BATCH} patches, cuda:0 vs the "
+          f"CPU: losses {losses[dev]} vs {losses['cpu']} (worst rel {loss_rel:.3g}, <= "
+          f"{LOSS_RTOL})")
+    if not (np.isfinite(losses[dev] + losses["cpu"]).all() and loss_rel <= LOSS_RTOL):
+        raise RuntimeError("the card's training losses disagree with the CPU's")
+    got, want = states[dev].state_dict(), states["cpu"].state_dict()
+    step_rel = max(hold_states("weights and BN statistics", got["model"], want["model"]),
+                   hold_states("momentum buffers", got["momentum"], want["momentum"]))
+    start = model0.state_dict()
+    zero = {k: torch.zeros_like(v) for k, v in start.items()}
+    step_l2 = update_l2(got["model"], want["model"], start)
+    print(f"  the 3 steps moved the weights and statistics by "
+          f"{1.0 / update_l2(zero, want['model'], start):.3g} of their norm; the card's update "
+          f"is off by {step_l2:.3g} of its norm (<= {TRAIN_UPDATE_L2})")
+    if not step_l2 <= TRAIN_UPDATE_L2:
+        raise RuntimeError("the card's training update disagrees with the CPU's")
+
+    simple = {d: create_simple_state(torch.Generator().manual_seed(0), ADAM_LR, d)
+              for d in (dev, "cpu")}
+    simple_start = {k: v.clone() for k, v in simple["cpu"][0].state_dict().items()}
+    s_losses = {d: [] for d in simple}
+    for i in range(3):
+        batch = torch.from_numpy(inputs[TRAIN_BATCH * i: TRAIN_BATCH * (i + 1)])
+        target = torch.from_numpy(targets[TRAIN_BATCH * i: TRAIN_BATCH * (i + 1)])
+        for d, (model, opt) in simple.items():
+            s_losses[d].append(float(simple_train_step(model, opt, batch, target)))
+    s_rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses[dev], s_losses["cpu"]))
+    sd_dev = {k: v.cpu() for k, v in simple[dev][0].state_dict().items()}
+    sd_cpu = simple["cpu"][0].state_dict()
+    diff = torch.cat([(sd_dev[k] - v).abs().flatten() for k, v in sd_cpu.items()])
+    off = float((diff > 1e-2 * ADAM_LR).float().mean())
+    s_l2 = update_l2(sd_dev, sd_cpu, simple_start)
+    print(f"(b) 3 simple_train_steps (Adam {ADAM_LR}), cuda:0 vs the CPU: summed losses worst "
+          f"rel {s_rel:.3g} (<= {LOSS_RTOL}); the 3 steps' update off by {s_l2:.3g} of its "
+          f"norm (<= {ADAM_UPDATE_L2}); parameters worst {float(diff.max()) / ADAM_LR:.3g} lr, "
+          f"{off:.5f} of them beyond 1e-2 lr")
+    if not (np.isfinite(s_losses[dev] + s_losses["cpu"]).all() and s_rel <= LOSS_RTOL
+            and s_l2 <= ADAM_UPDATE_L2):
+        raise RuntimeError("the card's simple_train_step disagrees with the CPU's")
+
+    # (c) The training CLI: 4 epochs, a checkpoint and validation every 2,
+    # then a resume of 1 epoch on each route, then CLI -d with the weights.
+    device_flag = "cpu" if dev.type == "cpu" else str(dev.index)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        flags = ["--size", str(TRAIN_SIZE), "--poses", str(TRAIN_POSES), "--patch-size",
+                 str(TRAIN_PATCH), "--patches-per-image", str(TRAIN_PER_IMAGE), "--spp-train",
+                 str(TRAIN_SPP), "--spp-gt", str(TRAIN_SPP_GT), "--batch", str(TRAIN_BATCH),
+                 "--ckpt-every", "2", "--plateau-patience", "1", "--device", device_flag]
+        tk.CUDA_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        rc = train.main(flags + ["--epochs", "4", "--name", "smoke"])
+        main_s = time.perf_counter() - t0
+        runs = glob.glob(os.path.join(tmp, "results", "*_smoke"))
+        print(f"(c) train.main --epochs 4 --ckpt-every 2 --plateau-patience 1: exit {rc} in "
+              f"{main_s:.2f} s, {tk.CUDA_KERNEL.launches} trace kernel launches")
+        if rc != 0 or len(runs) != 1 or tk.CUDA_KERNEL.launches != 2 * TRAIN_POSES + 2:
+            raise RuntimeError(f"train.main: exit {rc}, runs {runs}")
+        run = runs[0]
+        records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+        epochs = [r for r in records if r["event"] == "epoch"]
+        vals = [r for r in records if r["event"] == "validate"]
+        print(f"  epochs {[r['epoch'] for r in epochs]}, losses "
+              f"{[round(r['loss'], 6) for r in epochs]}, lr {[r['lr'] for r in epochs]}; "
+              f"validation PSNR {[(r['epoch'], round(r['psnr_db'], 4)) for r in vals]}")
+        missing = [f for f in ("model.json", "model_epoch.pt", "model_best.pt", "best.json",
+                               "metrics.jsonl", "2_gt.bmp", "2_out.bmp", "4_gt.bmp", "4_out.bmp")
+                   if not os.path.isfile(os.path.join(run, f))]
+        if [r["epoch"] for r in epochs] != [1, 2, 3, 4] or [r["epoch"] for r in vals] != [2, 4]:
+            raise RuntimeError("metrics.jsonl lacks epoch or validate records")
+        if missing or read_bmp(os.path.join(run, "4_out.bmp")).shape != (TRAIN_SIZE,
+                                                                       TRAIN_SIZE, 3):
+            raise RuntimeError(f"the run's directory lacks {missing}")
+        if not epochs[-1]["loss"] < epochs[0]["loss"]:
+            raise RuntimeError("the last epoch's loss is not below the first's")
+        if not all(np.isfinite(r["psnr_db"]) for r in vals):
+            raise RuntimeError("a validation PSNR is not finite")
+
+        saved = torch.load(os.path.join(run, "model_epoch.pt"), weights_only=True)
+        restored = train.load_train_state(run, device=dev)
+        same = all(torch.equal(restored.momentum()[k].cpu(), v)
+                   for k, v in saved["momentum"].items())
+        print(f"  model_epoch.pt: epoch {saved['epoch']}, lr {saved['lr']}, plateau count "
+              f"{saved['plateau_count']}; restored on {dev} with momentum buffers equal to "
+              f"the saved ones: {same}")
+        if saved["epoch"] != 4 or not same or restored.epoch != 4:
+            raise RuntimeError("the checkpoint does not restore epoch 4 and its momentum")
+        # The two routes from the restored state over the epoch's first three
+        # minibatches (the same order): train_epoch on the dataset on the
+        # card against loop_epoch, held as the card's steps against the
+        # CPU's in (b).
+        order3 = np.random.default_rng(0).permutation(n)[: 3 * TRAIN_BATCH]
+        inputs_d = torch.from_numpy(inputs).to(dev)
+        targets_d = torch.from_numpy(targets).to(dev)
+        short = {}
+        for label in ("loop", "scan"):
+            st = train.load_train_state(run, device=dev)
+            if label == "loop":
+                train.loop_epoch(st, inputs, targets, order3, TRAIN_BATCH)
+            else:
+                train.train_epoch(st, inputs_d, targets_d, order3, TRAIN_BATCH)
+            short[label] = st.state_dict()
+        print(f"(c) 3 steps from the restored state, train_epoch (the dataset on the card) "
+              f"against loop_epoch:")
+        scan_rel = max(hold_states("weights and BN statistics", short["scan"]["model"],
+                                   short["loop"]["model"]),
+                       hold_states("momentum buffers", short["scan"]["momentum"],
+                                   short["loop"]["momentum"]))
+        scan_l2 = update_l2(short["scan"]["model"], short["loop"]["model"], saved["model"])
+        print(f"  the update off by {scan_l2:.3g} of its norm (<= {TRAIN_UPDATE_L2})")
+        if not scan_l2 <= TRAIN_UPDATE_L2:
+            raise RuntimeError("train_epoch disagrees with loop_epoch on the card")
+
+        # Then a whole epoch through the CLI on each route from the same
+        # checkpoint, and the loop once more. On the card the backward's sums
+        # (cuDNN's weight gradients; the bilinear resize's backward, which has
+        # no deterministic kernel) add in an order that changes from run to
+        # run, and 105 steps spread that apart: the loop route against itself
+        # differed by 0.027 and 0.092 of its update's norm in two runs. So the
+        # epochs are held only against a gross fault (SCAN_EPOCH_L2), and
+        # printed beside the loop's own spread.
+        loops = {}
+        copies = {"loop": run, "loop again": shutil.copytree(run, run + "_again"),
+                  "scan": shutil.copytree(run, run + "_scan")}
+        for label, extra in (("loop", []), ("loop again", []), ("scan", ["--scan-epochs"])):
+            path = copies[label]
+            rc = train.main(flags + ["--resume", path, "--epochs", "1"] + extra)
+            records = [json.loads(line) for line in open(os.path.join(path, "metrics.jsonl"))]
+            last = [r for r in records if r["event"] == "epoch"][-1]
+            loops[label] = torch.load(os.path.join(path, "model_epoch.pt"), weights_only=True)
+            print(f"(c) --resume --epochs 1 {' '.join(extra)}: exit {rc}, epoch "
+                  f"{last['epoch']}, loss {last['loss']:.7f}")
+            if rc != 0 or last["epoch"] != 5 or loops[label]["epoch"] != 5:
+                raise RuntimeError(f"the resumed run ({label}) did not continue at epoch 5")
+        spread = {label: update_l2(loops[label]["model"], loops["loop"]["model"], saved["model"])
+                  for label in ("loop again", "scan")}
+        worst = {label: state_errors(loops[label]["model"], loops["loop"]["model"])[0]
+                 for label in ("loop again", "scan")}
+        print(f"  epoch 5's update against the loop's: the loop again off by "
+              f"{spread['loop again']:.3g} of its norm (worst tensor {worst['loop again']:.3g} of "
+              f"its largest value), --scan-epochs off by {spread['scan']:.3g} (<= "
+              f"{SCAN_EPOCH_L2}; worst tensor {worst['scan']:.3g})")
+        if not spread["scan"] <= SCAN_EPOCH_L2:
+            raise RuntimeError("the --scan-epochs epoch is far from the loop's")
+
+        prefix = os.path.join(tmp, "den")
+        tk.CUDA_KERNEL.launches = 0
+        rc = cli.main(["-d", "--checkpoint", run, "--size", "512", "-s", "4", "--device",
+                       device_flag, "--nobitmap", "-o", prefix])
+        den = load_aovs_exr(prefix + ".exr")["color"]
+        print(f"(c) CLI -d --checkpoint (the trained weights) 512x512x4: exit {rc}, "
+              f"{tk.CUDA_KERNEL.launches} trace kernel launches, colour {den.shape}, finite "
+              f"{bool(np.isfinite(den).all())}, mean {float(den.mean()):.4f}")
+        if rc != 0 or den.shape != (512, 512, 3) or not np.isfinite(den).all():
+            raise RuntimeError("CLI -d with the trained checkpoint failed")
+
+        # Which backend wrote the EXRs and BMPs above; if native, its files
+        # against the Python codec's.
+        backend = "native" if native.available() else "python"
+        print(f"(c) EXR/BMP writes took the {backend} backend (libptio: "
+              f"{native.library_path().name if backend == 'native' else 'not built'})")
+        if backend == "native":
+            chans = {"A": np.random.default_rng(1).normal(size=(37, 29)).astype(np.float32),
+                     "B": np.full((37, 29), 0.5, np.float32)}
+            write_exr(os.path.join(tmp, "n.exr"), chans, backend="native")
+            back = read_exr(os.path.join(tmp, "n.exr"), backend="python")
+            img = np.clip(vgt[..., 0:3], 0, 1)
+            write_bmp(os.path.join(tmp, "n.bmp"), img, backend="native")
+            with open(os.path.join(tmp, "n.bmp"), "rb") as f:
+                bmp_same = f.read() == encode_bmp(img)
+            exr_same = all(np.array_equal(back[k], v) for k, v in chans.items())
+            print(f"  native EXR read back by the Python reader: equal {exr_same}; native BMP "
+                  f"= the Python BMP, byte for byte: {bmp_same}")
+            if not (exr_same and bmp_same):
+                raise RuntimeError("the native IO disagrees with the Python codec")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) Times by CUDA events after warm-up; the step's device time and
+    # idle share by torch.profiler; the step's bound.
+    state = restored
+    batch = torch.from_numpy(inputs[:TRAIN_BATCH]).to(dev)
+    target = torch.from_numpy(targets[:TRAIN_BATCH]).to(dev)
+    times = {}
+    times["step"], _ = time_fn(lambda: train.train_step(state, batch, target), warmup=3,
+                               iters=STEP_ITERS, device=dev)
+    order = np.random.default_rng(0).permutation(n)
+    times["loop_epoch"], _ = time_fn(
+        lambda: train.loop_epoch(state, inputs, targets, order, TRAIN_BATCH), warmup=1,
+        iters=EPOCH_ITERS, device=dev)
+    times["scan_epoch"], _ = time_fn(
+        lambda: train.train_epoch(state, inputs_d, targets_d, order, TRAIN_BATCH), warmup=1,
+        iters=EPOCH_ITERS, device=dev)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    step_device_ms, step_idle = profile_steps(
+        "train_step", lambda s: (s, train.train_step(s, batch, target)), state, med["step"])
+    x = batch
+    n_ops = 3 * cnn_operations(copy.deepcopy(state.model).eval(), x)
+    param_bytes = 4 * n_params
+    stat_bytes = 4 * sum(b.numel() for b in state.model.buffers() if b.dtype == torch.float32)
+    io_bytes = 4 * (batch.numel() + target.numel())
+    # The step's function: weights, momentum and BN statistics read once and
+    # written once, the batch and target read once.
+    n_bytes = 4 * param_bytes + 2 * stat_bytes + io_bytes
+    ops_ms = 1e3 * n_ops / PUBLISHED_F32_FLOPS
+    bytes_ms = 1e3 * n_bytes / PUBLISHED_BYTES_PER_S
+    eager_ms = 1e3 * (8 * param_bytes + 2 * stat_bytes + io_bytes) / PUBLISHED_BYTES_PER_S
+    n_steps = n // TRAIN_BATCH
+    print(f"(d) card: {smi}; CUDA events, median after warm-up (runs min..max):")
+    print(f"  train_step (batch {TRAIN_BATCH}, {TRAIN_PATCH}x{TRAIN_PATCH}, full width, f32): "
+          f"{med['step']:.4f} ms ({min(times['step']):.4f}..{max(times['step']):.4f}) of "
+          f"{STEP_ITERS}; device {step_device_ms:.4f} ms (profiler), idle {step_idle:.3f}")
+    for key, label in (("loop_epoch", "loop route (loop_epoch)"),
+                       ("scan_epoch", "--scan-epochs route (train_epoch)")):
+        print(f"  epoch, {label}, {n_steps} steps: {med[key]:.4f} ms "
+              f"({min(times[key]):.4f}..{max(times[key]):.4f}) of {EPOCH_ITERS}; "
+              f"{med[key] / n_steps:.4f} ms a step")
+    print(f"  bound of a step: operations 3 x {n_ops // 3} (the forward's convolutions, a "
+          f"multiply-add as two) = {n_ops} / {PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s = "
+          f"{ops_ms:.4f} ms; bytes {n_bytes} (weights and momentum read and written once: 4 x "
+          f"{param_bytes}, BN statistics {2 * stat_bytes}, batch and target {io_bytes}) / "
+          f"{PUBLISHED_BYTES_PER_S / 1e12:.2f} TB/s = {bytes_ms:.4f} ms; bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms by {'operations' if ops_ms >= bytes_ms else 'bytes'}"
+          f", share {max(ops_ms, bytes_ms) / med['step']:.3f} by events, "
+          f"{max(ops_ms, bytes_ms) / step_device_ms:.3f} by device time; the eager step's 8 "
+          f"passes over the weights would take {eager_ms:.4f} ms")
+    print(f"(a)-(c) held: the {TRAIN_SPP_GT}-spp launch max |diff| {gt_err}; the card's 3 steps "
+          f"against the CPU's {step_rel:.3g} of a tensor's largest value (<= {TRAIN_REL}), "
+          f"update {step_l2:.3g} (<= {TRAIN_UPDATE_L2}); train_epoch against loop_epoch on the "
+          f"card {scan_rel:.3g} of a tensor's largest value, update {scan_l2:.3g} (<= "
+          f"{TRAIN_UPDATE_L2})")
+    return med
+
+
 def main() -> int:
     import torch
 
@@ -1907,6 +2325,7 @@ def main() -> int:
                                                         ad_times)
     digest_phase_17(dev, tk, gk, nvcc)
     denoise_phase_18(dev, tk, smi)
+    train_phase_19(dev, tk, smi)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):

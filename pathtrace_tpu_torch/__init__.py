@@ -13,8 +13,13 @@ scene parameters from a target image (``inverse.py``). It denoises the
 frame with the FPN CNN (``models/``: ``torch.nn``, cuDNN on the card),
 accumulates frames progressively (``progressive.py``) and runs the
 interactive loop and the browser viewer (``interactive.py``, ``viewer.py``).
-``utils/roofline.py`` measures the card's f32 peak and latencies
-(``csrc/probe_kernel.cu``). It imports torch and numpy, never jax.
+It renders training pairs and cuts importance-sampled patches (``data/``),
+trains the denoiser (``train.py``: Nesterov SGD, the reference's plateau
+schedule, checkpoints with the optimiser's state, the training CLI) and
+reads and writes EXR and BMP through a small C++ library where g++ and zlib
+build it (``io/native.py``), in Python otherwise. ``utils/roofline.py``
+measures the card's f32 peak and latencies (``csrc/probe_kernel.cu``). It
+imports torch and numpy, never jax.
 
 Every entry point runs on the current CUDA device unless it is given
 ``device="cpu"`` (``render.resolve_device``); with no CUDA device and no

@@ -37,7 +37,8 @@ def _block_arg(value: str) -> int:
     return block
 
 
-def _device_arg(value: str):
+def device_arg(value: str):
+    """``--device``'s type: a CUDA device index or ``"cpu"``."""
     if value == "cpu":
         return value
     try:
@@ -57,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "32x32 blocks.")
     p.add_argument("--size", type=int, default=512, help="Size of the screen in pixels")
     p.add_argument("-s", "--samples", type=int, default=4, help="Number of samples per pixel")
-    p.add_argument("--device", type=_device_arg, default=0,
+    p.add_argument("--device", type=device_arg, default=0,
                    help="CUDA device index to render on, or 'cpu'")
     p.add_argument("-d", "--denoising", action="store_true", help="Use denoising neural network.")
     p.add_argument("-i", "--interactive", action="store_true",
@@ -94,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _resolve_device(arg):
-    """torch.device for --device, or an error message."""
+def resolve_device_arg(arg):
+    """(torch.device, None) for ``--device``'s value, or (None, an error
+    message) where it names no device that exists."""
     if arg == "cpu":
         return torch.device("cpu"), None
     if not torch.cuda.is_available():
@@ -124,7 +126,7 @@ def _render_ms(render, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device, err = _resolve_device(args.device)
+    device, err = resolve_device_arg(args.device)
     if err:
         print(f"ERROR: {err}", file=sys.stderr)
         return 1

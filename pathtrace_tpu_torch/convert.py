@@ -7,7 +7,9 @@ and return the port's objects, so both packages compute on the same values;
 ``grads_to_numpy`` goes the other way for gradients, so that both packages'
 seven gradient blocks can be compared by name. The denoiser's Flax variables,
 as a nested dict of numpy arrays, become the port's state dict
-(``denoise_state_dict_from_flax``). No JAX import is needed here.
+(``denoise_state_dict_from_flax``, ``simple_state_dict_from_flax``), and the
+JAX trainer's whole state the port's (``train_state_from_flax``). No JAX
+import is needed here.
 """
 
 from __future__ import annotations
@@ -64,15 +66,12 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def denoise_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ``{"params": ..., "batch_stats": ...}`` of ``DenoiseCNN`` (nested
-    dicts of numpy arrays) -> the state dict of the port's
-    ``models.denoise_cnn.DenoiseCNN``. Conv kernels go HWIO -> OIHW; BatchNorm
-    ``scale``/``bias`` become ``weight``/``bias``, ``mean``/``var`` become
-    ``running_mean``/``running_var``, and ``num_batches_tracked`` is 0. The
-    module paths are the Flax tree's (``block1.Conv_0``, ``lat_0``, ...)."""
+def _params_from_flax(params) -> "OrderedDict[str, torch.Tensor]":
+    """A Flax ``params`` tree (or a tree of the same shape: an optax
+    momentum trace) -> {torch parameter name: tensor}. Conv kernels go HWIO
+    -> OIHW; ``scale`` becomes ``weight``."""
     out = OrderedDict()
-    for path, value in _flatten(variables["params"]):
+    for path, value in _flatten(params):
         leaf = path[-1]
         if leaf not in _PARAM_NAMES:
             raise ValueError(f"unexpected parameter {'/'.join(path)}")
@@ -82,6 +81,17 @@ def denoise_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
                 raise ValueError(f"conv kernel {'/'.join(path)} is not 4-D: {array.shape}")
             array = array.transpose(3, 2, 0, 1)
         out[".".join(path[:-1] + (_PARAM_NAMES[leaf],))] = torch.from_numpy(array.copy())
+    return out
+
+
+def denoise_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``{"params": ..., "batch_stats": ...}`` of ``DenoiseCNN`` (nested
+    dicts of numpy arrays) -> the state dict of the port's
+    ``models.denoise_cnn.DenoiseCNN``. Conv kernels go HWIO -> OIHW; BatchNorm
+    ``scale``/``bias`` become ``weight``/``bias``, ``mean``/``var`` become
+    ``running_mean``/``running_var``, and ``num_batches_tracked`` is 0. The
+    module paths are the Flax tree's (``block1.Conv_0``, ``lat_0``, ...)."""
+    out = _params_from_flax(variables["params"])
     for path, value in _flatten(variables.get("batch_stats", {})):
         if path[-1] not in _STAT_NAMES:
             raise ValueError(f"unexpected batch statistic {'/'.join(path)}")
@@ -90,3 +100,29 @@ def denoise_state_dict_from_flax(variables) -> "OrderedDict[str, torch.Tensor]":
             np.array(value, np.float32))
         out[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return out
+
+
+def simple_state_dict_from_flax(params) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``params`` of ``SimpleDenoiseCNN`` (``conv1``..``conv4``, ``head``;
+    no batch statistics) -> the state dict of the port's
+    ``models.simple_cnn.SimpleDenoiseCNN``."""
+    return _params_from_flax(params)
+
+
+def train_state_from_flax(tree) -> dict:
+    """The JAX package's ``train.TrainState`` as nested dicts of numpy arrays
+    -> the layout of the port's ``train.TrainState.state_dict()`` (load it
+    with ``TrainState.load_state_dict``). ``tree`` holds ``params`` and
+    ``batch_stats`` (the Flax variables), ``trace`` (optax's momentum trace,
+    a tree shaped as ``params``: ``opt_state.inner_state[0].trace``), and the
+    scalars ``lr``, ``best_loss``, ``plateau_count``, ``epoch``. The trace
+    becomes the SGD momentum buffers, by parameter name."""
+    return {
+        "model": denoise_state_dict_from_flax(
+            {"params": tree["params"], "batch_stats": tree["batch_stats"]}),
+        "momentum": _params_from_flax(tree["trace"]),
+        "lr": float(np.float32(tree["lr"])),
+        "best_loss": float(np.float32(tree["best_loss"])),
+        "plateau_count": int(tree["plateau_count"]),
+        "epoch": int(tree["epoch"]),
+    }

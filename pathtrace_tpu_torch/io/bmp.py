@@ -22,13 +22,7 @@ def encode_bmp(image: np.ndarray) -> bytes:
     replicated to grey RGB. Rows are stored bottom-up, BGR, 4-byte aligned
     (the standard layout stb produces).
     """
-    img = np.asarray(image)
-    if img.ndim == 2:
-        img = img[..., None]
-    if img.shape[-1] == 1:
-        img = np.repeat(img, 3, axis=-1)
-    if img.dtype != np.uint8:
-        img = np.clip(255.0 * img.astype(np.float64), 0, 255).astype(np.uint8)
+    img = _to_rgb8(image)
     h, w, _ = img.shape
 
     row_size = (w * 3 + 3) & ~3
@@ -45,11 +39,35 @@ def encode_bmp(image: np.ndarray) -> bytes:
     ))
 
 
-def write_bmp(path, image: np.ndarray):
+def _to_rgb8(image: np.ndarray) -> np.ndarray:
+    """[H, W, 3] or [H, W] uint8/float data -> [H, W, 3] uint8: floats mapped
+    with clamp(255*v), one channel replicated to grey RGB."""
+    img = np.asarray(image)
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.shape[-1] == 1:
+        img = np.repeat(img, 3, axis=-1)
+    if img.dtype != np.uint8:
+        img = np.clip(255.0 * img.astype(np.float64), 0, 255).astype(np.uint8)
+    return img
+
+
+def write_bmp(path, image: np.ndarray, backend: str = "auto"):
     """Write [H, W, 3] or [H, W] uint8/float data as a 24-bit BMP
-    (``encode_bmp``'s bytes)."""
+    (``encode_bmp``'s bytes). backend "auto" prefers the native C++ writer
+    when it builds (byte-identical output); "python"/"native" force one,
+    and "native" raises where the library is unavailable."""
+    img = _to_rgb8(image)
+    if backend in ("auto", "native"):
+        from pathtrace_tpu_torch.io import native
+
+        if native.available():
+            native.write_bmp_native(path, img)
+            return
+        if backend == "native":
+            raise RuntimeError("native IO library unavailable")
     with open(path, "wb") as f:
-        f.write(encode_bmp(image))
+        f.write(encode_bmp(img))
 
 
 def read_bmp(path) -> np.ndarray:

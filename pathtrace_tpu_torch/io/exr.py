@@ -17,8 +17,10 @@ spec violation, ``OutputBuffer.h:176-178``); we write truly alphabetical
 reference's own ``load_data.get_layer`` (``denoise_cnn/load_data.py:
 42-68``) — see identical data either way.
 
-This copy in the PyTorch port is numpy/stdlib only: the native C++
-backend of the JAX package is not ported yet.
+When it builds, the native C++ library (``io/native.py``, the port's copy
+of ``ptio.cpp``) reads and writes instead, under ``backend="auto"``; this
+pure-Python module is the always-works fallback and the format oracle for
+tests.
 """
 
 from __future__ import annotations
@@ -93,12 +95,25 @@ def write_exr(
     path,
     channels: Mapping[str, np.ndarray],
     compression: str = "zip",
+    backend: str = "auto",
 ):
     """Write a single-part scanline EXR of FLOAT channels.
 
     channels: name -> [H, W] float array (all same shape). Channels are
     stored in alphabetical order as the spec requires.
+
+    backend: "auto" uses the native C++ library when it builds (files the
+    Python reader reads to the same arrays); "python"/"native" force one,
+    and "native" raises where the library is unavailable.
     """
+    if backend in ("auto", "native"):
+        from pathtrace_tpu_torch.io import native
+
+        if native.available():
+            native.write_exr_native(path, channels, compression=compression)
+            return
+        if backend == "native":
+            raise RuntimeError("native IO library unavailable")
     names = sorted(channels.keys())
     planes = [np.ascontiguousarray(np.asarray(channels[n], np.float32)) for n in names]
     h, w = planes[0].shape
@@ -164,13 +179,20 @@ def _read_null_str(buf: bytes, pos: int):
     return buf[pos:end].decode(), end + 1
 
 
-def read_exr(path) -> Dict[str, np.ndarray]:
+def read_exr(path, backend: str = "auto") -> Dict[str, np.ndarray]:
     """Read a single-part scanline EXR into name -> [H, W] f32 arrays.
 
     Supports FLOAT/HALF/UINT channels and NONE/ZIPS/ZIP compression —
     enough to read anything this framework (or the reference pipeline)
-    writes.
+    writes. backend as in ``write_exr``.
     """
+    if backend in ("auto", "native"):
+        from pathtrace_tpu_torch.io import native
+
+        if native.available():
+            return native.read_exr_native(path)
+        if backend == "native":
+            raise RuntimeError("native IO library unavailable")
     with open(path, "rb") as f:
         buf = f.read()
     magic, version = struct.unpack_from("<ii", buf, 0)

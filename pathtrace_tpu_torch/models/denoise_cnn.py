@@ -10,7 +10,10 @@ cuDNN on a CUDA device:
   the reference orders them).
 - FPN top-down pass: 1x1 lateral convs to 32 channels, a 3x3/s2 'backwards'
   conv, then bilinear upsample-and-add down to the input resolution.
-- head: 3x3 conv to RGB; output = clamp(rgb * (0.00316 + albedo), 0, 1).
+- head: 3x3 conv to RGB; output = clip(rgb * (0.00316 + albedo), 0, 1).
+  In training the clip is ``ops.sampling.clip01``, whose gradient is 1/2
+  at an exact 0 or 1 as ``jnp.clip``'s under ``jax.grad`` (``torch.clamp``
+  passes it whole); out of training it is ``torch.clamp``, the same values.
 
 Submodules carry the Flax tree's names (``block1..6`` holding ``Conv_0..2``
 and ``BatchNorm_0..2``, ``lat_0..6``, ``backwards_65..21``,
@@ -33,6 +36,7 @@ it to an NCHW view with channels-last strides, so no copy is made.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pathtrace_tpu_torch.config import NUM_CHANNELS
+from pathtrace_tpu_torch.ops.sampling import clip01
 
 EPSILON = 0.00316  # the reference's epsilon (model.py:114)
 ALBEDO_SLICE = slice(6, 9)  # channel layout of the 14-channel input
@@ -153,17 +158,15 @@ class DenoiseCNN(nn.Module):
         rep = _upsample_add(rep, F.relu(self.lat_0(inp)))
 
         rgb = self.rgb_conv(rep).permute(0, 2, 3, 1)
-        # Albedo re-multiply + clamp (model.py:114).
-        return torch.clamp(rgb * (EPSILON + x[..., ALBEDO_SLICE]), 0.0, 1.0)
+        # Albedo re-multiply + clip (model.py:114).
+        out = rgb * (EPSILON + x[..., ALBEDO_SLICE])
+        return clip01(out) if self.training else torch.clamp(out, 0.0, 1.0)
 
 
-def init_model(generator: torch.Generator, widths: Sequence[int] = DEFAULT_WIDTHS,
-               lateral_features: int = 32) -> DenoiseCNN:
-    """A ``DenoiseCNN`` on the CPU with Flax's default initialisation drawn
-    from ``generator``: conv kernels lecun-normal (truncated at two standard
-    deviations), biases 0, BN scale 1 and bias 0, running mean 0 and variance
-    1."""
-    model = DenoiseCNN(widths, lateral_features)
+def flax_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initialisation of every convolution of ``model``, in
+    place, drawn from ``generator`` in module order: kernels lecun-normal
+    (truncated at two standard deviations), biases 0."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, nn.Conv2d):
@@ -173,3 +176,24 @@ def init_model(generator: torch.Generator, widths: Sequence[int] = DEFAULT_WIDTH
                                       generator=generator)
                 nn.init.zeros_(module.bias)
     return model
+
+
+def init_model(generator: torch.Generator, widths: Sequence[int] = DEFAULT_WIDTHS,
+               lateral_features: int = 32) -> DenoiseCNN:
+    """A ``DenoiseCNN`` on the CPU with Flax's default initialisation drawn
+    from ``generator`` (``flax_init_``); BN scale 1 and bias 0, running mean 0
+    and variance 1."""
+    return flax_init_(DenoiseCNN(widths, lateral_features), generator)
+
+
+@contextlib.contextmanager
+def cudnn_tf32(allow: bool):
+    """Let cuDNN's convolutions use TF32 or not inside the block; the previous
+    setting is restored after it. PyTorch's default allows TF32; the port's
+    denoiser runs f32 (``allow=False``), as the f32 reference computes."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

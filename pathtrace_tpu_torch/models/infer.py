@@ -15,30 +15,17 @@ colour, max-normalise depth and the 4 variances (``models/preprocess.py``).
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, Tuple
 
 import torch
 
-from pathtrace_tpu_torch.models.denoise_cnn import DenoiseCNN
+from pathtrace_tpu_torch.models.denoise_cnn import DenoiseCNN, cudnn_tf32
 from pathtrace_tpu_torch.models.preprocess import preprocess_channels
 from pathtrace_tpu_torch.render import pack_channels, resolve_device
 from pathtrace_tpu_torch.train import load_checkpoint
 
 _CACHE: Dict[Tuple[str, str], DenoiseCNN] = {}
-
-
-@contextlib.contextmanager
-def cudnn_tf32(allow: bool):
-    """Let cuDNN's convolutions use TF32 or not inside the block; the previous
-    setting is restored after it."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def load_pretrained(checkpoint: str, device=None) -> DenoiseCNN:

@@ -2,17 +2,18 @@
 
 Reads an orbax checkpoint directory of ``pathtrace_tpu.train`` (its
 ``model.json`` and the ``--name`` snapshot) and writes the port's layout into
-the output directory: the same ``model.json`` and ``<name>.pt``, a
-``torch.save`` of the state dict (``pathtrace_tpu_torch.train``). The
-weights go through ``pathtrace_tpu_torch.convert.denoise_state_dict_from_flax``.
+the output directory: the same ``model.json`` and ``<name>.pt``
+(``pathtrace_tpu_torch.train.save_checkpoint``) with the whole trainer
+state: weights, BN statistics, the SGD momentum buffers and the plateau
+fields, through ``pathtrace_tpu_torch.convert.train_state_from_flax``. So
+``python -m pathtrace_tpu_torch.train --resume DST_DIR`` continues the JAX
+run where it stopped, and ``-d --checkpoint DST_DIR`` denoises with it.
 
 This script imports JAX, so it runs where the JAX package does; the port
 itself never imports JAX. Usage, from the root of a checkout:
 
     python scripts/torch_convert_checkpoint.py SRC_DIR DST_DIR [--name model_epoch]
 
-Then ``python -m pathtrace_tpu_torch.cli -d --checkpoint DST_DIR`` denoises
-with it.
 """
 
 from __future__ import annotations
@@ -30,15 +31,18 @@ def convert(src_dir: str, dst_dir: str, name: str = "model_epoch") -> str:
     import numpy as np
 
     from pathtrace_tpu.train import load_checkpoint as load_orbax
-    from pathtrace_tpu_torch.convert import denoise_state_dict_from_flax
+    from pathtrace_tpu_torch.convert import train_state_from_flax
     from pathtrace_tpu_torch.models.denoise_cnn import DenoiseCNN
-    from pathtrace_tpu_torch.train import save_checkpoint
+    from pathtrace_tpu_torch.train import create_state, save_checkpoint
 
     model, state = load_orbax(src_dir, name=name)
-    variables = {"params": jax.tree.map(np.asarray, state.params),
-                 "batch_stats": jax.tree.map(np.asarray, state.batch_stats)}
-    port = DenoiseCNN(model.widths, model.lateral_features)
-    port.load_state_dict(denoise_state_dict_from_flax(variables))
+    tree = jax.tree.map(np.asarray, {
+        "params": state.params, "batch_stats": state.batch_stats,
+        "trace": state.opt_state.inner_state[0].trace, "lr": state.lr,
+        "best_loss": state.best_loss, "plateau_count": state.plateau_count,
+        "epoch": state.epoch})
+    port = create_state(DenoiseCNN(model.widths, model.lateral_features), device="cpu")
+    port.load_state_dict(train_state_from_flax(tree))
     return save_checkpoint(dst_dir, port, name)
 
 

@@ -145,6 +145,9 @@ def test_port_never_imports_jax():
         "import pathtrace_tpu_torch.progressive, pathtrace_tpu_torch.interactive\n"
         "import pathtrace_tpu_torch.viewer, pathtrace_tpu_torch.utils.debug\n"
         "import pathtrace_tpu_torch.utils.metrics, pathtrace_tpu_torch.io\n"
+        "import pathtrace_tpu_torch.data, pathtrace_tpu_torch.data.loader\n"
+        "import pathtrace_tpu_torch.data.collect, pathtrace_tpu_torch.data.patches\n"
+        "import pathtrace_tpu_torch.io.native, pathtrace_tpu_torch.models.simple_cnn\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pathtrace_tpu.')) or m == 'pathtrace_tpu')\n"
         "assert not bad, bad\n"
     )
