@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs nineteen phases, each printing its own lines; any failure raises
+and runs twenty phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -223,6 +223,48 @@ and exits non-zero.
    Python codec where it builds; (d) CUDA-event times of a ``train_step``
    (median of 20) and of an epoch on each route (median of 5), the step's
    device time and idle share by ``torch.profiler``, and its bound.
+20. The ("tiles", "samples") grid of ``pathtrace_tpu_torch/parallel/`` with
+   several ranks sharing the one card (gloo: NCCL refuses two ranks on one
+   device), so the decomposition's correctness is shown, not scaling. The
+   ranks start from ``parallel.launch`` after phase 2 built every library,
+   run ``parallel.selfcheck.card_world`` and return what the parent
+   compares; each rank sets its launch counts to 0 before the main path
+   and returns them after, and the kernels line adds them up. (a) A world
+   of 4 ranks renders the bench frame (512x512x32) on (4,1), (2,2) and
+   (1,4): every rank holds the same frame, equal to ``render_channels`` on
+   cuda:0 (means rtol/atol 1e-4, each variance channel scaled by its
+   largest value to 2e-3; whether the bits matched is printed), and each
+   rank's slab launch of K1 (partials) equals its plain version to the bit;
+   (b) on (2,2), ``sharded_loss_grads`` at 512x512x8 for diffuse (K2 dump),
+   NEE (K1 colour, K3 replay), glossy and NEE glossy (K1 colour, K4)
+   against ``grad.render_loss_grads``: loss rtol 1e-5, each field rtol 1e-3
+   plus 1e-4 of its largest entry; and each rank's backward launch at the
+   grid's shapes, with the seed block and cotangent it was given
+   (``shard.kernel_slab_launch``), against its plain version on cuda:0 on
+   those inputs: the dump's colour and accumulators under phase 6's rules,
+   the K3 and K4 blocks under phases 9 and 13's (whether the bits matched
+   is printed); (c) a 1024x1024x4 frame rendered on (4,1), preprocessed
+   and denoised as slabs by ``denoise_spatially_sharded`` and by
+   ``denoise_fpn_sharded`` (full widths, weights and BatchNorm statistics
+   of seeds 0, 1 and 2): the preprocessed slabs equal the whole frame's to
+   the bit; the simple net's output equals the whole frame's within
+   tests/test_spatial.py's rtol 1e-5 and atol 1e-5 times its largest
+   output; for each FPN seed, the sharded output is within
+   GRID_FPN_F64_LIMIT of the f64 forward of the same weights on cuda:0 and
+   within GRID_FPN_WHOLE_LIMIT of the whole frame's f32 forward, with at
+   most GRID_FPN_MAX_BEYOND outputs beyond tests/test_spatial.py's rtol
+   1e-5 + atol 2e-5 (cuDNN picks its algorithms by shape, so the slabs'
+   convolutions round unlike the whole frame's); a TF32 forward of the
+   whole frame, the control, must break the f64 limit; (d) a world of 1
+   rank on NCCL: the render and the NEE route against the single-device
+   entry points; (e) ``dryrun_multichip(4)`` and
+   ``scaling.main(["--json"])``, whose one-card record must carry a null
+   gate. Times by CUDA events (10 turns after a warm-up): the sharded
+   render at world 1 and the single-device render, called in turns in one
+   loop (the grid's own cost: the median of the turns' differences, with
+   their range), the render on the first 1, 2 and 4 ranks of the gloo
+   world (labelled: not a scaling figure), and the sharded FPN at
+   1024x1024.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -2174,6 +2216,333 @@ def train_phase_19(dev, tk, smi):
     return med
 
 
+GRID_SIZE, GRID_SPP = 512, 32  # the bench frame
+GRID_SPLITS = ((4, 1), (2, 2), (1, 4))
+GRID_ROUTES = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"},
+               "nee_glossy": {"nee": True, "brdf": "glossy"}}
+GRID_GRAD_SPP = 8
+GRID_DENOISE_SIZE = 1024
+GRID_ITERS = 10
+GRID_MEAN_TOL = 1e-4  # rtol and atol of the mean channels (tests/test_sharding.py)
+GRID_VAR_ATOL = 2e-3  # each variance channel scaled by its largest value
+GRID_LOSS_RTOL = 1e-5
+GRID_GRAD_RTOL, GRID_GRAD_ATOL = 1e-3, 1e-4  # atol: a share of the field's largest entry
+GRID_FPN_RTOL, GRID_FPN_ATOL = 1e-5, 2e-5  # tests/test_spatial.py
+GRID_SIMPLE_ATOL = 1e-5  # times max(1, the largest output)
+# The sharded FPN at 1024x1024 (full widths, TF32 off), for each of the
+# weight seeds: max |sharded - f64 forward| and max |sharded - whole-frame
+# f32 forward| at most these, and at most GRID_FPN_MAX_BEYOND of the
+# 3,145,728 outputs beyond tests/test_spatial.py's rtol + atol. Set from the
+# readings over the three seeds on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, PR 9): |sharded - f64| 3.0e-5..3.95e-5 and the whole frame's
+# own f32 |whole - f64| 2.6e-5..6.67e-5, |sharded - whole| 2.74e-5..3.47e-5
+# with 4..10 outputs beyond; cuDNN's choice of algorithms moves them from
+# run to run, so the limits leave 1.5x the largest f32 reading. The TF32
+# control reads 0.051..0.058 against f64, 500x the limit.
+GRID_FPN_SEEDS = (0, 1, 2)
+GRID_FPN_F64_LIMIT = 1e-4
+GRID_FPN_WHOLE_LIMIT = 1e-4
+GRID_FPN_MAX_BEYOND = 64
+
+
+def grid_frame_errors(label, out, ref):
+    """Hold a frame rendered on a grid against the single-device frame
+    (tests/test_sharding.py's tolerances); print one line; raise on a
+    breach. -> the largest |difference| of the mean channels."""
+    out = out.detach().cpu().double().numpy()
+    ref = ref.detach().cpu().double().numpy()
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        raise RuntimeError(f"{label}: shape {out.shape} against {ref.shape}, or non-finite")
+    d = np.abs(out[..., :10] - ref[..., :10])
+    mean_ok = bool(np.all(d <= GRID_MEAN_TOL + GRID_MEAN_TOL * np.abs(ref[..., :10])))
+    var_err = max(float(np.abs(out[..., c] - ref[..., c]).max()
+                        / max(np.abs(ref[..., c]).max(), 1e-3)) for c in range(10, 14))
+    bits = bool(np.array_equal(out, ref))
+    print(f"  {label}: means max |diff| {d.max():.3g} (rtol/atol {GRID_MEAN_TOL}), variances "
+          f"max scaled |diff| {var_err:.3g} (atol {GRID_VAR_ATOL}); bits equal to the "
+          f"single-device frame: {'yes' if bits else 'no'}")
+    if not (mean_ok and var_err <= GRID_VAR_ATOL):
+        raise RuntimeError(f"{label}: the grid's frame is not the single-device frame")
+    return float(d.max())
+
+
+def grid_grad_errors(label, got, want):
+    """Hold a grid's loss and gradients against the single-device ones: loss
+    rtol 1e-5, each field rtol 1e-3 plus 1e-4 of its largest entry
+    (tests/test_sharding.py); print one line; raise on a breach."""
+    loss_err = abs(got["loss"] / want["loss"] - 1.0)
+    worst, worst_name = 0.0, None
+    ok = loss_err <= GRID_LOSS_RTOL
+    for name, w in want["grads"].items():
+        g = got["grads"][name]
+        scale = max(float(np.abs(w).max()), 1e-12)
+        excess = np.abs(g - w) - GRID_GRAD_RTOL * np.abs(w) - GRID_GRAD_ATOL * scale
+        ok = ok and bool(np.all(np.isfinite(g)) and np.all(excess <= 0))
+        err = float(np.abs(g - w).max() / scale)
+        if err >= worst:
+            worst, worst_name = err, name
+    print(f"  {label}: loss {got['loss']:.6g} against {want['loss']:.6g} (rel {loss_err:.3g}); "
+          f"worst field {worst_name}, max |diff| {worst:.3g} of its largest entry")
+    if not ok:
+        raise RuntimeError(f"{label}: the grid's loss or gradients are not the single device's")
+
+
+def sums_of_block(block, n):
+    """A gradient block [N + 5, 11] -> the flat sums [10N + 16] it was made
+    of (``nee_grad_kernel.block_from_sums`` undone)."""
+    import torch
+    from pathtrace_tpu_torch.ops.nee_grad_kernel import LOSS_COL
+
+    return torch.cat([block[:n, :10].reshape(-1), block[n, 0:3],
+                      block[n + 1: n + 5, 0:3].reshape(-1), block[n, LOSS_COL:LOSS_COL + 1]])
+
+
+def grid_grad_slab_checks(dev, scene, cam, grad_cfgs, world):
+    """Each rank's backward launch of each route (``"grad_slab"``: at the
+    grid's shapes, row and sample offsets and sample lanes) against its plain
+    version on cuda:0 on the same seed block and cotangent: the K2 dump's
+    colour and accumulators under phase 6's rules, the K3 and K4 blocks under
+    phases 9 and 13's. Prints a line a route; raises on a breach. ->
+    {kernel: max |kernel - plain|}."""
+    import torch
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+    from pathtrace_tpu_torch.ops import grad_kernel as gk
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import trace_kernel as tk
+
+    n = scene.num_objects
+    sb = scene.packed().to(dev)
+    names = {"chain": "grad_kernel[dump]", "nee": "nee_grad_kernel[replay]",
+             "ad": "ad_grad_kernel"}
+    errs = {}
+    for j, route in enumerate(grad_cfgs):
+        cfg = grad_cfgs[route]
+        cb = tk.camera_block(cam, cfg).to(dev)
+        bits, worst = [], 0.0
+        for r in world:
+            got = r["grad_slabs"][j]
+            kw = dict(local_h=got["local_h"], spp=got["spp"], device=dev)
+            seed = got["seed"]
+            label = f"{route} rank {r['rank']} ({got['local_h']} rows, {got['spp']} spp)"
+            if got["route"] == "chain":
+                color, acc = gk.dump_plain(sb, cb, seed, cfg, **kw)
+                worst = max(worst,
+                            grad_compare(f"{label} dump/colour", got["color"], color.cpu(),
+                                         "color"),
+                            grad_compare(f"{label} dump/acc", got["acc"], acc.cpu(), "acc"))
+                bits.append(bool(torch.equal(got["color"], color.cpu())
+                                 and torch.equal(got["acc"], acc.cpu())))
+                continue
+            ct = got["ct"].to(dev)
+            if got["route"] == "nee":
+                sums = nk.replay_plain(sb, cb, seed, cfg, ct.permute(1, 2, 0).contiguous(),
+                                       **kw)
+            else:
+                sums = ak.replay_plain(sb, cb, seed, cfg, ct.contiguous(), **kw)
+            flat = sums_of_block(got["block"], n)
+            worst = max(worst, nee_compare(f"{label} block", flat, sums.cpu(), "sums"))
+            bits.append(bool(torch.equal(flat, sums.cpu())))
+        name = names[world[0]["grad_slabs"][j]["route"]]
+        errs[name] = max(errs.get(name, 0.0), worst)
+        print(f"  {route}: each rank's {name} launch = its plain version on the same inputs "
+              f"(max |diff| {worst:.3g}); bits equal, by rank: {bits}")
+    return errs
+
+
+def grid_phase_20(dev, tk, smi):
+    """Rendering and loss+gradients on a ("tiles", "samples") grid of ranks,
+    and the row-sharded denoisers, with several ranks sharing the one card:
+    the decomposition's correctness, not scaling. Raises on any failure. ->
+    (the ranks' launches of each kernel on the grid's main path, summed;
+    {kernel: max |kernel - plain|} of the ranks' backward launches)."""
+    import contextlib
+    import io
+
+    import torch
+    from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+    from pathtrace_tpu_torch import grad as port_grad
+    from pathtrace_tpu_torch.convert import grads_to_numpy
+    from pathtrace_tpu_torch.models.denoise_cnn import DEFAULT_WIDTHS, cudnn_tf32
+    from pathtrace_tpu_torch.models.preprocess import preprocess_channels
+    from pathtrace_tpu_torch.parallel import scaling
+    from pathtrace_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pathtrace_tpu_torch.parallel.launch import launch
+    from pathtrace_tpu_torch.parallel.selfcheck import KERNEL_COUNTERS, build_model, card_world
+    from pathtrace_tpu_torch.render import render_channels
+
+    phase(20, "the (tiles, samples) grid: 4 ranks (gloo) sharing cuda:0 render 512x512x32 on "
+              "(4,1), (2,2), (1,4), take loss+gradients at 512x512x8 on (2,2) for the four "
+              "kernel routes, and denoise a 1024x1024 frame as slabs on (4,1); 1 rank on NCCL; "
+              "dryrun_multichip(4); the scaling record")
+    scene, cam = cornell_box(), Camera.create()
+    bench = RenderConfig(width=GRID_SIZE, height=GRID_SIZE, spp=GRID_SPP, backend="cuda")
+    big = RenderConfig(width=GRID_DENOISE_SIZE, height=GRID_DENOISE_SIZE, spp=4, backend="cuda")
+    target = np.random.default_rng(0).uniform(size=(GRID_SIZE, GRID_SIZE, 3)).astype(
+        np.float32)
+    grad_cfgs = {r: RenderConfig(width=GRID_SIZE, height=GRID_SIZE, spp=GRID_GRAD_SPP,
+                                 backend="cuda", **x) for r, x in GRID_ROUTES.items()}
+    simple = {"kind": "simple", "features": 64, "depth": 4, "seed": 0}
+    fpns = [{"kind": "fpn", "widths": DEFAULT_WIDTHS, "seed": k} for k in GRID_FPN_SEEDS]
+    denoise = dict(kind="render_denoise", grid=(4, 1), scene=scene, cam=cam, cfg=big,
+                   simple=simple, fpn=fpns)
+    cases = [dict(kind="render", grid=g, scene=scene, cam=cam, cfg=bench) for g in GRID_SPLITS]
+    cases += [dict(kind="grads", grid=(2, 2), scene=scene, cam=cam, cfg=grad_cfgs[r],
+                   target=torch.from_numpy(target)) for r in GRID_ROUTES]
+    cases.append(denoise)
+    grad_checks = [dict(case, kind="grad_slab") for case in cases if case["kind"] == "grads"]
+    t0 = time.perf_counter()
+    world4 = launch(card_world, 4, cases,
+                    slab_checks=[(scene, cam, bench, g) for g in GRID_SPLITS],
+                    grad_checks=grad_checks, timings=[("fpn", [denoise])],
+                    scaling=(scene, cam, bench, [1, 2, 4]),
+                    iters=GRID_ITERS)
+    print(f"world of 4 ranks on cuda:0: backends {sorted({r['backend'] for r in world4})}, "
+          f"{time.perf_counter() - t0:.1f} s with its start")
+    res = [r["results"] for r in world4]
+
+    # (a) The bench frame on three grids against the single-device entry point.
+    print("(a) the bench frame 512x512x32 on each grid against render_channels on cuda:0:")
+    ref = render_channels(scene, cam, bench, device=dev)
+    for j, grid in enumerate(GRID_SPLITS):
+        if not all(torch.equal(r[j], res[0][j]) for r in res):
+            raise RuntimeError(f"grid {grid}: the ranks hold different frames")
+        grid_frame_errors(f"grid {grid}", res[0][j], ref)
+    sb, cb = scene.packed(), tk.camera_block(cam, bench)
+    for j, grid in enumerate(GRID_SPLITS):
+        lanes = []
+        for r in world4:
+            slab = r["slabs"][j]
+            plain = tk.trace_plain(sb, cb, slab["seed"], bench, local_h=slab["local_h"],
+                                   spp=slab["spp"], mode="partials", device=dev)
+            if not torch.equal(plain.cpu(), slab["partials"]):
+                raise RuntimeError(f"grid {grid}, rank {r['rank']}: the slab launch is not its "
+                                   "plain version to the bit")
+            lanes.append(slab["lanes"])
+        print(f"  grid {grid}: each rank's slab launch ({slab['local_h']} rows, {slab['spp']} "
+              f"spp, sample lanes {lanes}) = its plain version to the bit")
+
+    # (b) Loss and gradients of the four kernel routes on (2, 2).
+    print(f"(b) loss+gradients 512x512x{GRID_GRAD_SPP} on (2,2) against render_loss_grads on "
+          "cuda:0:")
+    for k, route in enumerate(GRID_ROUTES, start=len(GRID_SPLITS)):
+        if not all(r[k]["loss"] == res[0][k]["loss"] for r in res):
+            raise RuntimeError(f"{route}: the ranks hold different losses")
+        loss, grads = port_grad.render_loss_grads(scene, cam, grad_cfgs[route], 0, target,
+                                                  device=dev)
+        grid_grad_errors(route, res[0][k], {"loss": float(loss),
+                                            "grads": grads_to_numpy(*grads)})
+    errs = grid_grad_slab_checks(dev, scene, cam, grad_cfgs, world4)
+
+    # (c) A 1024x1024 frame rendered as slabs, preprocessed and denoised on them.
+    print(f"(c) {GRID_DENOISE_SIZE}x{GRID_DENOISE_SIZE}x{big.spp} on (4,1) into "
+          "denoise_fpn_sharded (full widths) and denoise_spatially_sharded:")
+    out = res[0][-1]
+    grid_frame_errors("frame", out["frame"], render_channels(scene, cam, big, device=dev))
+    x = preprocess_channels(out["frame"].to(dev))
+    if not torch.equal(out["input"], x.cpu()):
+        raise RuntimeError("the slabs' preprocessing is not the whole frame's")
+    model = build_model(simple, dev)
+    with torch.no_grad(), cudnn_tf32(False):
+        full = model(x[None])[0].cpu()
+    atol = GRID_SIMPLE_ATOL * max(1.0, float(full.abs().max()))
+    diff = (out["simple"] - full).abs()
+    beyond = int((diff > atol + GRID_FPN_RTOL * full.abs()).sum())
+    print(f"  simple: max |sharded - whole frame| {float(diff.max()):.3g}, {beyond} of "
+          f"{diff.numel()} beyond rtol {GRID_FPN_RTOL} + atol {atol:.3g}; output range "
+          f"{float(full.min()):.4g}..{float(full.max()):.4g}")
+    if beyond:
+        raise RuntimeError("simple: the sharded denoiser is not the whole frame's")
+    failed = []
+    for spec, got in zip(fpns, out["fpn"]):
+        # The whole frame's forward in f32 (TF32 off, as the ranks run it),
+        # in TF32 (the control: a fault of that size must show) and in f64,
+        # the exact result of the same weights.
+        model = build_model(spec, dev)
+        with torch.no_grad():
+            with cudnn_tf32(False):
+                full = model(x[None])[0].cpu()
+            with cudnn_tf32(True):
+                tf32 = model(x[None])[0].cpu()
+            exact = model.double()(x.double()[None])[0].cpu()
+        diff = (got - full).abs()
+        beyond = int((diff > GRID_FPN_ATOL + GRID_FPN_RTOL * full.abs()).sum())
+        err = {name: float((y.double() - exact).abs().max())
+               for name, y in (("sharded", got), ("whole", full), ("tf32", tf32))}
+        tf32_whole = float((tf32 - full).abs().max())
+        print(f"  fpn seed {spec['seed']}: max |sharded - whole frame f32| "
+              f"{float(diff.max()):.3g} (limit {GRID_FPN_WHOLE_LIMIT}), {beyond} of "
+              f"{diff.numel()} beyond rtol {GRID_FPN_RTOL} + atol {GRID_FPN_ATOL} (at most "
+              f"{GRID_FPN_MAX_BEYOND}); max |y - f64 forward|: sharded {err['sharded']:.3g} "
+              f"(limit {GRID_FPN_F64_LIMIT}), whole frame f32 {err['whole']:.3g}, control TF32 "
+              f"{err['tf32']:.3g} (|TF32 - whole f32| {tf32_whole:.3g}); output range {float(full.min()):.4g}.."
+              f"{float(full.max()):.4g}")
+        if not (err["sharded"] <= GRID_FPN_F64_LIMIT
+                and float(diff.max()) <= GRID_FPN_WHOLE_LIMIT and beyond <= GRID_FPN_MAX_BEYOND):
+            failed.append(f"seed {spec['seed']}: the sharded output is off")
+        if not err["tf32"] > GRID_FPN_F64_LIMIT:
+            failed.append(f"seed {spec['seed']}: the TF32 control passes the f64 limit")
+    if failed:
+        raise RuntimeError(f"fpn: {'; '.join(failed)}")
+
+    # (d) One rank on NCCL: the render and the NEE route, and the grid's own
+    # cost beside the single-device entry point.
+    t0 = time.perf_counter()
+    nccl_cases = [dict(kind="render", grid=(1, 1), scene=scene, cam=cam, cfg=bench),
+                  dict(kind="grads", grid=(1, 1), scene=scene, cam=cam, cfg=grad_cfgs["nee"],
+                       target=torch.from_numpy(target))]
+    world1 = launch(card_world, 1, nccl_cases, backend="nccl",
+                    timings=[("grid", [nccl_cases[0], dict(nccl_cases[0], kind="single")])],
+                    iters=GRID_ITERS)[0]
+    if world1["backend"] != "nccl":
+        raise RuntimeError(f"the world of one rank ran on {world1['backend']}, not nccl")
+    print(f"(d) a world of 1 rank on {world1['backend']} ({time.perf_counter() - t0:.1f} s with "
+          "its start):")
+    grid_frame_errors("grid (1,1)", world1["results"][0], ref)
+    loss, grads = port_grad.render_loss_grads(scene, cam, grad_cfgs["nee"], 0, target,
+                                              device=dev)
+    grid_grad_errors("nee (1,1)", world1["results"][1],
+                     {"loss": float(loss), "grads": grads_to_numpy(*grads)})
+
+    # (e) The dry run and the scaling record.
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4)
+    print(f"(e) dryrun_multichip(4): meshes {dry[0]['mesh']}, loss {dry[0]['loss']:.6g}, NEE "
+          f"loss {dry[0]['loss_nee']:.6g} on every rank ({time.perf_counter() - t0:.1f} s)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        scaling.main(["--json", "--iters", str(GRID_ITERS)])
+    record = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"  scaling record: {json.dumps(record)}")
+    if record["gate_80pct"] is not None or record["num_devices"] != torch.cuda.device_count():
+        raise RuntimeError("the scaling record of one card must carry a null gate")
+
+    times, rows = world4[0]["times"], world4[0]["scaling"]
+    grid_ms, single_ms = world1["times"]["grid"]
+    cost = [g - o for g, o in zip(grid_ms, single_ms)]
+    print(f"card: {smi}; CUDA events, {GRID_ITERS} turns after a warm-up (median, and "
+          "min..max):")
+    print(f"  512x512x32, 1 rank on NCCL, called in turns: sharded render on (1,1) "
+          f"{statistics.median(grid_ms):.4f} ms ({min(grid_ms):.4f}..{max(grid_ms):.4f}), "
+          f"single-device render_channels {statistics.median(single_ms):.4f} ms "
+          f"({min(single_ms):.4f}..{max(single_ms):.4f}); the grid's own cost, a turn's "
+          f"difference: {statistics.median(cost):.4f} ms ({min(cost):.4f}..{max(cost):.4f})")
+    print("  512x512x32 on the first 1, 2, 4 ranks of the gloo world, median of "
+          f"{GRID_ITERS} (ranks share one card: not a scaling figure): " + ", ".join(
+              f"{r['ranks']} rank(s) {r['mesh']} {1e3 * r['seconds']:.4f} ms" for r in rows))
+    fpn_ms = times["fpn"][0]
+    print(f"  denoise_fpn_sharded {GRID_DENOISE_SIZE}x{GRID_DENOISE_SIZE} on (4,1), 4 ranks "
+          f"sharing one card (rank 0): {statistics.median(fpn_ms):.4f} ms ({min(fpn_ms):.4f}.."
+          f"{max(fpn_ms):.4f})")
+
+    launches = {k: sum(r["launches"][k] for r in world4) + world1["launches"][k]
+                for k in KERNEL_COUNTERS}
+    print(f"launches on the grid's main path, summed over the ranks: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            raise RuntimeError(f"the grid's main path did not launch {name}")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -2326,6 +2695,7 @@ def main() -> int:
     digest_phase_17(dev, tk, gk, nvcc)
     denoise_phase_18(dev, tk, smi)
     train_phase_19(dev, tk, smi)
+    grid_launches, grid_errs = grid_phase_20(dev, tk, smi)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):
@@ -2403,6 +2773,11 @@ def main() -> int:
                          sm_clock_mhz=r["sm_mhz"], dependent_steps=r["steps"],
                          fma_dependent_cycles=FMA_DEPENDENT_CYCLES)
         kernels.append(entry)
+    # The ranks' launches of phase 20 add to the main paths' of the kernels
+    # that the grid runs.
+    for k in kernels:
+        k["launches"] += grid_launches.get(k["name"], 0)
+        k["max_abs_err"] = max(k["max_abs_err"], grid_errs.get(k["name"], 0.0))
     print(f"card: {smi}; bound = segments x operations a segment / the published "
           f"{PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s (measured here: FMA "
           f"{peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s); unfused = the same over the measured "

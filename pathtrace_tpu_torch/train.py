@@ -37,7 +37,9 @@ name, ``lr``, ``best_loss``, ``plateau_count`` and ``epoch``
 (``TrainState.state_dict``). The JAX package's orbax snapshots are not read
 here: ``scripts/torch_convert_checkpoint.py`` converts one on a machine with
 JAX. Batch data parallelism over several devices (``dp_sharding``) is not
-ported: on one device it is the whole semantics.
+ported yet (ROADMAP.md, A7b: the render's grid, ``parallel/``, is; the
+trainer's split needs BatchNorm statistics global across ranks): on one
+device it is the whole semantics.
 """
 
 from __future__ import annotations
@@ -393,7 +395,8 @@ def fit(
     optional ``JsonlLogger`` receiving one record an epoch and one a
     validation. ``data_parallel`` is the JAX package's batch split over local
     devices: on one device it changes nothing, and a split over several is
-    not ported (``NotImplementedError``). Returns (state, history), the
+    not ported yet (``NotImplementedError``; ROADMAP.md, A7b). Returns
+    (state, history), the
     state updated in place."""
     from pathtrace_tpu_torch.io.bmp import write_bmp
     from pathtrace_tpu_torch.utils.metrics import JsonlLogger
@@ -403,7 +406,7 @@ def fit(
     if n_split > 1:
         raise NotImplementedError(
             f"a batch of {batch_size} would split over {n_split} devices: multi-device data "
-            "parallelism is not ported yet (ROADMAP.md, A7); pass data_parallel=False")
+            "parallelism is not ported yet (ROADMAP.md, A7b); pass data_parallel=False")
     metrics = metrics if metrics is not None else JsonlLogger(None)
     rng = np.random.default_rng(seed)
     n = inputs.shape[0]

@@ -148,6 +148,11 @@ def test_port_never_imports_jax():
         "import pathtrace_tpu_torch.data, pathtrace_tpu_torch.data.loader\n"
         "import pathtrace_tpu_torch.data.collect, pathtrace_tpu_torch.data.patches\n"
         "import pathtrace_tpu_torch.io.native, pathtrace_tpu_torch.models.simple_cnn\n"
+        "import pathtrace_tpu_torch.parallel, pathtrace_tpu_torch.parallel.mesh\n"
+        "import pathtrace_tpu_torch.parallel.shard, pathtrace_tpu_torch.parallel.launch\n"
+        "import pathtrace_tpu_torch.parallel.scaling, pathtrace_tpu_torch.parallel.selfcheck\n"
+        "import pathtrace_tpu_torch.parallel.dryrun, pathtrace_tpu_torch.models.spatial\n"
+        "import pathtrace_tpu_torch.models.fpn_spatial\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pathtrace_tpu.')) or m == 'pathtrace_tpu')\n"
         "assert not bad, bad\n"
     )

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
-from pathtrace_tpu_torch import grad, inverse, progressive, render
+from pathtrace_tpu_torch import grad, inverse, parallel, progressive, render
 from pathtrace_tpu_torch.interactive import FrameStepper, run_interactive
 from pathtrace_tpu_torch.models import init_model
 from pathtrace_tpu_torch.models.infer import load_pretrained
@@ -73,6 +73,12 @@ ENTRY_POINTS = {
     "ad_grad_kernel.ad_loss_and_grads": lambda d, c, t: ak.ad_loss_and_grads(
         *_sc(), RenderConfig(width=8, height=4, spp=1, max_bounces=2, brdf="glossy"), 0, TARGET,
         device=d),
+    # The grid: the mesh holds the rank's device, so it is asked there.
+    "parallel.make_mesh": lambda d, c, t: parallel.make_mesh(device=d),
+    "parallel.render_channels_sharded": lambda d, c, t: parallel.render_channels_sharded(
+        *_sc(), KERNEL, parallel.make_mesh(device=d)),
+    "parallel.sharded_loss_grads": lambda d, c, t: parallel.sharded_loss_grads(
+        *_sc(), KERNEL, parallel.make_mesh(device=d), TARGET),
 }
 
 
