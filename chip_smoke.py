@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs twenty phases, each printing its own lines; any failure raises
+and runs twenty-one phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -215,9 +215,11 @@ and exits non-zero.
    momentum buffers to the bit; from it, three steps of ``train_epoch``
    (the dataset on the card) against three of ``loop_epoch`` under (b)'s
    rules; ``--resume --epochs 1`` continues at epoch 5 on the loop route
-   twice and on ``--scan-epochs`` once, the scan route's update within 0.5
-   of the loop's norm, printed beside the loop's own run-to-run spread (the
-   card's backward adds in an order that changes between runs); then
+   twice and on ``--scan-epochs`` once: the three epochs' weights, BatchNorm
+   statistics and momentum buffers must be the same bits (the card's
+   training step is deterministic: cuDNN's deterministic algorithms and the
+   bilinear resize's matrix backward), and the scan route's update within
+   0.5 of the loop's norm; then
    ``cli.main(["-d", "--checkpoint", ...])`` denoises a 512x512x4 frame with
    the trained weights; the native IO library's EXR and BMP against the
    Python codec where it builds; (d) CUDA-event times of a ``train_step``
@@ -264,7 +266,28 @@ and exits non-zero.
    loop (the grid's own cost: the median of the turns' differences, with
    their range), the render on the first 1, 2 and 4 ranks of the gloo
    world (labelled: not a scaling figure), and the sharded FPN at
-   1024x1024.
+   1024x1024. The dry run ends with ``train.dryrun_cnn_dp``, the CNN's
+   split step, whose loss every rank must hold alike.
+21. The denoiser trainer's batch data parallelism (``train.dp_sharding``;
+   BatchNorm's statistics and the L1 mean over the whole batch, the
+   gradients summed in one all-reduce): (a) ``train.build_dataset`` at 4
+   poses of 256x256, 2 / 64 spp, 16 patches of 64x64 an image, through K1,
+   the launch count set to 0 before and read after (8 launches; the kernels
+   line adds them to K1's); (b) a world of 4 gloo ranks sharing cuda:0
+   (``parallel.selfcheck.dp_world``) takes 3 ``train_step``s of the
+   full-width CNN (``init_model`` seed 0) on batches of 8, 2 a rank, against
+   3 steps on cuda:0 on the whole batches from the same weights: losses
+   within rtol DP_LOSS_RTOL, the update of the weights and statistics and
+   that of the momentum each within DP_UPDATE_L2 of its norm, and every
+   rank's losses and state rank 0's to the bit; (c) one ``fit`` epoch on
+   the ``--scan-epochs`` route in that world: the same history on every
+   rank, the ranks' states bit-equal, one metrics record and a checkpoint of
+   epoch 1 written once; (d) a world of 1 rank on NCCL takes the first
+   step split over its group of one, against cuda:0 under (b)'s bounds.
+   Times (CUDA events on rank 0, 10 turns after a warm-up): the split step
+   on the 4 ranks (not a scaling figure: gloo stages the 101 MB all-reduce
+   through the host) in turns with rank 0's single-device step on the whole
+   batch.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -1847,9 +1870,9 @@ LOSS_RTOL = 1e-5
 # weight whose gradient is mostly rounding moves another way on each device:
 # the simple CNN's 3-step update is held as a whole only (measured 0.042).
 ADAM_LR, ADAM_UPDATE_L2 = 1e-4, 0.2
-# A whole epoch of each route through the CLI, against a gross fault only:
-# the two routes' updates spread apart run to run (see phase 19 (c)), by up
-# to 0.092 of the update's norm between two runs of one route.
+# A whole epoch of each route through the CLI, against a gross fault, beside
+# the bits: until the training step was made deterministic, the updates of
+# two runs of one route spread apart by up to 0.092 of their norm.
 SCAN_EPOCH_L2 = 0.5
 # An epoch is 105 steps (1.4-2.9 s on an H100, by host): a median of 5 of
 # each route (525 steps) keeps the phase near three minutes.
@@ -2095,13 +2118,10 @@ def train_phase_19(dev, tk, smi):
             raise RuntimeError("train_epoch disagrees with loop_epoch on the card")
 
         # Then a whole epoch through the CLI on each route from the same
-        # checkpoint, and the loop once more. On the card the backward's sums
-        # (cuDNN's weight gradients; the bilinear resize's backward, which has
-        # no deterministic kernel) add in an order that changes from run to
-        # run, and 105 steps spread that apart: the loop route against itself
-        # differed by 0.027 and 0.092 of its update's norm in two runs. So the
-        # epochs are held only against a gross fault (SCAN_EPOCH_L2), and
-        # printed beside the loop's own spread.
+        # checkpoint, and the loop once more. The step is deterministic
+        # (cuDNN's deterministic algorithms, the resize's matrix backward), so
+        # the three runs must give the same bits; the update's spread is
+        # printed and held against a gross fault too (SCAN_EPOCH_L2).
         loops = {}
         copies = {"loop": run, "loop again": shutil.copytree(run, run + "_again"),
                   "scan": shutil.copytree(run, run + "_scan")}
@@ -2123,8 +2143,16 @@ def train_phase_19(dev, tk, smi):
               f"{spread['loop again']:.3g} of its norm (worst tensor {worst['loop again']:.3g} of "
               f"its largest value), --scan-epochs off by {spread['scan']:.3g} (<= "
               f"{SCAN_EPOCH_L2}; worst tensor {worst['scan']:.3g})")
+        same = {label: all(torch.equal(loops[label][part][k], v)
+                           for part in ("model", "momentum")
+                           for k, v in loops["loop"][part].items())
+                for label in ("loop again", "scan")}
+        print(f"  the same bits as the loop's epoch (weights, statistics, momentum): the loop "
+              f"again {same['loop again']}, --scan-epochs {same['scan']}")
         if not spread["scan"] <= SCAN_EPOCH_L2:
             raise RuntimeError("the --scan-epochs epoch is far from the loop's")
+        if not all(same.values()):
+            raise RuntimeError("the card's training step is not deterministic run to run")
 
         prefix = os.path.join(tmp, "den")
         tk.CUDA_KERNEL.launches = 0
@@ -2507,7 +2535,10 @@ def grid_phase_20(dev, tk, smi):
     t0 = time.perf_counter()
     dry = dryrun_multichip(4)
     print(f"(e) dryrun_multichip(4): meshes {dry[0]['mesh']}, loss {dry[0]['loss']:.6g}, NEE "
-          f"loss {dry[0]['loss_nee']:.6g} on every rank ({time.perf_counter() - t0:.1f} s)")
+          f"loss {dry[0]['loss_nee']:.6g}, the CNN's split step (dryrun_cnn_dp) "
+          f"{dry[0]['loss_cnn_dp']:.6g} on every rank ({time.perf_counter() - t0:.1f} s)")
+    if any(r["loss_cnn_dp"] != dry[0]["loss_cnn_dp"] for r in dry):
+        raise RuntimeError("dryrun_cnn_dp: the ranks hold different losses")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         scaling.main(["--json", "--iters", str(GRID_ITERS)])
@@ -2541,6 +2572,159 @@ def grid_phase_20(dev, tk, smi):
         if n < 1:
             raise RuntimeError(f"the grid's main path did not launch {name}")
     return launches, errs
+
+
+# ---- the denoiser's batch data parallelism (phase 21) -----------------------------
+
+DP_POSES, DP_SIZE, DP_SPP_GT, DP_PER_IMAGE = 4, 256, 64, 16
+DP_RANKS, DP_BATCH, DP_STEPS, DP_ITERS = 4, 8, 3, 10
+# The world's steps against the same steps on cuda:0 on the whole batch:
+# losses within rtol DP_LOSS_RTOL, and every update (weights, BatchNorm
+# statistics, momentum) within DP_UPDATE_L2 of its norm (phase 19 (c)'s
+# bound: the split sums each rank's gradients apart, then adds the ranks'
+# sums, another order than one device's). The ranks among themselves: to
+# the bit.
+DP_LOSS_RTOL, DP_UPDATE_L2 = 1e-4, 0.1
+
+
+def dp_phase_21(dev, tk, smi):
+    """The denoiser trainer's batch split over ranks sharing the one card:
+    a dataset through K1, then 4 gloo ranks (and 1 NCCL rank) against
+    cuda:0. Raises on any failure. -> K1's launches on the dataset."""
+    import copy
+
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, cornell_box, train
+    from pathtrace_tpu_torch.models import init_model
+    from pathtrace_tpu_torch.parallel.launch import launch
+    from pathtrace_tpu_torch.parallel.selfcheck import dp_world
+
+    phase(21, f"batch data parallelism: a dataset of {DP_POSES} poses at {DP_SIZE}x{DP_SIZE} "
+              f"through K1; {DP_RANKS} gloo ranks sharing cuda:0 train the full-width CNN on "
+              f"batches of {DP_BATCH} ({DP_BATCH // DP_RANKS} a rank) against cuda:0; a fit "
+              "epoch in the world; 1 rank on NCCL")
+    t_phase = time.perf_counter()
+    # (a) The dataset, the launch count set to 0 just before and read after.
+    cfg = RenderConfig(width=DP_SIZE, height=DP_SIZE, spp=2, backend="auto")
+    tk.CUDA_KERNEL.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inputs, targets = train.build_dataset(cornell_box(), cfg, n_poses=DP_POSES,
+                                          patch_size=TRAIN_PATCH, patches_per_image=DP_PER_IMAGE,
+                                          spp_train=TRAIN_SPP, spp_gt=DP_SPP_GT, seed=0,
+                                          device=dev)
+    dataset_s = time.perf_counter() - t0
+    launches = tk.CUDA_KERNEL.launches
+    print(f"(a) build_dataset: {launches} trace kernel launches (want {2 * DP_POSES}), "
+          f"{dataset_s:.2f} s; inputs {inputs.shape}, targets {targets.shape}")
+    if launches != 2 * DP_POSES or inputs.shape != (DP_POSES * DP_PER_IMAGE, TRAIN_PATCH,
+                                                     TRAIN_PATCH, 14):
+        raise RuntimeError(f"the dataset took {launches} launches, shape {inputs.shape}")
+    if not (np.isfinite(inputs).all() and np.isfinite(targets).all()):
+        raise RuntimeError("the dataset holds non-finite values")
+
+    # (b)-(c) and the times in one world of 4 gloo ranks on the card.
+    start = train.create_state(init_model(torch.Generator().manual_seed(0)), "cpu")
+    payload = train.state_payload(start)
+    batches = [(torch.from_numpy(inputs[DP_BATCH * i: DP_BATCH * (i + 1)]),
+                torch.from_numpy(targets[DP_BATCH * i: DP_BATCH * (i + 1)]))
+               for i in range(DP_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        fit_kwargs = dict(epochs=1, batch_size=DP_BATCH, seed=0, log_every=1, ckpt_dir=tmp,
+                          ckpt_every=1, scan_epochs=True)
+        cases = [dict(kind="steps", model=payload, batches=batches),
+                 dict(kind="fit", model=payload, inputs=inputs, targets=targets,
+                      metrics=os.path.join(tmp, "metrics.jsonl"), kwargs=fit_kwargs)]
+        t0, wall0 = time.perf_counter(), time.time()
+        world = launch(dp_world, DP_RANKS, cases,
+                       timing=(payload, batches[0][0], batches[0][1], DP_ITERS))
+        world_s = time.perf_counter() - t0
+        print(f"world of {DP_RANKS} ranks on cuda:0: backends "
+              f"{sorted({r['backend'] for r in world})}, {world_s:.1f} s with its start (the "
+              f"ranks entered after {max(r['entered'] for r in world) - wall0:.1f} s; rank 0's "
+              f"steps {world[0]['seconds'][0]:.1f} s, fit {world[0]['seconds'][1]:.1f} s)")
+        if {r["backend"] for r in world} != {"gloo"}:
+            raise RuntimeError("the shared-card world did not run on gloo")
+        steps = [r["results"][0] for r in world]
+        fits = [r["results"][1] for r in world]
+        records = [json.loads(line) for line in open(os.path.join(tmp, "metrics.jsonl"))]
+        saved = torch.load(train.checkpoint_file(tmp), weights_only=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The same steps on cuda:0 on the whole batch, from the same weights.
+    single = train.create_state(copy.deepcopy(start.model), dev)
+    single_losses = [float(train.train_step(single, x, y)) for x, y in batches]
+    want = single.state_dict()
+    ref = steps[0]
+
+    def bit_equal(results):
+        return all(r["state"]["model"][k].equal(v) for r in results[1:]
+                   for k, v in results[0]["state"]["model"].items()) and all(
+            r["state"]["momentum"][k].equal(v) for r in results[1:]
+            for k, v in results[0]["state"]["momentum"].items())
+
+    same_ranks = bit_equal(steps) and all(r["losses"] == ref["losses"] for r in steps)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ref["losses"], single_losses))
+    start_sd = start.state_dict()
+    l2 = {part: update_l2(ref["state"][part], want[part], start_sd[part])
+          for part in ("model", "momentum")}
+    print(f"(b) {DP_STEPS} train_steps, batch {DP_BATCH} over {DP_RANKS} ranks against cuda:0 "
+          f"on the whole batch: losses {ref['losses']} vs {single_losses} (worst rel "
+          f"{loss_rel:.3g}, <= {DP_LOSS_RTOL}); the update off by {l2['model']:.3g} of its norm "
+          f"(weights and BatchNorm statistics), {l2['momentum']:.3g} (momentum) (<= "
+          f"{DP_UPDATE_L2}); every rank's losses, weights, statistics and momentum rank 0's "
+          f"bits: {same_ranks}")
+    if not (np.isfinite(ref["losses"]).all() and loss_rel <= DP_LOSS_RTOL):
+        raise RuntimeError("the data-parallel losses disagree with one device's")
+    if not max(l2.values()) <= DP_UPDATE_L2:
+        raise RuntimeError("the data-parallel update disagrees with one device's")
+    if not same_ranks:
+        raise RuntimeError("the ranks' states differ: the all-reduce handed them different sums")
+
+    histories = [r["history"] for r in fits]
+    epochs = [r["epoch"] for r in records if r["event"] == "epoch"]
+    n_steps = inputs.shape[0] // DP_BATCH
+    print(f"(c) fit, 1 epoch of {n_steps} steps, --scan-epochs route, in the world: histories "
+          f"{histories}; metrics records {epochs}; model_epoch.pt at epoch {saved['epoch']}; "
+          f"the ranks' states equal to the bit: {bit_equal(fits)}")
+    if any(h != histories[0] for h in histories) or not np.isfinite(histories[0]).all():
+        raise RuntimeError("the ranks of fit returned different or non-finite histories")
+    if epochs != [1] or saved["epoch"] != 1 or not bit_equal(fits):
+        raise RuntimeError("fit in the world did not write one epoch's files once")
+
+    # (d) A world of one rank on NCCL: the same first step split over it.
+    t0, wall0 = time.perf_counter(), time.time()
+    one = launch(dp_world, 1, [dict(kind="steps", model=payload, batches=batches[:1],
+                                    whole_world=True)], backend="nccl")[0]
+    one_s = time.perf_counter() - t0
+    nccl = one["results"][0]
+    first = train.create_state(copy.deepcopy(start.model), dev)
+    train.train_step(first, *batches[0])
+    one_l2 = update_l2(nccl["state"]["model"], first.state_dict()["model"], start_sd["model"])
+    print(f"(d) a world of 1 rank on {one['backend']} ({one_s:.1f} s with its start, entered "
+          f"after {one['entered'] - wall0:.1f} s, the step {one['seconds'][0]:.1f} s): one split "
+          f"step, loss {nccl['losses'][0]} vs cuda:0 {single_losses[0]}, the "
+          f"update off by {one_l2:.3g} of its norm (<= {DP_UPDATE_L2})")
+    if one["backend"] != "nccl" or abs(nccl["losses"][0] - single_losses[0]) > DP_LOSS_RTOL * abs(
+            single_losses[0]) or not one_l2 <= DP_UPDATE_L2:
+        raise RuntimeError("the NCCL rank's split step disagrees with one device's")
+
+    times = world[0]["times"]
+    med = {k: statistics.median(v) for k, v in times.items()}
+    n_params = sum(p.numel() for p in start.model.parameters())
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in start.model.modules())
+    print(f"card: {smi}; CUDA events on rank 0, {DP_ITERS} turns after a warm-up (median, "
+          "min..max), the ranks sharing one card (not a scaling figure):")
+    print(f"  train_step split over {DP_RANKS} gloo ranks, batch {DP_BATCH}: {med['dp']:.4f} ms "
+          f"({min(times['dp']):.4f}..{max(times['dp']):.4f}); one device, the whole batch, "
+          f"called in turns: {med['single']:.4f} ms ({min(times['single']):.4f}.."
+          f"{max(times['single']):.4f}); the split step's all-reduce carries {n_params + 1} f32 "
+          f"({4 * (n_params + 1) / 1e6:.1f} MB) through the host, and {2 * n_bn} small all-reduces "
+          f"of BatchNorm's sums ({n_bn} layers, forward and backward)")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2696,6 +2880,7 @@ def main() -> int:
     denoise_phase_18(dev, tk, smi)
     train_phase_19(dev, tk, smi)
     grid_launches, grid_errs = grid_phase_20(dev, tk, smi)
+    dp_launches = dp_phase_21(dev, tk, smi)
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):
@@ -2774,7 +2959,8 @@ def main() -> int:
                          fma_dependent_cycles=FMA_DEPENDENT_CYCLES)
         kernels.append(entry)
     # The ranks' launches of phase 20 add to the main paths' of the kernels
-    # that the grid runs.
+    # that the grid runs, and phase 21's dataset to K1's.
+    grid_launches["pathtrace_kernel"] += dp_launches
     for k in kernels:
         k["launches"] += grid_launches.get(k["name"], 0)
         k["max_abs_err"] = max(k["max_abs_err"], grid_errs.get(k["name"], 0.0))

@@ -15,7 +15,9 @@ accumulates frames progressively (``progressive.py``) and runs the
 interactive loop and the browser viewer (``interactive.py``, ``viewer.py``).
 It renders training pairs and cuts importance-sampled patches (``data/``),
 trains the denoiser (``train.py``: Nesterov SGD, the reference's plateau
-schedule, checkpoints with the optimiser's state, the training CLI) and
+schedule, checkpoints with the optimiser's state, the training CLI, and the
+batch split over a ``torch.distributed`` world with BatchNorm's statistics
+taken over the whole batch) and
 reads and writes EXR and BMP through a small C++ library where g++ and zlib
 build it (``io/native.py``), in Python otherwise. ``utils/roofline.py``
 measures the card's f32 peak and latencies (``csrc/probe_kernel.cu``). It

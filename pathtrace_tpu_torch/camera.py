@@ -65,6 +65,30 @@ class Camera:
         up = up / _norm(up)
         return front, right, up
 
+    def view_matrix(self) -> torch.Tensor:
+        """glm::lookAt(position, position + front, up) (Camera.h:74), f32."""
+        front, right, up = self.basis_vectors()
+        eye = self.position
+        m = torch.eye(4, dtype=torch.float32, device=self.device)
+        m[0, :3], m[1, :3], m[2, :3] = right, up, -front
+        m[0, 3] = -torch.dot(right, eye)
+        m[1, 3] = -torch.dot(up, eye)
+        m[2, 3] = torch.dot(front, eye)
+        return m
+
+    @staticmethod
+    def projection_matrix(width: int, height: int, device=None) -> torch.Tensor:
+        """glm::perspective(radians(45), w/h, 0.01, 1000) (Camera.h:130), f32."""
+        f = 1.0 / torch.tan(torch.deg2rad(torch.tensor(ZOOM, dtype=torch.float32)) / 2.0)
+        aspect = width / float(height)
+        m = torch.zeros((4, 4), dtype=torch.float32)
+        m[0, 0] = f / aspect
+        m[1, 1] = f
+        m[2, 2] = -(FAR + NEAR) / (FAR - NEAR)
+        m[2, 3] = -2.0 * FAR * NEAR / (FAR - NEAR)
+        m[3, 2] = -1.0
+        return m.to(device)
+
     def inverse_view_matrix(self) -> torch.Tensor:
         """Analytic inverse of lookAt: [[R^T, eye], [0, 1]]."""
         front, right, up = self.basis_vectors()

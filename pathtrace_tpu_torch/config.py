@@ -78,6 +78,10 @@ class RenderConfig:
         return 5 if self.brdf == "glossy" else 2
 
     @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+    @property
     def resolved_jitter(self) -> bool:
         if self.jitter is None:
             return self.spp != 1

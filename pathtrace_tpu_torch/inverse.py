@@ -153,15 +153,17 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
 def recover_scene(true_scene: Scene, corrupted_scene: Scene, cam, cfg: RenderConfig,
                   optimize: Sequence[str] = ("color",), steps: int = 200,
                   learning_rate=2e-2, target_spp: int | None = None, log_every: int = 0,
-                  logger: Callable | None = None, device=None):
+                  logger: Callable | None = None,
+                  grad_mask: Dict[str, torch.Tensor] | None = None, device=None):
     """Render a target from ``true_scene`` (frame 987654, ``target_spp``
     samples), then optimize ``corrupted_scene``'s fields in ``optimize`` to
-    match it. Returns (recovered_scene, losses)."""
+    match it (``learning_rate`` and ``grad_mask`` as ``make_inverse_step``
+    takes them). Returns (recovered_scene, losses)."""
     device = resolve_device(device)
     target_cfg = cfg if target_spp is None else dataclasses.replace(cfg, spp=target_spp)
     target = render_aovs(true_scene, cam, target_cfg, frame=987654, device=device)["color"]
     state, step_fn, _ = make_inverse_step(corrupted_scene, cam, cfg, target, optimize,
-                                          learning_rate, device=device)
+                                          learning_rate, grad_mask, device=device)
     losses = []
     for i in range(steps):
         state, loss = step_fn(state)

@@ -25,10 +25,14 @@ equal to Flax's:
   pads (0, 1) on an even size and (1, 1) on an odd one (``SameConv2d``);
   torch's ``padding=1`` would shift every even level by a pixel.
 - Bilinear resizing is ``align_corners=False`` (half-pixel centres, as
-  ``jax.image.resize``); every resize here enlarges or keeps the size.
-- ``BatchNorm``'s running variance takes the biased batch variance in
-  training, as Flax's ``batch_stats`` do (torch's own takes n/(n-1) of it);
-  momentum 0.01 in torch's sense is Flax's 0.99, eps 1e-5 in both.
+  ``jax.image.resize``); every resize here enlarges or keeps the size. Its
+  backward is a product with the interpolation matrices
+  (``_BilinearResize``), deterministic on a card.
+- ``BatchNorm`` in training takes Flax's statistics (``batch_stats``:
+  E[x^2] - E[x]^2, over every rank of a data-parallel group), and its
+  running variance takes that biased variance, as Flax's ``batch_stats``
+  do (torch's own takes n/(n-1) of it); momentum 0.01 in torch's sense is
+  Flax's 0.99, eps 1e-5 in both.
 
 Input is NHWC ``[N, H, W, 14]``, as in the JAX package: the module permutes
 it to an NCHW view with channels-last strides, so no copy is made.
@@ -37,10 +41,12 @@ it to an NCHW view with channels-last strides, so no copy is made.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -74,25 +80,80 @@ class SameConv2d(nn.Conv2d):
         return super().forward(x)
 
 
+def batch_stats(x: torch.Tensor, group=None):
+    """(mean, biased variance, count) per channel of an NCHW batch, over the
+    batch, height and width of every rank of ``group`` (None: this tensor
+    alone). Flax's ``_compute_stats`` with ``use_fast_variance``: mean =
+    E[x], var = max(E[x^2] - mean^2, 0), in f32. The sums and the count go
+    through one all-reduce; the statistics' part of the gradient is
+    ``_TrainBatchNorm``'s backward."""
+    dims = (0, 2, 3)
+    c = x.shape[1]
+    count = x.numel() // c
+    sums = torch.cat([x.sum(dims), (x * x).sum(dims)])
+    if group is not None:
+        sums = torch.cat([sums, sums.new_full((1,), count)])
+        dist.all_reduce(sums, group=group)
+        sums, count = sums[:2 * c], sums[2 * c]
+    moments = sums.view(2, c) / count
+    mean = moments[0]
+    var = torch.addcmul(moments[1], mean, mean, value=-1.0).clamp_(min=0.0)
+    return mean, var, count
+
+
+class _TrainBatchNorm(torch.autograd.Function):
+    """(x - mean) * rsqrt(var + eps) * weight + bias with the batch's
+    statistics (``batch_stats``, given), and its gradient through those
+    statistics too: d var / d x_i = 2 (x_i - mean) / n for either variance
+    formula, so dx = w r (dy - S1 / n - xhat S2 / n) with r = rsqrt(var +
+    eps), xhat = (x - mean) r, S1 = sum dy, S2 = sum dy xhat. With a
+    ``group`` the two sums are all-reduced over its ranks, as JAX's gradient
+    of a sharded batch sums them (statistics taken as constants would give
+    the same forward and wrong gradients); the weight's and bias's gradients
+    stay this rank's own, for the trainer to sum with the rest."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, count, group, eps):
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.count, ctx.group, ctx.eps = count, group, eps
+        return torch.native_batch_norm(x, weight, bias, mean, var, False, 0.0, eps)[0]
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, var = ctx.saved_tensors
+        r = torch.rsqrt(var + ctx.eps)
+        # eval mode: dx = dy w r, dw = S2, db = S1, all over this rank's batch
+        # (the card's kernel wants the saved statistics given too)
+        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, mean, var, mean, r, False, ctx.eps, [True, True, True])
+        sums = torch.cat([db, dw])
+        if ctx.group is not None:
+            dist.all_reduce(sums, group=ctx.group)
+        coef = sums.view(2, -1) * (weight * r / ctx.count)
+        dx = dx - coef[0, :, None, None] - (x - mean[:, None, None]) * (coef[1] * r)[:, None, None]
+        return dx, dw, db, None, None, None, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """Flax's ``nn.BatchNorm`` (momentum 0.99, eps 1e-5): in training the
-    batch's biased variance normalises and also enters the running
-    variance."""
+    batch's statistics (``batch_stats``, over the ranks of ``group`` when one
+    is given) normalise (``_TrainBatchNorm``), and their biased variance
+    also enters the running variance; out of training the running
+    statistics normalise."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.01)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            mean, var, count = batch_stats(x, group)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
-        # Normalised by the batch's own statistics, with their gradients; no
-        # running statistics are passed, so torch updates none.
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        return _TrainBatchNorm.apply(x, self.weight, self.bias, mean, var, count, group,
+                                     self.eps)
 
 
 class ResidualBlock(nn.Module):
@@ -108,22 +169,62 @@ class ResidualBlock(nn.Module):
         self.Conv_2 = SameConv2d(features, features, 3, 1)
         self.BatchNorm_2 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = self.BatchNorm_0(F.relu(self.Conv_0(x)))
-        y = self.BatchNorm_1(F.relu(self.Conv_1(x)))
-        y = self.BatchNorm_2(F.relu(self.Conv_2(y)))
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        residual = self.BatchNorm_0(F.relu(self.Conv_0(x)), group)
+        y = self.BatchNorm_1(F.relu(self.Conv_1(x)), group)
+        y = self.BatchNorm_2(F.relu(self.Conv_2(y)), group)
         return y + residual
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix(n_in: int, n_out: int, device: str) -> torch.Tensor:
+    """[n_out, n_in] f32 weights of a bilinear resize along one axis with
+    half-pixel centres, as ``F.interpolate(align_corners=False)`` computes
+    them: output i reads inputs i0 and i0 + 1 (clamped) of source position
+    max((i + 0.5) n_in / n_out - 0.5, 0)."""
+    src = torch.clamp((torch.arange(n_out, dtype=torch.float32) + 0.5) * (n_in / n_out) - 0.5,
+                      min=0.0)
+    i0 = src.long()
+    frac = src - i0
+    rows = torch.arange(n_out)
+    m = torch.zeros(n_out, n_in)
+    m.index_put_((rows, i0), 1.0 - frac, accumulate=True)
+    m.index_put_((rows, torch.clamp(i0 + 1, max=n_in - 1)), frac, accumulate=True)
+    return m.to(device)
+
+
+class _BilinearResize(torch.autograd.Function):
+    """``F.interpolate(mode="bilinear", align_corners=False)`` to ``size``,
+    whose backward is the product with the transposed interpolation matrices
+    of the two axes. The values are F.interpolate's; the backward is
+    deterministic, where F.interpolate's adds with atomics on a card, in an
+    order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size) -> torch.Tensor:
+        ctx.in_size = tuple(x.shape[-2:])
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (h_in, w_in), (n, c, h_out, w_out) = ctx.in_size, grad.shape
+        rows = _resize_matrix(h_in, h_out, str(grad.device)).to(grad.dtype)
+        cols = _resize_matrix(w_in, w_out, str(grad.device)).to(grad.dtype)
+        t = grad.reshape(n * c * h_out, w_out).mm(cols)  # along the width
+        t = t.view(n * c, h_out, w_in).transpose(0, 1).reshape(h_out, n * c * w_in)
+        out = rows.t().mm(t)  # along the height: [h_in, n c w_in]
+        return out.view(h_in, n, c, w_in).permute(1, 2, 0, 3), None
 
 
 def _upsample_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear-resize NCHW x to y's spatial size and add (model.py:78-80)."""
-    x = F.interpolate(x, size=tuple(y.shape[-2:]), mode="bilinear", align_corners=False)
-    return x + y
+    return _BilinearResize.apply(x, tuple(y.shape[-2:])) + y
 
 
 class DenoiseCNN(nn.Module):
     """14-channel AOV buffer -> denoised RGB. Input NHWC [N, H, W, 14],
-    output NHWC [N, H, W, 3]."""
+    output NHWC [N, H, W, 3]. ``group``: in training, the process group
+    whose ranks hold the rest of the batch (``BatchNorm``)."""
 
     def __init__(self, widths: Sequence[int] = DEFAULT_WIDTHS, lateral_features: int = 32):
         super().__init__()
@@ -141,12 +242,12 @@ class DenoiseCNN(nn.Module):
         self.lat_0 = SameConv2d(NUM_CHANNELS, lat, 1)
         self.rgb_conv = SameConv2d(lat, 3, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         n = len(self.widths)
         inp = x.permute(0, 3, 1, 2)  # NCHW view, channels-last strides
         raws, h = [], inp
         for i in range(1, n + 1):
-            h = getattr(self, f"block{i}")(h)
+            h = getattr(self, f"block{i}")(h, group)
             raws.append(h)
 
         rep = F.relu(getattr(self, f"lat_{n}")(raws[-1]))
@@ -184,6 +285,19 @@ def init_model(generator: torch.Generator, widths: Sequence[int] = DEFAULT_WIDTH
     from ``generator`` (``flax_init_``); BN scale 1 and bias 0, running mean 0
     and variance 1."""
     return flax_init_(DenoiseCNN(widths, lateral_features), generator)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (the previous setting
+    is restored after it): with ``_BilinearResize`` they make a training
+    step on the card give the same bits from run to run."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
 
 
 @contextlib.contextmanager

@@ -56,6 +56,12 @@ def merge_moments(a: Moments, b: Moments) -> Moments:
     return Moments(n=n, mean=mean, m2=m2)
 
 
+def zeros_moments(shape, dtype=torch.float32, device=None) -> Moments:
+    """Moments of no samples: the identity of ``merge_moments``."""
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return Moments(n=z, mean=z, m2=z)
+
+
 def variance(m: Moments) -> torch.Tensor:
     """Sample variance M2/(n-1); 0 where n < 2."""
     return torch.where(m.n >= 2.0, m.m2 / torch.clamp(m.n - 1.0, min=1.0),

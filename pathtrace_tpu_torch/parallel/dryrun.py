@@ -1,12 +1,14 @@
 """The multi-device dry run of the port: one sharded render and one sharded
-loss+gradients step on a (n/2, 2) grid.
+loss+gradients step on a (n/2, 2) grid, then one batch-data-parallel
+training step of the denoiser over the same ranks.
 
 The counterpart of ``__graft_entry__.dryrun_multichip`` (which stays the
 JAX package's): the renderer's two axes, row slabs ("tiles") and sample
 ranges ("samples"), with the partials folded over "samples" and the
 gradients all-reduced over the grid, through the kernels' slab launches
-(``backend="cuda"``; on the CPU their plain versions). The denoiser's batch
-data parallelism (the JAX leg's ``dryrun_cnn_dp``) is not ported yet.
+(``backend="cuda"``; on the CPU their plain versions); then
+``train.dryrun_cnn_dp``, the batch split with BatchNorm's statistics and
+the gradients all-reduced over every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ def _dryrun_rank(device=None) -> dict:
     from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
     from pathtrace_tpu_torch.parallel.mesh import make_mesh
     from pathtrace_tpu_torch.parallel.shard import render_channels_sharded, sharded_loss_grads
+    from pathtrace_tpu_torch.train import dryrun_cnn_dp
 
     n = dist.get_world_size()
     samples = 2 if n % 2 == 0 else 1
@@ -48,7 +51,7 @@ def _dryrun_rank(device=None) -> dict:
         raise RuntimeError("sharded NEE loss or position gradient is not finite")
     return {"rank": dist.get_rank(), "mesh": dict(mesh.shape), "frame_shape": tuple(out.shape),
             "loss": float(loss), "loss_nee": float(loss_n),
-            "d_color": d_scene.color.detach().cpu()}
+            "d_color": d_scene.color.detach().cpu(), "loss_cnn_dp": dryrun_cnn_dp(mesh)}
 
 
 def dryrun_multichip(n_devices: int, device=None) -> list:

@@ -22,6 +22,7 @@ timeout. The backend is chosen explicitly (``choose_backend``) and printed.
 
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import socket
@@ -58,7 +59,8 @@ def free_port() -> int:
 
 
 def launch(fn: Callable, n: int, *args, device=None, backend: Optional[str] = None,
-           timeout_s: float = DEFAULT_TIMEOUT_S, quiet: bool = False, **kwargs) -> List:
+           timeout_s: Optional[float] = DEFAULT_TIMEOUT_S, quiet: bool = False,
+           **kwargs) -> List:
     """Run ``fn(*args, **kwargs)`` on every rank of a new local world of ``n``
     ranks -> the list of what each rank returned, by rank.
 
@@ -66,7 +68,9 @@ def launch(fn: Callable, n: int, *args, device=None, backend: Optional[str] = No
     named, not pickled by value; a module run with ``python -m`` is named by
     its import name). ``device`` is the ranks' device (None: the
     card, ``"cpu"``); it is given to ``fn`` as the keyword ``device``.
-    ``backend`` None is ``choose_backend(n, device)``."""
+    ``backend`` None is ``choose_backend(n, device)``. ``timeout_s`` bounds
+    the world and each of its collectives; None sets no bound on the world
+    (a training run) and ``mesh.DEFAULT_TIMEOUT_S`` on a collective."""
     module = getattr(fn, "__module__", None)
     if module == "__main__":  # run with -m: the child imports it by its name
         spec = getattr(sys.modules["__main__"], "__spec__", None)
@@ -93,7 +97,7 @@ def launch(fn: Callable, n: int, *args, device=None, backend: Optional[str] = No
                     [sys.executable, "-m", "pathtrace_tpu_torch.parallel.launch", str(job),
                      str(Path(tmp, f"rank{rank}.pkl"))],
                     env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank))))
-            deadline = time.monotonic() + timeout_s
+            deadline = time.monotonic() + (math.inf if timeout_s is None else timeout_s)
             while any(p.poll() is None for p in procs):
                 if any(p.returncode not in (None, 0) for p in procs):
                     break  # one rank failed: the others would wait on it
@@ -137,7 +141,7 @@ def _to_host(value):
 
 
 def _child(job_path: str, out_path: str) -> int:
-    from pathtrace_tpu_torch.parallel.mesh import initialize_multihost
+    from pathtrace_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, initialize_multihost
 
     module, qualname, args, kwargs, backend, timeout_s = pickle.loads(
         Path(job_path).read_bytes())
@@ -148,7 +152,7 @@ def _child(job_path: str, out_path: str) -> int:
         # The address is given, so that a world of one joins a group too.
         initialize_multihost(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
                              int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]), backend,
-                             timeout_s)
+                             DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s)
         import importlib
 
         fn = importlib.import_module(module)

@@ -32,6 +32,9 @@ A model is a spec of ``build_model``.
 kernel's launch count set to 0 before and read after, then each rank's
 slab launches of the forward and backward kernels beside what their plain
 versions need, then the timings.
+
+``dp_world`` is the data-parallel trainer's rank function, for the tests
+and the chip smoke alike (``dp_world``'s docstring).
 """
 
 from __future__ import annotations
@@ -254,3 +257,93 @@ def card_world(cases, slab_checks=(), grad_checks=(), timings=(), scaling=None,
     return {"rank": dist.get_rank(), "backend": dist.get_backend(), "results": results,
             "launches": launches, "slabs": slabs, "grad_slabs": grad_slabs, "times": times,
             "scaling": rows}
+
+
+def _dp_case(case: dict, device) -> object:
+    from pathtrace_tpu_torch import train
+    from pathtrace_tpu_torch.utils.metrics import JsonlLogger
+
+    kind = case["kind"]
+    if kind == "sharding":
+        splits = [train.dp_sharding(b, devices) for b, devices in case["splits"]]
+        return [None if dp is None else (dp.index, dp.size) for dp in splits]
+    if kind == "fit" and case.get("resume"):
+        state = train.load_train_state(case["kwargs"]["ckpt_dir"], device=device)
+    else:
+        state = train.state_from_payload(case["model"], device)
+    if kind == "steps":
+        losses, grads = [], None
+        for x, y in case["batches"]:
+            dp = (train.DataParallel(dist.group.WORLD, dist.get_rank(), dist.get_world_size())
+                  if case.get("whole_world") else train.dp_sharding(x.shape[0]))
+            loss = train.train_step(state, x, y, dp)
+            losses.append(float(loss))
+            if grads is None:  # the first step's gradients, summed over the ranks
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in state.model.named_parameters()}
+        return {"losses": losses, "grads": grads, "state": state.state_dict()}
+    if kind == "epoch":
+        loss = train.train_epoch(state, case["inputs"].to(device), case["targets"].to(device),
+                                 case["perm"], case["batch_size"],
+                                 train.dp_sharding(case["batch_size"]))
+        return {"loss": float(loss), "state": state.state_dict()}
+    if kind == "fit":
+        with JsonlLogger(case["metrics"]) as metrics:
+            state, history = train.fit(state, case["inputs"], case["targets"], metrics=metrics,
+                                       logger=lambda *a: None, **case["kwargs"])
+        return {"history": history, "state": None if state is None else state.state_dict()}
+    raise ValueError(f"unknown case kind {kind!r}")
+
+
+def dp_world(cases, timing=None, device=None) -> dict:
+    """The data-parallel trainer's rank function: every case in order on this
+    rank's device, each step split by ``train.dp_sharding`` over the world's
+    ranks. A case is a dict with ``kind``:
+
+    - ``"sharding"`` (``splits``: [(batch_size, devices)]): what
+      ``dp_sharding`` gives this rank for each, (index, size) or None;
+    - ``"steps"`` (``model``: ``train.state_payload``; ``batches``: [(x, y)]
+      CPU tensors, each a whole minibatch; ``whole_world``: split over every
+      rank of the world, a world of one too): ``train_step`` on each ->
+      the losses, the first step's gradients (after the all-reduce) and the
+      final ``TrainState.state_dict``;
+    - ``"epoch"`` (``model``, ``inputs``, ``targets``, ``perm``,
+      ``batch_size``): ``train_epoch`` on the dataset moved to the device ->
+      the mean loss and the state;
+    - ``"fit"`` (``model``, or ``resume`` from ``kwargs["ckpt_dir"]``;
+      ``inputs``, ``targets`` numpy; ``metrics`` a JSONL path every rank
+      opens; ``kwargs`` of ``fit``) -> the history and the state.
+
+    ``timing`` (model, x, y, iters): the split step on every rank and, on
+    rank 0, a single-device step of the whole batch from the same weights,
+    called in turns after one warm-up of each -> ``times`` {"dp", "single"}
+    in ms (CUDA events on a card) on rank 0.
+    -> {"rank", "backend", "results", "times", "entered": the wall clock
+    when this function was entered, "seconds": each case's}."""
+    from pathtrace_tpu_torch import train
+    from pathtrace_tpu_torch.parallel.mesh import rank_device
+
+    entered = time.time()
+    dev = rank_device(device)
+    results, seconds = [], []
+    for case in cases:
+        t0 = time.perf_counter()
+        results.append(_dp_case(case, dev))
+        seconds.append(time.perf_counter() - t0)
+    times = {}
+    if timing is not None:
+        model, x, y, iters = timing
+        dp = train.dp_sharding(x.shape[0])
+        split = train.state_from_payload(model, dev)
+        single = train.state_from_payload(model, dev) if dist.get_rank() == 0 else None
+        x, y = x.to(dev), y.to(dev)
+        fns = [("dp", lambda: train.train_step(split, x, y, dp))]
+        if single is not None:
+            fns.append(("single", lambda: train.train_step(single, x, y)))
+        for _, fn in fns:
+            fn()
+        for _ in range(iters):
+            for label, fn in fns:
+                times.setdefault(label, []).append(_ms(fn, dev))
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(), "results": results,
+            "times": times, "entered": entered, "seconds": seconds}

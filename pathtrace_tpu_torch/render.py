@@ -30,6 +30,10 @@ from pathtrace_tpu_torch.ops.trace import trace_paths
 FEATURES = ("color", "normal", "albedo", "depth")
 
 
+class FrameMoments(Dict[str, torch.Tensor]):
+    """A frame's moments by feature name, as the JAX package names the type."""
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the current CUDA device for None,
     or an error where there is none (the CPU is never chosen silently), else

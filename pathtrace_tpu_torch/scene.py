@@ -35,6 +35,14 @@ class Scene:
     def device(self) -> torch.device:
         return self.radius.device
 
+    def replace(self, **fields) -> "Scene":
+        """A new ``Scene`` with the given fields (radius, position, emission,
+        color) in place of this one's."""
+        current = dict(radius=self.radius, position=self.position, emission=self.emission,
+                       color=self.color)
+        current.update(fields)
+        return Scene(**current)
+
     def to(self, device) -> "Scene":
         return Scene(self.radius, self.position, self.emission, self.color, device=device)
 

@@ -22,7 +22,8 @@ The counterpart of ``pathtrace_tpu.train`` (the reference's training loop,
   the L1 criterion — the reference's quirk, ``train.py:40-43``), preview
   BMPs, and ``model_best`` + ``best.json`` when the PSNR is the best yet.
 
-Training runs in f32 with cuDNN's TF32 off (``cudnn_tf32(False)``), on the
+Training runs in f32 with cuDNN's TF32 off (``cudnn_tf32(False)``) and its
+deterministic algorithms on (``cudnn_deterministic``), on the
 current CUDA device unless ``device="cpu"`` is given. Two routes run an
 epoch: ``loop_epoch`` (the host gathers each minibatch and reads each loss)
 and ``train_epoch`` (``--scan-epochs``: the dataset on the device, moved
@@ -36,10 +37,20 @@ and, when written from a ``TrainState``, its momentum buffers by parameter
 name, ``lr``, ``best_loss``, ``plateau_count`` and ``epoch``
 (``TrainState.state_dict``). The JAX package's orbax snapshots are not read
 here: ``scripts/torch_convert_checkpoint.py`` converts one on a machine with
-JAX. Batch data parallelism over several devices (``dp_sharding``) is not
-ported yet (ROADMAP.md, A7b: the render's grid, ``parallel/``, is; the
-trainer's split needs BatchNorm statistics global across ranks): on one
-device it is the whole semantics.
+JAX.
+
+Batch data parallelism (``dp_sharding``, as the JAX package's) splits each
+minibatch over the ranks of a ``torch.distributed`` world: rank r of n
+takes rows [r b/n, (r+1) b/n), the block JAX's ``P("batch")`` gives device
+r. It is the single-device function, not an approximation of it: the L1
+mean and BatchNorm's statistics are taken over the whole batch
+(``models.denoise_cnn.batch_stats`` all-reduces them, their gradient
+included), and the weight gradients are summed over the ranks in one
+all-reduce before SGD, so every rank holds the same weights, momentum
+buffers and statistics, bit for bit. In ``fit`` every rank shuffles with
+the same seed and rank 0 alone writes files; outside a world, on a machine
+with several cards, ``fit`` starts a world of one rank a card
+(``parallel.launch``).
 """
 
 from __future__ import annotations
@@ -51,12 +62,14 @@ import math
 import os
 import sys
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pathtrace_tpu_torch.models.denoise_cnn import DenoiseCNN, cudnn_tf32, init_model
+from pathtrace_tpu_torch.models.denoise_cnn import (DenoiseCNN, cudnn_deterministic, cudnn_tf32,
+                                                    init_model)
 from pathtrace_tpu_torch.models.preprocess import preprocess_channels, preprocess_target
 from pathtrace_tpu_torch.render import resolve_device
 
@@ -149,51 +162,143 @@ def create_state(model: DenoiseCNN, device=None) -> TrainState:
     return TrainState(model=model, optimizer=make_optimizer(model))
 
 
+def state_payload(state: TrainState) -> dict:
+    """What a new process needs to rebuild ``state`` (``state_from_payload``):
+    the model's widths and ``TrainState.state_dict``, on the host."""
+    return {"widths": state.model.widths, "lateral_features": state.model.lateral_features,
+            "state": state.state_dict()}
+
+
+def state_from_payload(payload: dict, device=None) -> "TrainState":
+    """The ``TrainState`` of ``state_payload``'s dict on ``device`` (default:
+    the current CUDA device)."""
+    model = DenoiseCNN(payload["widths"], payload["lateral_features"])
+    state = create_state(model, device)
+    state.load_state_dict(payload["state"])
+    return state
+
+
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - target))
 
 
-def train_step(state: TrainState, batch: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """A batch split over the ``size`` ranks of the process group ``group``;
+    this rank is ``index`` of them and takes the ``index``-th block of rows
+    of every minibatch."""
+
+    group: object
+    index: int
+    size: int
+
+    def rows(self, batch_size: int) -> slice:
+        if batch_size % self.size:
+            raise ValueError(f"a batch of {batch_size} does not split over {self.size} ranks")
+        share = batch_size // self.size
+        return slice(self.index * share, (self.index + 1) * share)
+
+
+def dp_devices(batch_size: int, n_devices: int) -> int:
+    """How many of ``n_devices`` a batch splits over: the most that divide
+    ``batch_size`` (the JAX package's rule: a batch of 5 uses 5 of 8)."""
+    return max(d for d in range(1, n_devices + 1) if batch_size % d == 0)
+
+
+def dp_sharding(batch_size: int, devices=None) -> Optional[DataParallel]:
+    """The batch split of the JAX package's ``dp_sharding`` over the ranks of
+    the world: ``devices`` are ranks (default: every rank of the world, or
+    this process alone outside a world), of which the first
+    ``dp_devices(batch_size, len(devices))`` train. -> their split as this
+    rank sees it, or None where that count is 1 (one device) or this rank
+    is not among them (it holds no training state). Every rank of the
+    world calls it with the same arguments (process groups are made
+    collectively)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = list(range(world)) if devices is None else [int(r) for r in devices]
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"devices {ranks} are not distinct ranks of a world of {world}")
+    n = dp_devices(batch_size, len(ranks))
+    if n == 1:
+        return None
+    members = sorted(ranks[:n])
+    group = dist.group.WORLD if members == list(range(world)) else dist.new_group(members)
+    me = dist.get_rank()
+    if me not in members:
+        return None
+    return DataParallel(group, members.index(me), n)
+
+
+def _all_reduce_grads(model: torch.nn.Module, loss: torch.Tensor, group) -> torch.Tensor:
+    """Sum every parameter's gradient and ``loss`` over ``group`` in one
+    all-reduce of a flat buffer; the gradients are written back in place.
+    -> the summed loss."""
+    grads = [p.grad for p in model.parameters()]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset: offset + g.numel()].view(g.shape))
+        offset += g.numel()
+    return flat[offset]
+
+
+def train_step(state: TrainState, batch: torch.Tensor, target: torch.Tensor,
+               dp: Optional[DataParallel] = None) -> torch.Tensor:
     """One SGD step on an [N, h, w, 14] batch vs [N, h, w, 3] targets (moved
-    to the state's device), in place. -> the step's loss, a 0-d tensor on the
-    device (reading it waits for the step)."""
+    to the state's device), in place. With ``dp`` this rank takes its rows
+    of the batch, BatchNorm's statistics and the L1 mean are the whole
+    batch's, and the gradients are summed over the ranks before the step.
+    -> the whole batch's loss, a 0-d tensor on the device (reading it waits
+    for the step), the same on every rank."""
     device = state.device
+    if dp is not None:
+        rows = dp.rows(batch.shape[0])
+        batch, target = batch[rows], target[rows]
     batch, target = batch.to(device), target.to(device)
     for group in state.optimizer.param_groups:
         group["lr"] = state.lr
     state.model.train()
-    with cudnn_tf32(False):
+    with cudnn_tf32(False), cudnn_deterministic():
         state.optimizer.zero_grad(set_to_none=True)
-        loss = l1_loss(state.model(batch), target)
+        pred = state.model(batch, None if dp is None else dp.group)
+        # This rank's share of the whole batch's mean: the shares sum to it.
+        loss = l1_loss(pred, target) / (1 if dp is None else dp.size)
         loss.backward()
+        loss = loss.detach()
+        if dp is not None:
+            loss = _all_reduce_grads(state.model, loss, dp.group)
         state.optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def loop_epoch(state: TrainState, inputs: np.ndarray, targets: np.ndarray,
-               order: np.ndarray, batch_size: int) -> float:
+               order: np.ndarray, batch_size: int, dp: Optional[DataParallel] = None) -> float:
     """One epoch the way the JAX package's ``fit`` loops: each minibatch
-    gathered on the host in ``order`` and moved to the device, each loss
-    read back; the remainder is dropped. -> the mean loss."""
+    gathered on the host in ``order`` and moved to the device (with ``dp``,
+    this rank's rows of it), each loss read back; the remainder is dropped.
+    -> the mean loss."""
     epoch_loss, batches = 0.0, 0
     for i in range(0, len(order) - batch_size + 1, batch_size):
         idx = order[i: i + batch_size]
-        loss = train_step(state, torch.from_numpy(inputs[idx]), torch.from_numpy(targets[idx]))
+        loss = train_step(state, torch.from_numpy(inputs[idx]), torch.from_numpy(targets[idx]),
+                          dp)
         epoch_loss += float(loss)
         batches += 1
     return epoch_loss / max(batches, 1)
 
 
 def train_epoch(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor, perm,
-                batch_size: int) -> torch.Tensor:
+                batch_size: int, dp: Optional[DataParallel] = None) -> torch.Tensor:
     """One full epoch over a dataset that stays where it is (on the device,
     for ``fit(scan_epochs=True)``): the minibatches of ``perm`` (the epoch's
     shuffled indices, remainder dropped) gathered by index there, the
-    losses kept there. Same order and updates as ``loop_epoch`` (the JAX
-    package's ``lax.scan`` epoch). -> the mean loss, a 0-d tensor."""
+    losses kept there; with ``dp`` each step takes this rank's rows. Same
+    order and updates as ``loop_epoch`` (the JAX package's ``lax.scan``
+    epoch). -> the mean loss, a 0-d tensor."""
     n_batches = len(perm) // batch_size
     idx = torch.as_tensor(np.asarray(perm)[: n_batches * batch_size], device=inputs.device)
-    losses = [train_step(state, inputs.index_select(0, ids), targets.index_select(0, ids))
+    losses = [train_step(state, inputs.index_select(0, ids), targets.index_select(0, ids), dp)
               for ids in idx.view(n_batches, batch_size)]
     return torch.stack(losses).mean()
 
@@ -361,14 +466,6 @@ def build_dataset(
     return np.concatenate(xs), np.concatenate(ys)
 
 
-def _data_parallel_devices(batch_size: int, device: torch.device) -> int:
-    """How many devices the JAX package's ``dp_sharding`` would split a batch
-    over here: the most local devices of the state's kind that divide
-    ``batch_size``."""
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    return max(d for d in range(1, n_dev + 1) if batch_size % d == 0)
-
-
 def fit(
     state: TrainState,
     inputs: np.ndarray,
@@ -393,21 +490,47 @@ def fit(
     ``scan_epochs=True`` runs each epoch through ``train_epoch`` with the
     dataset on the device; otherwise ``loop_epoch``. ``metrics`` is an
     optional ``JsonlLogger`` receiving one record an epoch and one a
-    validation. ``data_parallel`` is the JAX package's batch split over local
-    devices: on one device it changes nothing, and a split over several is
-    not ported yet (``NotImplementedError``; ROADMAP.md, A7b). Returns
-    (state, history), the
-    state updated in place."""
+    validation. Returns (state, history), the state updated in place.
+
+    ``data_parallel`` is the JAX package's batch split (``dp_sharding``):
+
+    - inside a world (every rank calls ``fit`` alike), each minibatch splits
+      over the first ``dp_devices(batch_size, world size)`` ranks; a rank
+      beyond them takes no step and returns (None, []). Every rank that
+      trains shuffles with ``seed`` and returns the same state and history,
+      after rank 0 alone has logged, validated and written the checkpoints,
+      ``best.json``, the previews and the metrics;
+    - outside a world, where the state's device is one of several cards
+      that the batch splits over, ``fit`` starts a world of one rank a card
+      (``parallel.launch``, NCCL), runs there and loads rank 0's state
+      into ``state``; ``logger`` is then called in rank 0's process (it
+      must pickle, as ``print`` does) and ``metrics`` is reopened there by
+      its path;
+    - on one device (one H100) it changes nothing.
+
+    With ``data_parallel=False`` in a world every rank trains on the whole
+    batches alone, and rank 0 alone writes.
+    """
     from pathtrace_tpu_torch.io.bmp import write_bmp
     from pathtrace_tpu_torch.utils.metrics import JsonlLogger
 
     device = state.device
-    n_split = _data_parallel_devices(batch_size, device) if data_parallel else 1
-    if n_split > 1:
-        raise NotImplementedError(
-            f"a batch of {batch_size} would split over {n_split} devices: multi-device data "
-            "parallelism is not ported yet (ROADMAP.md, A7b); pass data_parallel=False")
-    metrics = metrics if metrics is not None else JsonlLogger(None)
+    dp = None
+    if data_parallel and dist.is_initialized():
+        n_split = dp_devices(batch_size, dist.get_world_size())
+        dp = dp_sharding(batch_size)
+        if dist.get_rank() >= n_split:
+            return None, []
+    elif data_parallel and device.type == "cuda":
+        n_split = dp_devices(batch_size, torch.cuda.device_count())
+        if n_split > 1:
+            return _fit_launched(n_split, state, inputs, targets, epochs, metrics,
+                                 dict(batch_size=batch_size, seed=seed, log_every=log_every,
+                                      ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, val=val,
+                                      logger=logger, scan_epochs=scan_epochs,
+                                      plateau_patience=plateau_patience))
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    metrics = metrics if metrics is not None and writer else JsonlLogger(None)
     rng = np.random.default_rng(seed)
     n = inputs.shape[0]
     if scan_epochs:
@@ -422,12 +545,14 @@ def fit(
         t0 = time.perf_counter()
         order = rng.permutation(n)
         if scan_epochs:
-            avg = float(train_epoch(state, inputs_d, targets_d, order, batch_size))
+            avg = float(train_epoch(state, inputs_d, targets_d, order, batch_size, dp))
         else:
-            avg = loop_epoch(state, inputs, targets, order, batch_size)
+            avg = loop_epoch(state, inputs, targets, order, batch_size, dp)
         plateau_update(state, avg, patience=plateau_patience)
         history.append(avg)
         epoch = state.epoch
+        if not writer:
+            continue
         epoch_s = time.perf_counter() - t0
         metrics.log("epoch", epoch=epoch, loss=avg, lr=state.lr, seconds=epoch_s)
         if log_every and epoch % log_every == 0:
@@ -451,7 +576,58 @@ def fit(
                           np.clip(np.asarray(vy[0]), 0, 1))
                 write_bmp(os.path.join(ckpt_dir, f"{epoch}_out.bmp"),
                           np.clip(out[0].cpu().numpy(), 0, 1))
+    if dp is not None:
+        dist.barrier(group=dp.group)  # every rank returns once rank 0's files are written
     return state, history
+
+
+def _fit_rank(payload: dict, inputs, targets, epochs: int, metrics_path, kwargs: dict,
+              device=None) -> dict:
+    """A rank of ``_fit_launched``'s world: the state of ``payload``
+    (``state_payload``) on this rank's device, ``fit`` with the batch split.
+    -> {"history"}, and rank 0's "state" (``TrainState.state_dict``)."""
+    from pathtrace_tpu_torch.parallel.mesh import rank_device
+    from pathtrace_tpu_torch.utils.metrics import JsonlLogger
+
+    state = state_from_payload(payload, rank_device(device))
+    with JsonlLogger(metrics_path if dist.get_rank() == 0 else None) as metrics:
+        state, history = fit(state, inputs, targets, epochs, metrics=metrics,
+                             data_parallel=True, **kwargs)
+    out = {"history": history}
+    if dist.get_rank() == 0:
+        out["state"] = state.state_dict()
+    return out
+
+
+def _fit_launched(n: int, state: TrainState, inputs, targets, epochs: int, metrics,
+                  kwargs: dict, device=None) -> Tuple[TrainState, List[float]]:
+    """``fit`` on a new local world of ``n`` ranks (``device`` None: one card
+    a rank; ``"cpu"``), from ``state``, which then takes rank 0's state.
+    Raises where a rank failed or the ranks' histories differ."""
+    from pathtrace_tpu_torch.parallel.launch import launch
+
+    out = launch(_fit_rank, n, state_payload(state), inputs, targets, epochs,
+                 getattr(metrics, "path", None), kwargs, device=device, timeout_s=None)
+    if any(r["history"] != out[0]["history"] for r in out):
+        raise RuntimeError("the ranks of the data-parallel world returned different histories")
+    state.load_state_dict(out[0]["state"])
+    return state, out[0]["history"]
+
+
+def dryrun_cnn_dp(mesh) -> float:
+    """One batch-data-parallel training step over every rank of ``mesh`` (a
+    ``parallel.Mesh``; the JAX package's ``dryrun_cnn_dp``): the CNN at
+    widths (8, 16) from ``init_model`` seed 0, a batch of 2 zero patches of
+    16x16 a rank. -> the step's loss; raises where it is not finite."""
+    n = mesh.shape["tiles"] * mesh.shape["samples"]
+    state = create_state(init_model(torch.Generator().manual_seed(0), widths=(8, 16)),
+                         mesh.device)
+    dp = DataParallel(mesh.group, mesh.rank, n) if mesh.distributed else None
+    loss = train_step(state, torch.zeros((2 * n, 16, 16, 14)), torch.zeros((2 * n, 16, 16, 3)),
+                      dp)
+    if not torch.isfinite(loss):
+        raise RuntimeError(f"the data-parallel step's loss {float(loss)} is not finite")
+    return float(loss)
 
 
 def main(argv=None) -> int:

@@ -6,8 +6,10 @@ import pytest
 import torch
 
 from pathtrace_tpu import camera as jcamera
+from pathtrace_tpu import config as jconfig
+from pathtrace_tpu import render as jrender
 from pathtrace_tpu import scene as jscene
-from pathtrace_tpu_torch import camera, scene
+from pathtrace_tpu_torch import camera, config, render, scene
 from pathtrace_tpu_torch.convert import camera_from_numpy, scene_from_numpy
 
 POSES = [
@@ -37,6 +39,75 @@ def test_basis_and_inverse_matrices_match_jax(pose):
     np.testing.assert_allclose(camera.Camera.inverse_projection_matrix(160, 96).numpy(),
                                np.asarray(jcamera.Camera.inverse_projection_matrix(160, 96)),
                                rtol=1e-6)
+
+
+def _np_look_at(eye, center, up):
+    """tests/test_camera.py's numpy lookAt."""
+    f = center - eye
+    f = f / np.linalg.norm(f)
+    r = np.cross(f, up)
+    r = r / np.linalg.norm(r)
+    u = np.cross(r, f)
+    m = np.eye(4)
+    m[0, :3], m[1, :3], m[2, :3] = r, u, -f
+    m[0, 3], m[1, 3], m[2, 3] = -r @ eye, -u @ eye, f @ eye
+    return m
+
+
+@pytest.mark.parametrize("pose", POSES + [((1.0, 2.0, 3.0), -35.0, 10.0)])
+def test_view_and_projection_matrices_match_jax(pose):
+    """glm's lookAt and perspective (tests/test_camera.py's cases): the same
+    matrices as the JAX package, lookAt as the numpy oracle builds it, and
+    their product inverts through the analytic inverses the basis uses."""
+    jc, tc = jcamera.Camera.create(*pose), camera.Camera.create(*pose)
+    view = tc.view_matrix()
+    assert view.dtype == torch.float32 and view.shape == (4, 4)
+    np.testing.assert_allclose(view.numpy(), np.asarray(jc.view_matrix()), rtol=1e-6, atol=1e-5)
+    front, _, up = (v.numpy().astype(np.float64) for v in tc.basis_vectors())
+    eye = np.asarray(pose[0], np.float64)
+    np.testing.assert_allclose(view.numpy(), _np_look_at(eye, eye + front, up), atol=1e-4)
+    for size in [(128, 128), (160, 96)]:
+        proj = camera.Camera.projection_matrix(*size)
+        np.testing.assert_allclose(proj.numpy(),
+                                   np.asarray(jcamera.Camera.projection_matrix(*size)),
+                                   rtol=1e-6)
+        np.testing.assert_allclose((camera.Camera.inverse_projection_matrix(*size) @ proj)
+                                   .numpy(), np.eye(4), atol=1e-6)
+    # f32 translations of ~2e2 (an ulp 1.5e-5) cancel in the product
+    np.testing.assert_allclose((tc.inverse_view_matrix() @ view).numpy(), np.eye(4),
+                               atol=1e-4)
+
+
+def test_unprojection_consistency():
+    """tests/test_camera.py's case: the interpolated ray through a pixel
+    passes through that pixel's NDC point unprojected by the inverse of
+    projection_matrix @ view_matrix."""
+    cam = camera.Camera.create(position=(10.0, 20.0, 30.0), yaw=-70.0, pitch=5.0)
+    w = h = 128
+    inv_vp = np.linalg.inv(camera.Camera.projection_matrix(w, h).numpy().astype(np.float64)
+                           @ cam.view_matrix().numpy().astype(np.float64))
+    basis = cam.eye_ray_basis(w, h)
+    for r, c in [(0, 0), (64, 64), (13, 101)]:
+        ndc_x, ndc_y = camera.pixel_ndc(torch.tensor(float(r)), torch.tensor(float(c)), w, h)
+        d = camera.ray_directions(basis, ndc_x, ndc_y).numpy()
+        p = inv_vp @ np.array([float(ndc_x), float(ndc_y), 0.0, 1.0])
+        np.testing.assert_allclose(d, p[:3] / p[3] - cam.position.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_num_pixels_replace_and_frame_moments_match_jax():
+    for w, h in [(64, 64), (160, 96)]:
+        assert config.RenderConfig(width=w, height=h).num_pixels == \
+            jconfig.RenderConfig(width=w, height=h).num_pixels == w * h
+    ref, got = jscene.cornell_box(), scene.cornell_box()
+    color = np.random.default_rng(2).uniform(size=(9, 3)).astype(np.float32)
+    jnew, new = ref.replace(color=jnp.asarray(color)), got.replace(color=color)
+    assert isinstance(new, scene.Scene) and new is not got
+    for f in ("radius", "position", "emission", "color"):
+        np.testing.assert_array_equal(getattr(new, f).numpy(), np.asarray(getattr(jnew, f)))
+    np.testing.assert_array_equal(got.color.numpy(), np.asarray(ref.color))  # unchanged
+    assert new.replace(radius=got.radius.double()).radius.dtype == torch.float64  # kept
+    frame = render.FrameMoments(color=torch.zeros(2))
+    assert isinstance(frame, dict) and issubclass(jrender.FrameMoments, dict)
 
 
 def test_pixel_ndc_and_ray_directions_match_jax():

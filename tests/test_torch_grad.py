@@ -16,6 +16,12 @@ numpy. Tolerances:
   block's largest entry. A shadow-ray decision that flips toggles one
   sample's Lambert term; the blocks' large entries agree to < 1%, while a
   small entry such as yaw moved by 2% (seed 5) to 14% (seed 7) of itself.
+
+The finite-difference cases of tests/test_grad.py (albedo, emission, a
+sphere's position through the geometry probe, the camera's position on an
+interior window) run on the port at the same eps and tolerances, the
+albedo and emission gradients on the kernel route (``backend="cuda"``:
+the kernels' plain versions on the CPU), forward and backward alike.
 """
 
 import dataclasses
@@ -137,3 +143,93 @@ def test_checkpointed_chunks_match_one_chunk(state):
                                                device="cpu")
     np.testing.assert_allclose(_np(g2.color), _np(g1.color), rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(_np(g2.emission), _np(g1.emission), rtol=1e-4, atol=1e-7)
+
+
+# -- finite differences (tests/test_grad.py:68-140) on the kernel route ------
+
+CFG_KERNEL = dataclasses.replace(CFG, backend="cuda")
+
+
+def _mean_lum(scene, cam, cfg=CFG_KERNEL):
+    from pathtrace_tpu_torch.ops.variance import luminance
+
+    with torch.no_grad():
+        return float(torch.mean(luminance(port_grad.render_color(scene, cam, cfg,
+                                                                 device="cpu"))))
+
+
+def _geom_probe(scene, cam):
+    aovs = port_grad.render_aovs_diff(scene, cam, CFG, device="cpu")
+    return torch.mean(aovs["depth"]) * 1e-4 + torch.mean(aovs["normal"][..., 1])
+
+
+def _window_depth(scene, cam, window):
+    aovs = port_grad.render_aovs_diff(scene, cam, CFG, device="cpu")
+    return torch.mean(aovs["depth"][window]) * 1e-4
+
+
+def test_albedo_grad_matches_fd(state):
+    _, _, scene, cam, _ = state
+    _, (d_scene, _) = port_grad.render_scalar_grads(scene, cam, CFG_KERNEL, device="cpu")
+    for i, c in [(0, 1), (6, 0)]:
+        def f(v, i=i, c=c):
+            color = scene.color.clone()
+            color[i, c] = float(v)
+            return _mean_lum(scene.replace(color=color), cam)
+
+        fd = port_grad.finite_difference(f, _np(scene.color[i, c]), eps=2e-3)
+        np.testing.assert_allclose(float(d_scene.color[i, c]), fd, rtol=0.08, atol=1e-5)
+
+
+def test_emission_grad_matches_fd(state):
+    _, _, scene, cam, _ = state
+    _, (d_scene, _) = port_grad.render_scalar_grads(scene, cam, CFG_KERNEL, device="cpu")
+
+    def f(v):
+        emission = scene.emission.clone()
+        emission[8, 0] = float(v)
+        return _mean_lum(scene.replace(emission=emission), cam)
+
+    fd = port_grad.finite_difference(f, _np(scene.emission[8, 0]), eps=2e-3)
+    np.testing.assert_allclose(float(d_scene.emission[8, 0]), fd, rtol=0.08, atol=1e-6)
+
+
+def test_position_grad_matches_fd_geometry(state):
+    """Through the depth and normal AOVs, continuous in the position; eps
+    below the silhouette-crossing scale."""
+    _, _, scene, cam, _ = state
+    _, (d_scene, _) = port_grad.render_geometry_grads(scene, cam, CFG, device="cpu")
+
+    def f(v):
+        position = scene.position.clone()
+        position[6, 2] = float(v)
+        with torch.no_grad():
+            return float(_geom_probe(scene.replace(position=position), cam))
+
+    fd = port_grad.finite_difference(f, _np(scene.position[6, 2]), eps=0.05)
+    np.testing.assert_allclose(float(d_scene.position[6, 2]), fd, rtol=0.15, atol=3e-6)
+
+
+def test_camera_grad_matches_fd_geometry(state):
+    """The camera's z on an interior window of the back wall (uniform grey
+    albedo, far depth), where depth is smooth in the camera position."""
+    from pathtrace_tpu_torch.camera import Camera
+
+    _, _, scene, cam, _ = state
+    window = (slice(13, 17), slice(14, 18))
+    with torch.no_grad():
+        aovs = port_grad.render_aovs_diff(scene, cam, CFG, device="cpu")
+    assert np.allclose(aovs["albedo"][window].numpy(), [0.75, 0.75, 0.75], atol=1e-5)
+    assert float(aovs["depth"][window].mean()) > 12000.0
+
+    position = cam.position.clone().requires_grad_(True)
+    _window_depth(scene, Camera(position, cam.yaw, cam.pitch), window).backward()
+
+    def f(v):
+        p = cam.position.clone()
+        p[2] = float(v)
+        with torch.no_grad():
+            return float(_window_depth(scene, Camera(p, cam.yaw, cam.pitch), window))
+
+    fd = port_grad.finite_difference(f, _np(cam.position[2]), eps=0.2)
+    np.testing.assert_allclose(float(position.grad[2]), fd, rtol=0.05, atol=1e-9)

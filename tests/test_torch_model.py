@@ -149,6 +149,71 @@ def test_batchnorm_running_var_is_biased_as_flax():
     assert np.abs(stock.running_var.numpy() - want_var).max() > 1e-3
 
 
+def test_batch_stats_and_gradient_are_flax_fast_variance():
+    """batch_stats is Flax's _compute_stats with use_fast_variance
+    (E[x^2] - E[x]^2, clamped at 0), on a channel whose mean is 20 times its
+    spread (the difference loses 3 of f32's digits, so both round it alike
+    only to 1e-3) and on a constant one; and BatchNorm's gradient with
+    respect to its input and scale is Flax's (``_TrainBatchNorm``'s analytic
+    backward, through the statistics)."""
+    from flax.linen.normalization import _compute_stats
+
+    from pathtrace_tpu_torch.models.denoise_cnn import batch_stats
+
+    x = _inputs((4, 3, 5, 6), seed=7)
+    x[..., 0] = 3.0 + 0.5 * x[..., 0]
+    x[..., 1] = 2.5
+    fmean, fvar = _compute_stats(jnp.asarray(x), (0, 1, 2), None, use_fast_variance=True)
+    mean, var, count = batch_stats(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert count == 4 * 3 * 5
+    np.testing.assert_allclose(mean.numpy(), np.asarray(fmean), rtol=1e-6)
+    np.testing.assert_allclose(var.numpy()[2:], np.asarray(fvar)[2:], rtol=1e-5)
+    np.testing.assert_allclose(var.numpy()[0], np.asarray(fvar)[0], rtol=1e-3)
+    assert var.numpy()[1] == np.asarray(fvar)[1] == 0.0  # clamped where it rounds below
+
+    # Plain inputs for the gradient: a constant channel's is rounding, and
+    # the offset one's carries the 1e-4 of its variance.
+    x = _inputs((4, 3, 5, 6), seed=9)
+    w = _inputs((6,), seed=8)
+    flax_bn = nn.BatchNorm(use_running_average=False)
+    fvars = flax_bn.init(jax.random.key(0), jnp.asarray(x))
+
+    def floss(xx, scale):
+        params = {"params": {"scale": scale, "bias": fvars["params"]["bias"]},
+                  "batch_stats": fvars["batch_stats"]}
+        y, _ = flax_bn.apply(params, xx, mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(y) * jnp.asarray(w))
+
+    fgx, fgs = jax.grad(floss, argnums=(0, 1))(jnp.asarray(x), fvars["params"]["scale"])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    bn = BatchNorm(6).train()
+    y = bn(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.sum(torch.sin(y) * torch.from_numpy(w)).backward()
+    for got, want in ((xt.grad, fgx), (bn.weight.grad, fgs)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(np.asarray(want)).max()))
+
+
+@pytest.mark.parametrize("size_in,size_out", [((4, 5), (8, 10)), ((1, 1), (2, 2)),
+                                              ((16, 16), (31, 33)), ((25, 35), (50, 70))])
+def test_resize_is_interpolate_with_a_matrix_backward(size_in, size_out):
+    """The FPN's bilinear resize: F.interpolate's values to the bit, and a
+    backward (products with the interpolation matrices, deterministic on a
+    card) equal to F.interpolate's within f32 rounding."""
+    import torch.nn.functional as F
+
+    from pathtrace_tpu_torch.models.denoise_cnn import _BilinearResize
+
+    x = torch.from_numpy(_inputs((2, 3) + size_in, seed=4)).requires_grad_(True)
+    g = torch.from_numpy(_inputs((2, 3) + size_out, seed=5))
+    want = F.interpolate(x, size=size_out, mode="bilinear", align_corners=False)
+    got = _BilinearResize.apply(x, size_out)
+    assert torch.equal(got, want)
+    (gw,) = torch.autograd.grad(want, x, g)
+    (gg,) = torch.autograd.grad(got, x, g)
+    np.testing.assert_allclose(gg.numpy(), gw.numpy(), atol=1e-6 * float(gw.abs().max()))
+
+
 @pytest.mark.parametrize("size,pads", [(8, (0, 1)), (7, (1, 1)), (1, (1, 1)), (2, (0, 1))])
 def test_same_padding_of_a_strided_conv(size, pads):
     """Flax "SAME" with stride 2 pads (0, 1) on an even size, (1, 1) on an

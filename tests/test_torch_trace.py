@@ -20,6 +20,8 @@ from pathtrace_tpu.render import render_aovs as jax_render_aovs
 
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
 from pathtrace_tpu_torch.ops import intersect, sampling, variance
+from pathtrace_tpu_torch.ops.trace import trace_paths
+from pathtrace_tpu_torch.scene import Scene
 from pathtrace_tpu_torch.render import (
     accumulate_frame,
     pack_channels,
@@ -154,3 +156,58 @@ def test_variance_ops_match_jax():
                                np.asarray(jvariance.variance(
                                    jvariance.moments_from_samples(jnp.asarray(x), jnp.asarray(inc)))),
                                rtol=1e-5, atol=1e-6)
+    # zeros_moments: the identity of the merge, as the JAX package's.
+    zero, jzero = variance.zeros_moments((4, 3)), jvariance.zeros_moments((4, 3))
+    for got, ref in zip(zero, jzero):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    for got, ref in zip(variance.merge_moments(zero, whole), whole):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=1e-7)
+
+
+ORACLE_BOUNCES = 5
+
+
+def _oracle_cases():
+    """tests/test_trace.py's rays: 48 into the box from the default eye with
+    spread, one from inside the box straight at the light (the first-bounce
+    emission clamp), and two in a one-sphere scene (an escape and a hit)."""
+    rng = np.random.default_rng(11)
+    dirs = rng.normal([0, 0, -1.0], 0.35, size=(48, 3)).astype(np.float32)
+    uniforms = rng.uniform(size=(48, 2 * ORACLE_BOUNCES)).astype(np.float32)
+    box = cornell_box()
+    eye = np.float32([50.0, 52.0, 295.6])
+    inside = np.float32([50.0, 52.0, 81.6])
+    tiny = Scene([1.0], [(0.0, 0.0, -5.0)], [[0.1, 0.1, 0.1]], [[0.5, 0.5, 0.5]])
+    return {
+        "interior": (box, np.tile(eye, (48, 1)), dirs, uniforms),
+        "light": (box, inside[None], (box.position[8].numpy() - inside)[None],
+                  np.full((1, 2 * ORACLE_BOUNCES), 0.5, np.float32)),
+        "escape": (tiny, np.zeros((2, 3), np.float32),
+                   np.float32([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]]),
+                   np.full((2, 2 * ORACLE_BOUNCES), 0.5, np.float32)),
+    }
+
+
+@pytest.mark.parametrize("case", ["interior", "light", "escape"])
+def test_wavefront_matches_scalar_oracle(case):
+    """The port's wavefront against tests/oracle.py's scalar tracer on the
+    same uniforms, at tests/test_trace.py's tolerances; the include masks
+    and bounce-0 hits exactly."""
+    from oracle import trace_path as oracle_trace
+
+    scene, origins, dirs, uniforms = _oracle_cases()[case]
+    res = trace_paths(scene, torch.from_numpy(origins), torch.from_numpy(dirs),
+                      torch.from_numpy(uniforms), max_bounces=ORACLE_BOUNCES)
+    for i in range(len(dirs)):
+        o = oracle_trace(scene, origins[i], dirs[i], uniforms[i], ORACLE_BOUNCES)
+        np.testing.assert_allclose(res.color[i].numpy(), o["color"], rtol=2e-3, atol=2e-3)
+        np.testing.assert_allclose(res.normal[i].numpy(), o["normal"], rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(res.albedo[i].numpy(), o["albedo"], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(res.depth[i]), o["depth"], rtol=1e-3, atol=1e-3)
+        assert bool(res.hit0[i]) == o["hit0"]
+        assert bool(res.include_color[i]) == o["include_color"]
+    if case == "light":  # the clamp: (4, 3.6, 3.2) -> (1, 1, 1)
+        np.testing.assert_allclose(res.color[0].numpy(), [1.0, 1.0, 1.0], atol=1e-5)
+    if case == "escape":
+        assert res.hit0.tolist() == [False, True] and not bool(res.include_color[0])

@@ -129,6 +129,32 @@ def test_optimizer_is_nesterov_sgd():
     assert state.best_loss == float("inf") and state.plateau_count == 0
 
 
+def test_train_step_is_deterministic_and_restores_cudnn_flags(tiny_data, monkeypatch):
+    """A step runs cuDNN's deterministic algorithms with TF32 off, and hands
+    the caller's settings back; two steps from one state give the same bits."""
+    x, y = tiny_data
+    seen = []
+    real_forward = DenoiseCNN.forward
+
+    def forward(self, *args):
+        seen.append((torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32))
+        return real_forward(self, *args)
+
+    monkeypatch.setattr(DenoiseCNN, "forward", forward)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    states = []
+    for _ in range(2):
+        state = train.create_state(init_model(torch.Generator().manual_seed(0), WIDTHS), "cpu")
+        train.train_step(state, torch.from_numpy(x[:5]), torch.from_numpy(y[:5]))
+        states.append(state.state_dict())
+    assert seen == [(True, False)] * 2
+    assert not torch.backends.cudnn.deterministic and torch.backends.cudnn.allow_tf32
+    for part in ("model", "momentum"):
+        for k, v in states[0][part].items():
+            assert torch.equal(states[1][part][k], v), k
+
+
 def test_train_step_writes_the_state_lr(tiny_data):
     """The lr of TrainState enters the update (not the optimiser's own)."""
     x, y = tiny_data
@@ -341,24 +367,6 @@ def test_fit_jsonl_metrics_read_by_plot_training(tmp_path, tiny_data):
                            "--out", str(out)], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "2 epochs, 2 validations" in proc.stdout and out.stat().st_size > 0
-
-
-def test_fit_refuses_a_multi_device_split(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    cuda = torch.device("cuda", 0)
-    assert train._data_parallel_devices(5, cuda) == 5  # the reference batch: 5 of 8
-    assert train._data_parallel_devices(5, torch.device("cpu")) == 1
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert train._data_parallel_devices(5, cuda) == 1  # 5 % {2, 3, 4} != 0
-
-    class _OnCuda(train.TrainState):
-        device = cuda
-
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    state = _OnCuda(model=None, optimizer=None)
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.fit(state, np.zeros((4, 8, 8, 14), np.float32), np.zeros((4, 8, 8, 3), np.float32),
-                  epochs=1, batch_size=4)
 
 
 def test_build_dataset_matches_jax_on_the_same_renders(monkeypatch):
