@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs twenty-one phases, each printing its own lines; any failure raises
+and runs twenty-two phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -288,6 +288,15 @@ and exits non-zero.
    on the 4 ranks (not a scaling figure: gloo stages the 101 MB all-reduce
    through the host) in turns with rank 0's single-device step on the whole
    batch.
+22. The gradient gate at Cornell 512x512 x 32 spp x 5, NEE, on cuda:0, as
+   two processes into a temporary directory: scripts/torch_grad_oracle.py
+   (the f64 frozen-decision oracle and its per-pixel FD probes, each phase's
+   seconds and peak memory) then scripts/torch_grad_gate.py (K2 fused
+   against torch autograd; K1 colour + K4 and K3 fused against the oracle,
+   per block; K1's colour against the recorded one; the FD rows). Each
+   block's row, the record-point line and the FD rows are printed on lines
+   of their own; a non-zero exit of either script or a FAIL fails the run.
+   The kernels of these processes are not counted in the kernels line.
 
 The line before the last two is a JSON summary of the kernels, the next the
 ``nvidia-smi`` name and power limit, and the last
@@ -2727,6 +2736,48 @@ def dp_phase_21(dev, tk, smi):
     return launches
 
 
+# ---- the gradient gate (phase 22) -----------------------------------------------
+
+# The JAX package's gate configuration (docs/GRAD_GATE.md): Cornell 512^2 x 32
+# spp, NEE; the FD probes at 8 spp of the same lattice.
+GATE_ARGS = ("--size", "512", "--spp", "32")
+
+
+def gate_phase_22():
+    """Run the gate's two scripts on cuda:0; raise on a non-zero exit or a
+    FAIL."""
+    phase(22, "the gradient gate at 512x512x32 NEE on cuda:0: the f64 frozen-decision oracle "
+              "(scripts/torch_grad_oracle.py), then K2, K3 and K4 against it "
+              "(scripts/torch_grad_gate.py)")
+    t0 = time.perf_counter()
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    try:
+        oracle = os.path.join(tmp, "oracle.npz")
+        report = os.path.join(tmp, "GRAD_GATE_H100.md")
+        for script, extra in (("torch_grad_oracle.py", ("--fd-spp", "8", "--out", oracle)),
+                              ("torch_grad_gate.py", ("--oracle", oracle, "--out", report))):
+            ts = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.join(scripts, script), *GATE_ARGS,
+                                   *extra, "--device", "0"], capture_output=True, text=True,
+                                  timeout=900)
+            lines = proc.stdout.splitlines()
+            shown = [line for line in lines if line.startswith(("[", "| ", "**Overall"))]
+            paragraph = [line for line in "\n".join(lines).split("\n\n")
+                         if line.startswith("Record-point")]
+            for line in shown + [" ".join(p.split()) for p in paragraph]:
+                print(f"  {line}")
+            print(f"  {script}: exit {proc.returncode} after {time.perf_counter() - ts:.1f} s")
+            if proc.returncode != 0:
+                print(proc.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"{script} exited {proc.returncode}")
+        if "**Overall: PASS**" not in open(report).read():
+            raise RuntimeError("the gradient gate did not PASS")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 22: the gate PASSED in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2881,6 +2932,7 @@ def main() -> int:
     train_phase_19(dev, tk, smi)
     grid_launches, grid_errs = grid_phase_20(dev, tk, smi)
     dp_launches = dp_phase_21(dev, tk, smi)
+    gate_phase_22()
 
     # One line a kernel: its time at its main shape beside its bounds.
     def frame_segments(width, spp, **extra):

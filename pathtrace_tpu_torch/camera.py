@@ -26,12 +26,14 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 class Camera:
-    """Camera pose: ``position`` [3]; ``yaw``/``pitch`` 0-d, in degrees."""
+    """Camera pose: ``position`` [3]; ``yaw``/``pitch`` 0-d, in degrees;
+    float32 unless ``dtype`` says otherwise (the f64 gradient oracle,
+    ``ops/frozen.py``, runs the pose -> basis chain in float64)."""
 
-    def __init__(self, position, yaw, pitch, device=None):
-        self.position = torch.as_tensor(position, dtype=torch.float32, device=device)
-        self.yaw = torch.as_tensor(yaw, dtype=torch.float32, device=device)
-        self.pitch = torch.as_tensor(pitch, dtype=torch.float32, device=device)
+    def __init__(self, position, yaw, pitch, device=None, dtype=torch.float32):
+        self.position = torch.as_tensor(position, dtype=dtype, device=device)
+        self.yaw = torch.as_tensor(yaw, dtype=dtype, device=device)
+        self.pitch = torch.as_tensor(pitch, dtype=dtype, device=device)
 
     @staticmethod
     def create(position=(50.0, 52.0, 295.6), yaw=DEFAULT_YAW, pitch=DEFAULT_PITCH,
@@ -44,7 +46,12 @@ class Camera:
         return self.position.device
 
     def to(self, device) -> "Camera":
-        return Camera(self.position, self.yaw, self.pitch, device=device)
+        return Camera(self.position, self.yaw, self.pitch, device=device,
+                      dtype=self.position.dtype)
+
+    def astype(self, dtype) -> "Camera":
+        """The same pose held in ``dtype``."""
+        return Camera(self.position, self.yaw, self.pitch, device=self.device, dtype=dtype)
 
     # -- basis vectors (Camera.h:153-164) -----------------------------------
     def basis_vectors(self):

@@ -8,8 +8,10 @@ and return the port's objects, so both packages compute on the same values;
 seven gradient blocks can be compared by name. The denoiser's Flax variables,
 as a nested dict of numpy arrays, become the port's state dict
 (``denoise_state_dict_from_flax``, ``simple_state_dict_from_flax``), and the
-JAX trainer's whole state the port's (``train_state_from_flax``). No JAX
-import is needed here.
+JAX trainer's whole state the port's (``train_state_from_flax``). The
+frozen-decision oracle's record comes across too (``decisions_from_jax``,
+``decisions_from_npz``), so that both packages replay the same decisions.
+No JAX import is needed here.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from pathtrace_tpu_torch.camera import Camera
+from pathtrace_tpu_torch.ops.frozen import Decisions
 from pathtrace_tpu_torch.scene import Scene
 
 
@@ -51,6 +54,52 @@ def grads_to_numpy(d_scene: Scene, d_cam: Camera) -> dict:
     out = {name: getattr(d_scene, name) for name in ("radius", "position", "emission", "color")}
     out.update(cam_position=d_cam.position, yaw=d_cam.yaw, pitch=d_cam.pitch)
     return {k: v.detach().to("cpu", torch.float32).numpy() for k, v in out.items()}
+
+
+# The lattice-defining fields that stamp an oracle's files
+# (scripts/grad_oracle_cpu.py, scripts/torch_grad_oracle.py).
+DECISIONS_STAMP = ("size", "spp", "seed", "max_bounces", "brdf", "nee", "light_index",
+                   "spp_chunk")
+
+
+def _decisions_from_numpy(arrays) -> Decisions:
+    """{field: array} (any integer or bool dtype; vis 0/1) -> ``Decisions``
+    on the CPU: idx int32, the flags bool, vis float32."""
+    idx = torch.from_numpy(np.array(arrays["idx"], np.int32))
+    flags = [torch.from_numpy(np.array(arrays[k], bool)) for k in ("use_near", "facing", "ortho")]
+    vis = torch.from_numpy(np.array(arrays["vis"], np.float32))
+    return Decisions(idx, *flags, vis)
+
+
+def decisions_from_jax(dec) -> Decisions:
+    """The JAX package's ``ops.frozen.Decisions`` (fields as numpy arrays,
+    ``np.asarray(dec.idx)``, ...) -> the port's ``Decisions`` on the CPU."""
+    return _decisions_from_numpy({k: np.asarray(getattr(dec, k)) for k in Decisions._fields})
+
+
+def decisions_to_npz(path, recs, stamp: dict):
+    """Write the decisions of each chunk in the layout of the JAX package's
+    ``scripts/grad_oracle_cpu.py``: ``c{i}_idx`` int8, ``c{i}_use_near``,
+    ``_facing``, ``_ortho``, ``_vis`` uint8, ``n_chunks`` and ``stamp`` (the
+    fields of ``DECISIONS_STAMP``)."""
+    out = {"n_chunks": len(recs), **stamp}
+    for i, dec in enumerate(recs):
+        for k in Decisions._fields:
+            out[f"c{i}_{k}"] = getattr(dec, k).to("cpu", torch.int8 if k == "idx"
+                                                  else torch.uint8).numpy()
+    np.savez_compressed(path, **out)
+
+
+def decisions_from_npz(path):
+    """A ``decisions.npz`` as ``decisions_to_npz`` or the JAX package's
+    oracle script writes it -> (list of ``Decisions`` on the CPU, one a
+    chunk; {stamp field: value}, the fields of ``DECISIONS_STAMP`` that the
+    file holds)."""
+    with np.load(path, allow_pickle=False) as f:
+        recs = [_decisions_from_numpy({k: f[f"c{i}_{k}"] for k in Decisions._fields})
+                for i in range(int(f["n_chunks"]))]
+        stamp = {k: f[k].item() for k in DECISIONS_STAMP if k in f.files}
+    return recs, stamp
 
 
 # Flax leaf name -> torch state-dict name, per collection.

@@ -103,11 +103,11 @@ def _value_and_grad(f: Callable, scene, cam, device):
                     for k in SCENE_FIELDS]
     cam_leaves = [getattr(cam, k).detach().to(device).requires_grad_(True)
                   for k in CAMERA_FIELDS]
-    value = f(Scene(*scene_leaves), Camera(*cam_leaves))
+    value = f(Scene(*scene_leaves), Camera(*cam_leaves, dtype=cam_leaves[0].dtype))
     leaves = scene_leaves + cam_leaves
     grads = torch.autograd.grad(value, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-    return value.detach(), (Scene(*grads[:4]), Camera(*grads[4:]))
+    return value.detach(), (Scene(*grads[:4]), Camera(*grads[4:], dtype=grads[4].dtype))
 
 
 def render_loss_grads(scene, cam, cfg: RenderConfig, frame=0, target=None, device=None):

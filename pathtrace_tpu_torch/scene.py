@@ -46,6 +46,11 @@ class Scene:
     def to(self, device) -> "Scene":
         return Scene(self.radius, self.position, self.emission, self.color, device=device)
 
+    def astype(self, dtype) -> "Scene":
+        """The same scene held in ``dtype`` (differentiable)."""
+        return Scene(*(getattr(self, k).to(dtype)
+                       for k in ("radius", "position", "emission", "color")))
+
     def packed(self) -> torch.Tensor:
         """[N, 10] float32 rows of (radius, pos xyz, emission rgb, color rgb):
         the kernel's scene block."""

@@ -630,8 +630,9 @@ def dryrun_cnn_dp(mesh) -> float:
     return float(loss)
 
 
-def main(argv=None) -> int:
-    from pathtrace_tpu_torch.cli import device_arg, resolve_device_arg
+def build_parser() -> argparse.ArgumentParser:
+    """The training CLI's flags: the JAX trainer's, and ``--device``."""
+    from pathtrace_tpu_torch.cli import device_arg
 
     p = argparse.ArgumentParser(description="Train denoising algorithm")
     p.add_argument("--name", type=str, help="Name for output directory")
@@ -672,7 +673,13 @@ def main(argv=None) -> int:
                    help="FPN lateral width (reference: 32, model.py:60)")
     p.add_argument("--device", type=device_arg, default=0,
                    help="CUDA device index to train on, or 'cpu'")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    from pathtrace_tpu_torch.cli import resolve_device_arg
+
+    args = build_parser().parse_args(argv)
     device, err = resolve_device_arg(args.device)
     if err:
         print(f"ERROR: {err}", file=sys.stderr)

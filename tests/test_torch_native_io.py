@@ -7,12 +7,21 @@ then files written by either package (either backend) read back by the
 other: the same channel names and the same f32 values, exactly. Where the
 library cannot be built (no g++ or zlib) the native cases skip, decided
 inside a fixture; the fallback cases run either way.
+
+The JAX package builds its own library in place, once per process, and a
+process that loads a half-written file keeps "unavailable" for its life; so
+the cross-package cases load a private copy of it, built in a fixture.
 """
+
+import shutil
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 from pathtrace_tpu.io import exr as jax_exr
+from pathtrace_tpu.io import native as jax_native
 
 from pathtrace_tpu_torch.io import native
 from pathtrace_tpu_torch.io.bmp import encode_bmp, read_bmp, write_bmp
@@ -26,6 +35,27 @@ def lib():
     if native.load_library() is None:
         pytest.skip("the native IO library cannot be built here (g++ and zlib)")
     return native
+
+
+@pytest.fixture(scope="module")
+def jax_lib(tmp_path_factory):
+    """The JAX package's native library, built from its own ``ptio.cpp`` and
+    ``Makefile`` into a private directory and loaded from there for this
+    module's tests; the package's loader state is restored afterwards."""
+    src = tmp_path_factory.mktemp("jax_native")
+    for name in ("ptio.cpp", "Makefile"):
+        shutil.copy(Path(jax_native._NATIVE_DIR) / name, src / name)
+    try:
+        subprocess.run(["make", "-s"], cwd=src, check=True, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        pytest.skip("the JAX package's native IO library cannot be built here (g++ and zlib)")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", str(src / "libptio.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_lib_tried", False)
+        if jax_native.load_library() is None:
+            pytest.skip("the JAX package's native IO library does not load here")
+        yield jax_native
 
 
 def chans(seed=0, h=33, w=47):
@@ -97,7 +127,7 @@ def test_native_error_on_missing_file(lib):
 
 @pytest.mark.parametrize("writer", ["port-native", "port-python", "jax-native", "jax-python"])
 @pytest.mark.parametrize("compression", COMPRESSIONS)
-def test_exr_across_packages(tmp_path, lib, writer, compression):
+def test_exr_across_packages(tmp_path, lib, jax_lib, writer, compression):
     """A file written by either package, with either backend, reads back to
     the same arrays through both packages' readers and both backends."""
     c = chans(seed=4, h=20, w=18)

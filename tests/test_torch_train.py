@@ -523,3 +523,28 @@ def test_converted_jax_run_resumes_on_the_port(tmp_path, tiny_data):
     loss = train.train_step(state, torch.from_numpy(x[10:15]), torch.from_numpy(y[10:15]))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     _assert_state_matches_jax(state, jstate)
+
+
+def _script_command(path: Path) -> list:
+    """The argv of a training script's ``exec`` line, ``${EPOCHS:-3000}``
+    at its default."""
+    import shlex
+
+    text = path.read_text().split("exec ", 1)[1].replace("\\\n", " ")
+    return shlex.split(text.replace("${EPOCHS:-3000}", "3000"))
+
+
+def test_reference_scale_script_parses_on_the_port():
+    """scripts/torch_denoiser_ref_run.sh runs the port's trainer on CUDA
+    device 0 with scripts/denoiser_ref_run.sh's flags (not run: hours)."""
+    scripts = Path(__file__).resolve().parent.parent / "scripts"
+    jax_cmd = _script_command(scripts / "denoiser_ref_run.sh")
+    cmd = _script_command(scripts / "torch_denoiser_ref_run.sh")
+    assert jax_cmd[:3] == ["python", "-m", "pathtrace_tpu.train"]
+    assert cmd[:3] == ["python", "-m", "pathtrace_tpu_torch.train"]
+    assert cmd[3:] == jax_cmd[3:] + ["--device", "0"]
+    args = train.build_parser().parse_args(cmd[3:])
+    assert (args.size, args.poses, args.patch_size, args.patches_per_image) == (512, 33, 256, 16)
+    assert (args.spp_train, args.spp_gt, args.epochs, args.batch) == (2, 20000, 3000, 5)
+    assert args.scan_epochs and args.ckpt_every == 200 and args.pose_mode == "interior"
+    assert args.name == "ref_scale" and args.device == 0
