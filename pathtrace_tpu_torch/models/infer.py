@@ -40,12 +40,17 @@ def load_pretrained(checkpoint: str, device=None) -> DenoiseCNN:
     return _CACHE[key]
 
 
+def denoise_with(model: DenoiseCNN, channels: torch.Tensor) -> torch.Tensor:
+    """Packed [H, W, 14] buffer -> denoised [H, W, 3] colour through
+    ``model``, which is in eval mode on the buffer's device."""
+    with torch.inference_mode(), cudnn_tf32(False):
+        return model(preprocess_channels(channels)[None])[0]
+
+
 def denoise_channels(channels: torch.Tensor, checkpoint: str) -> torch.Tensor:
     """Packed [H, W, 14] buffer -> denoised [H, W, 3] colour, on the buffer's
     device."""
-    model = load_pretrained(checkpoint, channels.device)
-    with torch.inference_mode(), cudnn_tf32(False):
-        return model(preprocess_channels(channels)[None])[0]
+    return denoise_with(load_pretrained(checkpoint, channels.device), channels)
 
 
 def denoise_aovs(aovs, checkpoint: str) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 The reference brackets each kernel with cudaEvents and prints ms/fps
 (``include/Renderer.h:63-75``); ``time_fn`` does the same with
-``torch.cuda.Event`` pairs. The throughput metric of the repo is
+``torch.cuda.Event`` pairs; ``device_name`` is the card's name and power
+limit, which go beside every time kept. The throughput metric of the repo is
 
     Mrays/s = W * H * spp * max_bounces / time
 
@@ -15,10 +16,33 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
+import subprocess
 import time
 from typing import Callable, List, Tuple
 
 import torch
+
+
+def device_name(device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them; without nvidia-smi the
+    name torch gives and "power limit unknown"; "cpu" on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    smi = shutil.which("nvidia-smi")
+    if smi is not None:
+        try:
+            proc = subprocess.run([smi, "-i", str(index), "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"],
+                                  capture_output=True, text=True, timeout=30)
+            if proc.returncode == 0 and proc.stdout.strip():
+                return proc.stdout.strip().splitlines()[0]
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return f"{torch.cuda.get_device_name(index)}, power limit unknown"
 
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 10,

@@ -53,6 +53,7 @@ from pathtrace_tpu_torch.convert import decisions_from_npz  # noqa: E402
 from pathtrace_tpu_torch.ops import ad_grad_kernel, build, frozen  # noqa: E402
 from pathtrace_tpu_torch.ops import grad_kernel, nee_grad_kernel, trace_kernel  # noqa: E402
 from pathtrace_tpu_torch.render import resolve_device  # noqa: E402
+from pathtrace_tpu_torch.utils.timing import device_name  # noqa: E402
 
 SHADING_TOL = 5e-3
 FD_TOL = 2e-2
@@ -91,9 +92,7 @@ def card_line(dev) -> str:
     if dev.type != "cuda":
         card = "no card: device cpu, the kernels' plain versions"
     else:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader", f"--id={dev.index or 0}"],
-                              capture_output=True, text=True, timeout=60).stdout.strip()
+        card = device_name(dev)
     try:
         nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True, text=True,
                               timeout=60).stdout.strip().splitlines()[-1]

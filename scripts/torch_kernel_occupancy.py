@@ -68,7 +68,7 @@ from pathtrace_tpu_torch.ops import build  # noqa: E402
 from pathtrace_tpu_torch.ops import grad_kernel as gk  # noqa: E402
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk  # noqa: E402
 from pathtrace_tpu_torch.ops import trace_kernel as tk  # noqa: E402
-from pathtrace_tpu_torch.utils.timing import time_fn  # noqa: E402
+from pathtrace_tpu_torch.utils.timing import device_name, time_fn  # noqa: E402
 
 
 def _load(name, path):
@@ -139,8 +139,7 @@ def main() -> int:
         print("torch_kernel_occupancy: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = device_name(dev)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     print(f"[{args.label}] card: {card}; {nvcc}; kernels of {ROOT}"

@@ -52,7 +52,7 @@ from pathtrace_tpu_torch.ops import ad_grad_kernel as ak  # noqa: E402
 from pathtrace_tpu_torch.ops import build  # noqa: E402
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk  # noqa: E402
 from pathtrace_tpu_torch.ops import trace_kernel as tk  # noqa: E402
-from pathtrace_tpu_torch.utils.timing import time_fn  # noqa: E402
+from pathtrace_tpu_torch.utils.timing import device_name, time_fn  # noqa: E402
 
 SM_SHARED_BYTES = 233472  # 228 KB an SM on sm_90
 BLOCK_RESERVED_BYTES = 1024  # what the system keeps of it for each resident block
@@ -134,8 +134,7 @@ def main() -> int:
         print("torch_sweep_occupancy: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = device_name(dev)
     print(f"card: {card}")
     result = {"card": card}
 

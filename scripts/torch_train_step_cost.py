@@ -33,7 +33,6 @@ import argparse
 import contextlib
 import os
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -89,14 +88,13 @@ def main(argv=None) -> int:
     from pathtrace_tpu_torch import train
     from pathtrace_tpu_torch.models import denoise_cnn as dc
     from pathtrace_tpu_torch.models import init_model
-    from pathtrace_tpu_torch.utils.timing import time_fn
+    from pathtrace_tpu_torch.utils.timing import device_name, time_fn
 
     if not torch.cuda.is_available():
         print("torch_train_step_cost: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = device_name(dev)
     print(f"card: {smi}; torch {torch.__version__}")
     rng = np.random.default_rng(0)
     x = rng.uniform(size=(PATCHES, PATCH, PATCH, 14)).astype(np.float32)

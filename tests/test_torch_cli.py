@@ -153,6 +153,7 @@ def test_port_never_imports_jax():
         "import pathtrace_tpu_torch.parallel.scaling, pathtrace_tpu_torch.parallel.selfcheck\n"
         "import pathtrace_tpu_torch.parallel.dryrun, pathtrace_tpu_torch.models.spatial\n"
         "import pathtrace_tpu_torch.models.fpn_spatial, pathtrace_tpu_torch.io.png\n"
+        "import pathtrace_tpu_torch.bench\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pathtrace_tpu.')) or m == 'pathtrace_tpu')\n"
         "assert not bad, bad\n"
     )
