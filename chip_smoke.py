@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs twenty-three phases, each printing its own lines; any failure raises
+and runs twenty-four phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -23,7 +23,9 @@ and exits non-zero.
    back and all 14 channels are held against the plain version, same rules
    (to the bit).
 5. Timing: median of 10 CUDA-event-timed runs after warm-up, kernel and
-   plain version, at 512x512x4 spp and 512x512x32 spp; then the colour sums
+   plain version, at 512x512x4 spp and 512x512x32 spp (the plain version at
+   32 spp, ~1 s a call, 2 runs a turn), in turns plain, kernel, kernel,
+   plain; then the colour sums
    of the NEE and glossy inverse steps (256x256x16 NEE, 256x256x8 glossy) by
    CUDA events and by ``torch.profiler`` (the kernel alone), each beside its
    bound (``color_nee``, ``color_glossy`` operations a segment).
@@ -49,7 +51,8 @@ and exits non-zero.
 8. Timing of the gradient kernels against their plain versions: fused at
    512x512x32 and 512x512x4 spp and replay at 512x512x32 (the kernel: median
    of 20 CUDA-event-timed runs after warm-up, in two turns; the plain
-   versions, which take ~1 s a call at 32 spp: median of 2), the dump and
+   versions, which take ~1 s a call at 32 spp: one run after one warm-up,
+   in turns plain, kernel, kernel), the dump and
    the cross-estimator loss and gradients of one inverse step
    (``grad_kernel.cross_grads``, the step's own path) at 256x256x8, and the
    whole inverse step (kernel only); the dump also by ``torch.profiler``
@@ -106,7 +109,8 @@ and exits non-zero.
    time for a build without FMA contraction, which these kernels are. The
    latency probe is one dependent chain a thread, so its bound is the
    chain's 1,048,576 steps at an FMA's dependent-issue latency (4 cycles,
-   Volta through Hopper) over the SM clock ``nvidia-smi`` reads as
+   Volta through Hopper, a published figure; phase 24 measures the card's)
+   over the SM clock ``nvidia-smi`` reads as
    ``clocks.max.sm`` (``bound_model`` "latency" in the kernels line; its
    throughput bound beside it as ``bound_ms_throughput``).
 12. Timing of the NEE grad kernel (fused and replay at 512x512x32, the
@@ -143,7 +147,7 @@ and exits non-zero.
    autograd route's, every loss finite, and the mean albedo error lower at
    the end than at the start.
 15. Timing of K4 (median of 20 CUDA-event-timed runs, the plain version
-   twice) at 512x512x32 for glossy, NEE glossy and NEE diffuse (the NEE
+   once) at 512x512x32 for glossy, NEE glossy and NEE diffuse (the NEE
    kernel's replay beside it) and at 256x256x8, each last output held
    against the plain version's; the glossy inverse step, with
    ``torch.profiler`` device times by kernel over 20 steps.
@@ -224,7 +228,7 @@ and exits non-zero.
    ``cli.main(["-d", "--checkpoint", ...])`` denoises a 512x512x4 frame with
    the trained weights; the native IO library's EXR and BMP against the
    Python codec where it builds; (d) CUDA-event times of a ``train_step``
-   (median of 20) and of an epoch on each route (median of 5), the step's
+   (median of 20) and of an epoch on each route (median of 3), the step's
    device time and idle share by ``torch.profiler``, and its bound.
 20. The ("tiles", "samples") grid of ``pathtrace_tpu_torch/parallel/`` with
    several ranks sharing the one card (gloo: NCCL refuses two ranks on one
@@ -308,6 +312,20 @@ and exits non-zero.
    field, ``0 < mfu <= 1``, and (defaults) ``pallas_fwd_ms`` within 0.5-2x
    phase 5's K1 time at 512x512x32. The last lines are printed. Their
    kernels are not counted in the kernels line.
+24. The FMA question, ``python scripts/torch_fma_probe.py --json <tmp>
+   --device 0`` in a fresh process within FMA_PROBE_TIMEOUT_S: the chains of
+   ``scripts/fma_probe.py`` through ``torch.compile`` (Triton), then K6 and
+   K7 through ``roofline.measure_f32_peak`` and ``roofline.latency_probe``
+   (their plain versions are not run again: phase 11 holds them), then the
+   discriminator. It must exit 0 and write a record with every key of
+   docs/fma_probe_r5.json and of FMA_PROBE_KEYS, backend "cuda", the card's
+   name in ``device``, every rate and latency finite and above 0, each
+   compiled trip within its rtol of the eager trip, and K6 and K7 launched
+   at least once each; the record is printed, with the SM clock nvidia-smi
+   read right after the latency probe. The script counts K6's and K7's
+   launches from 0; the kernels line adds them to phase 11's, and puts the
+   cycles of a dependent ``fma`` step measured here beside K7's 4-cycle
+   bound (``fma_dependent_cycles_measured``).
 
 Before the kernels line, the seconds each phase took and the torch.profiler
 sessions that saw no time of their kernel and were taken again.
@@ -333,7 +351,8 @@ import numpy as np
 CASES = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"}}
 MODES = ("channels", "partials", "color")
 TIMING_ITERS = 10
-PLAIN_ITERS = 1  # per block of the plain/kernel/kernel/plain turns
+PLAIN_32_ITERS = 2  # phase 5's plain version at 512x512x32, a turn
+PLAIN_ITERS = 1  # in the plain/kernel/kernel turns
 INVERSE_STEPS = 400
 
 
@@ -714,7 +733,7 @@ def grad_phase_8(dev, scene, cam, gk, tk):
     from pathtrace_tpu_torch.utils.timing import time_fn
 
     phase(8, f"grad timing (kernel: median of {2 * TIMING_ITERS} CUDA-event-timed runs; "
-             f"plain: median of {2 * PLAIN_ITERS}; turns plain, kernel, kernel, plain), and "
+             f"plain: {PLAIN_ITERS} run after a warm-up; turns plain, kernel, kernel), and "
              f"each kernel's last output against its plain version's")
     sb = scene.packed()
     out, err = {}, {}
@@ -722,7 +741,7 @@ def grad_phase_8(dev, scene, cam, gk, tk):
     def turns(label, kernel_fn, plain_fn):
         ms = {"kernel": [], "plain": []}
         last = {}
-        for name in ("plain", "kernel", "kernel", "plain"):
+        for name in ("plain", "kernel", "kernel"):
             fn = kernel_fn if name == "kernel" else plain_fn
             iters = TIMING_ITERS if name == "kernel" else PLAIN_ITERS
             t, last[name] = time_fn(fn, warmup=2 if name == "kernel" else 1, iters=iters,
@@ -791,7 +810,10 @@ def grad_phase_8(dev, scene, cam, gk, tk):
 PUBLISHED_F32_FLOPS = 67e12  # NVIDIA H100 SXM data sheet, FMA counted as 2
 # Cycles from an FFMA's issue to the issue of an FFMA that reads its result:
 # 4 on Volta through Hopper by published microbenchmarks (Jia et al. 2018,
-# "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking").
+# "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking"). The
+# bound keeps this published figure; phase 24 measures the card's own
+# (``fma_dependent_cycles_measured`` in the kernels line), which on an H100
+# has read ~5.1, so K7's share of this bound is not headroom.
 FMA_DEPENDENT_CYCLES = 4
 PUBLISHED_BYTES_PER_S = 3.35e12
 NEE_INVERSE_STEPS = 400
@@ -1058,7 +1080,8 @@ def probe_phase_11(dev, rf):
                                   latency_ms=1e3 * steps * FMA_DEPENDENT_CYCLES / (sm_mhz * 1e6),
                                   steps=steps, sm_mhz=sm_mhz)
             r = rec["latency"]
-            print(f"  latency bound: {steps} dependent steps x {FMA_DEPENDENT_CYCLES} cycles / "
+            print(f"  latency bound: {steps} dependent steps x {FMA_DEPENDENT_CYCLES} cycles "
+                  f"(published; phase 24 measures the card's) / "
                   f"{sm_mhz:.0f} MHz (nvidia-smi clocks.max.sm) = {r['latency_ms']:.4f} ms; "
                   f"throughput bound {max(r['ops_ms'], r['bytes_ms']):.4f} ms")
 
@@ -1081,14 +1104,15 @@ def probe_phase_11(dev, rf):
 
 
 def single_plain_turns(dev, label, kernel_fn, plain_fn):
-    """Times in turns plain, kernel, kernel, plain: the kernel 2 x TIMING_ITERS
-    CUDA-event-timed runs after warm-up, the plain version two single runs.
+    """Times in turns plain, kernel, kernel: the kernel 2 x TIMING_ITERS
+    CUDA-event-timed runs after warm-up, the plain version one run (1-8 s a
+    call at the main paths' shapes, a time that is only printed and kept).
     -> (medians, the kernel's last output, the plain version's)."""
     from pathtrace_tpu_torch.utils.timing import time_fn
 
     ms = {"kernel": [], "plain": []}
     last = {}
-    for name in ("plain", "kernel", "kernel", "plain"):
+    for name in ("plain", "kernel", "kernel"):
         if name == "kernel":
             t, last[name] = time_fn(kernel_fn, warmup=2, iters=TIMING_ITERS, device=dev)
         else:
@@ -1157,7 +1181,7 @@ def nee_phase_12(dev, scene, cam, gk, nk, tk):
     from pathtrace_tpu_torch.utils.timing import time_fn
 
     phase(12, f"NEE grad timing (kernel: median of {2 * TIMING_ITERS} CUDA-event-timed runs; "
-              f"plain: 2 single runs; turns plain, kernel, kernel, plain)")
+              f"plain: 1 run; turns plain, kernel, kernel)")
     sb = scene.packed()
     out, err = {}, {"fused": 0.0, "replay": 0.0}
 
@@ -1479,7 +1503,7 @@ def ad_phase_15(dev, scene, cam, ak, nk, tk):
     from pathtrace_tpu_torch.utils.timing import time_fn
 
     phase(15, f"K4 timing (kernel: median of {2 * TIMING_ITERS} CUDA-event-timed runs; plain: "
-              f"2 single runs; turns plain, kernel, kernel, plain)")
+              f"1 run; turns plain, kernel, kernel)")
     sb = scene.packed()
     out, worst = {}, 0.0
 
@@ -1921,9 +1945,9 @@ ADAM_LR, ADAM_UPDATE_L2 = 1e-4, 0.2
 # the bits: until the training step was made deterministic, the updates of
 # two runs of one route spread apart by up to 0.092 of their norm.
 SCAN_EPOCH_L2 = 0.5
-# An epoch is 105 steps (1.4-2.9 s on an H100, by host): a median of 5 of
-# each route (525 steps) keeps the phase near three minutes.
-STEP_ITERS, EPOCH_ITERS = 20, 5
+# An epoch is 105 steps (1.4-2.9 s on an H100, by host): a median of 3 of
+# each route (315 steps) keeps the phase under two minutes.
+STEP_ITERS, EPOCH_ITERS = 20, 3
 
 
 def state_errors(got, want):
@@ -2880,6 +2904,73 @@ def bench_phase_23(k1_ms, smi):
                                  f"5's {k1_ms:.4f}"))
 
 
+
+# ---- the FMA question (phase 24) ---------------------------------------------------
+
+FMA_PROBE_TIMEOUT_S = 600
+# Keys the card's record adds to those of the TPU's (docs/fma_probe_r5.json).
+FMA_PROBE_KEYS = ("device", "shape", "kernel_launches", "compiled_trip", "sm_clock_mhz",
+                  "latency_cycles_per_step")
+
+
+def fma_probe_phase_24(smi):
+    """Run ``scripts/torch_fma_probe.py`` in a fresh process and hold its
+    record: every key of the TPU's record and of ``FMA_PROBE_KEYS``, rates
+    and latencies finite and above 0, backend "cuda", the card in
+    ``device``, K6 and K7 launched, each compiled trip within its rtol of
+    the eager one. -> (their launches {"peak", "latency"}, the cycles of a
+    dependent ``fma`` step at the SM clock read right after K7)."""
+    phase(24, "the FMA question in a fresh process: scripts/torch_fma_probe.py (the chains "
+              "through torch.compile, then K6 and K7, then the discriminator)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    tpu = json.load(open(os.path.join(root, "docs", "fma_probe_r5.json")))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fma_")
+    try:
+        out = os.path.join(tmp, "fma_probe.json")
+        ts = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(root, "scripts", "torch_fma_probe.py"),
+                               "--json", out, "--device", "0"], cwd=root, capture_output=True,
+                              text=True, timeout=FMA_PROBE_TIMEOUT_S)
+        for line in proc.stdout.splitlines():
+            print(f"  {line}")
+        print(f"  torch_fma_probe.py: exit {proc.returncode} after "
+              f"{time.perf_counter() - ts:.1f} s")
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"torch_fma_probe.py exited {proc.returncode}")
+        rec = json.load(open(out))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  record: {json.dumps(rec)}")
+    missing = sorted(set(tpu) - set(rec)) + [k for k in FMA_PROBE_KEYS if k not in rec]
+    if missing:
+        raise RuntimeError(f"the FMA record lacks {missing}")
+    if rec["backend"] != "cuda" or smi.split(",")[0] not in rec["device"]:
+        raise RuntimeError(f"the FMA record: backend {rec['backend']}, device {rec['device']!r}")
+    numbers = {k: rec[k] for k in ("xla_mul_ops_per_s", "xla_add_ops_per_s", "xla_fma_ops_per_s",
+                                   "pallas_mul_ops_per_s", "pallas_fma_flops_per_s")}
+    numbers.update({f"latency {k}": v for k, v in rec["latency_ns_per_step"].items()})
+    bad = [k for k, v in numbers.items()
+           if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)]
+    if bad or set(rec["latency_ns_per_step"]) != set(tpu["latency_ns_per_step"]):
+        raise RuntimeError(f"the FMA record: not finite, not positive or missing: {bad}")
+    trips = rec["compiled_trip"]
+    if set(trips) != {"mul", "add", "fma"} or not all(
+            t["max_rel_err"] <= t["rtol"] for t in trips.values()):
+        raise RuntimeError(f"the FMA record: a compiled trip off its eager one: {trips}")
+    print("  compiled trip vs eager, max relative difference: "
+          + ", ".join(f"{m} {t['max_rel_err']:.3g} (rtol {t['rtol']})"
+                      for m, t in trips.items()))
+    clocks = rec["sm_clock_mhz"]
+    print(f"  nvidia-smi right after the latency probe: clocks.sm {clocks['clocks.sm']:.0f} MHz, "
+          f"clocks.max.sm {clocks['clocks.max.sm']:.0f} MHz; fma_single_slot "
+          f"{rec['fma_single_slot']}, fma/mul {rec['latency_fma_over_mul']:.3f}, two "
+          f"statements/mul {rec['latency_two_stmt_over_mul']:.3f}")
+    launches = rec["kernel_launches"]
+    if min(launches.values()) < 1:
+        raise RuntimeError(f"the FMA script did not launch K6 and K7: {launches}")
+    return launches, rec["latency_cycles_per_step"]["fma"]
+
 def main() -> int:
     import torch
 
@@ -2987,9 +3078,12 @@ def main() -> int:
         seed = tk.make_seed_block(cfg)
         for name, fn in (("plain", tk.trace_plain), ("kernel", tk.trace),
                          ("kernel", tk.trace), ("plain", tk.trace_plain)):
+            # The plain version at 32 spp (~1 s a call) is printed only.
+            warmup, iters = (1, PLAIN_32_ITERS) if name == "plain" and spp == 32 else \
+                (2, TIMING_ITERS)
             # time_fn's device= is the timing device; the trace device is bound here.
             ms, _ = time_fn(functools.partial(fn, device=dev), sb, cb, seed, cfg, local_h=512,
-                            spp=spp, mode="channels", warmup=2, iters=TIMING_ITERS, device=dev)
+                            spp=spp, mode="channels", warmup=warmup, iters=iters, device=dev)
             times.setdefault((name, spp), []).extend(ms)
         for name in ("kernel", "plain"):
             med = statistics.median(times[name, spp])
@@ -3036,6 +3130,7 @@ def main() -> int:
     dp_launches = dp_phase_21(dev, tk, smi)
     gate_phase_22()
     bench_phase_23(statistics.median(times["kernel", 32]), smi)
+    fma_launches, fma_cycles = fma_probe_phase_24(smi)
     _PHASE_STARTS["kernels line"] = time.perf_counter()
 
     # One line a kernel: its time at its main shape beside its bounds.
@@ -3112,11 +3207,15 @@ def main() -> int:
             entry.update(bound_ms=r["latency_ms"], bound_model="latency",
                          bound_ms_throughput=max(r["ops_ms"], r["bytes_ms"]),
                          sm_clock_mhz=r["sm_mhz"], dependent_steps=r["steps"],
-                         fma_dependent_cycles=FMA_DEPENDENT_CYCLES)
+                         fma_dependent_cycles=FMA_DEPENDENT_CYCLES,
+                         fma_dependent_cycles_measured=fma_cycles)
         kernels.append(entry)
     # The ranks' launches of phase 20 add to the main paths' of the kernels
-    # that the grid runs, and phase 21's dataset to K1's.
+    # that the grid runs, phase 21's dataset to K1's, and phase 24's to the
+    # probes'.
     grid_launches["pathtrace_kernel"] += dp_launches
+    for probe, n in fma_launches.items():
+        grid_launches[f"probe_kernel[{probe}]"] = n
     for k in kernels:
         k["launches"] += grid_launches.get(k["name"], 0)
         k["max_abs_err"] = max(k["max_abs_err"], grid_errs.get(k["name"], 0.0))

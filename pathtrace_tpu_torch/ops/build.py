@@ -35,6 +35,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+_SASS_LINE = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(.*?);")
 
 
 def find_nvcc() -> str:
@@ -114,3 +115,36 @@ def build_all(sources: Iterable[Path]) -> Dict[Path, Path]:
     with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
         libs = list(pool.map(build_library, sources))
     return dict(zip(sources, libs))
+
+
+def sass_functions(path, dump_dir=None) -> Dict[str, list]:
+    """{function: its instructions, in order} from ``cuobjdump -sass`` of a
+    library or cubin: each instruction's text up to its ``;``, a predicate
+    included, without its address or encoding. ``dump_dir``: also write the
+    listing there, as ``<stem>.sass``."""
+    tool = shutil.which("cuobjdump") or str(Path(find_nvcc()).parent / "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {path} failed: {proc.stderr.strip()}")
+    if dump_dir:
+        Path(dump_dir).mkdir(parents=True, exist_ok=True)
+        (Path(dump_dir) / (Path(path).stem + ".sass")).write_text(proc.stdout)
+    out, name = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _SASS_LINE.match(line)
+        if name is not None and m:
+            out[name].append(m.group(1).strip())
+    return out
+
+
+def sass_counts(functions: Dict[str, list], patterns: dict) -> dict:
+    """{function: {key: how many of its instructions the regex
+    ``patterns[key]`` finds, ..., "instructions": how many it has}} of
+    ``sass_functions``' result."""
+    return {fn: {**{k: sum(1 for i in ins if re.search(p, i)) for k, p in patterns.items()},
+                 "instructions": len(ins)} for fn, ins in functions.items()}

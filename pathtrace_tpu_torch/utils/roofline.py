@@ -44,6 +44,7 @@ import torch
 from pathtrace_tpu_torch.config import RenderConfig
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
+from pathtrace_tpu_torch.utils.timing import best_seconds
 
 SOURCE = CSRC / "probe_kernel.cu"
 INNER = 32  # chain steps a trip (the kernel's kInner)
@@ -128,22 +129,24 @@ def count_segments(scene, cam, cfg: RenderConfig, frame=0, device=None) -> int:
 
 # -- the plain version -------------------------------------------------------------
 
-def _step_plain(mode: str, x, a, b, c):
-    def fma(p, q, r):  # one rounding: the product is exact in double
-        return (p.double() * q.double() + r.double()).float()
+def _step_plain(mode: str, x, a, b, c, b64, c64):
+    """One chain step of ``mode``. ``b64``, ``c64``: b and c in double, where
+    the fused modes add; ``chain_plain`` converts them once, not at each step."""
+    def fma(p, q, r64):  # one rounding: the product is exact in double
+        return torch.addcmul(r64, p.double(), q).float()
 
     if mode == "mul":
         return x * a
     if mode == "add":
         return x + b
     if mode == "fma":
-        return fma(x, a, b)
+        return fma(x, a, b64)
     if mode == "mul_then_add":
         return x * a + b
     if mode == "add_add":
         return (x + b) + c
     if mode == "fma_fma":
-        return fma(fma(x, a, b), a, c)
+        return fma(fma(x, a, b64), a, c64)
     raise ValueError(f"mode must be one of {LATENCY_MODES}, got {mode!r}")
 
 
@@ -154,8 +157,9 @@ def chain_plain(x: torch.Tensor, a: torch.Tensor, mode: str, iters: int, chains:
     b, c = x * np.float32(1e-7), x * np.float32(1e-9)
     scale = [np.float32(1.0) + np.float32(0.001) * np.float32(j) for j in range(chains)]
     xs = [x * float(s) for s in scale]
+    b64, c64 = b.double(), c.double()
     for _ in range(iters * INNER):
-        xs = [_step_plain(mode, xc, a, b, c) for xc in xs]
+        xs = [_step_plain(mode, xc, a, b, c, b64, c64) for xc in xs]
     acc = xs[0]
     for xc in xs[1:]:
         acc = acc + xc
@@ -228,13 +232,6 @@ def latency_chain(x: torch.Tensor, a: torch.Tensor, mode: str, iters: int) -> to
 
 # -- the measurements ----------------------------------------------------------------
 
-def _best_seconds(fn, reps: int, device) -> float:
-    from pathtrace_tpu_torch.utils.timing import time_fn
-
-    ms, _ = time_fn(fn, warmup=1, iters=max(reps, 1), device=device)
-    return min(ms) / 1e3
-
-
 def probe_inputs(rows: int, device):
     """x of ones and a just below one, [rows, 128]: the chains neither grow
     nor vanish over the probes' step counts."""
@@ -247,12 +244,13 @@ def measure_f32_peak(iters: int = PEAK_ITERS, grid: int = PEAK_GRID, reps: int =
     """The card's f32 speed of light for elementwise chains: FLOP/s of pure
     FMA chains (2 FLOPs a step) and of multiply-only chains (1 a step: the
     rate of single operations). ``grid * 64 * 128`` elements, a thread each, best of
-    ``reps`` CUDA-event-timed launches. Needs a CUDA device."""
+    ``reps`` CUDA-event-timed launches. With ``device="cpu"`` the plain
+    version, by the host clock (``timing.best_seconds``)."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     x, a = probe_inputs(grid * 64, device)
     out = {}
     for fma in (True, False):
-        best = _best_seconds(lambda: peak_chain(x, a, fma, iters), reps, device)
+        best = best_seconds(lambda: peak_chain(x, a, fma, iters), reps, device)
         steps = x.numel() * iters * INNER * PEAK_CHAINS
         out["peak_fma_flops" if fma else "peak_mul_flops"] = steps * (2 if fma else 1) / best
     return out
@@ -267,5 +265,5 @@ def latency_probe(iters: int = LATENCY_ITERS, grid: int = LATENCY_GRID, reps: in
     multiply then an add, the sum of two."""
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     x, a = probe_inputs(grid * 8, device)
-    return {mode: _best_seconds(lambda: latency_chain(x, a, mode, iters), reps, device)
+    return {mode: best_seconds(lambda: latency_chain(x, a, mode, iters), reps, device)
             / (iters * INNER) * 1e9 for mode in LATENCY_MODES}

@@ -2,8 +2,10 @@
 
 The reference brackets each kernel with cudaEvents and prints ms/fps
 (``include/Renderer.h:63-75``); ``time_fn`` does the same with
-``torch.cuda.Event`` pairs; ``device_name`` is the card's name and power
-limit, which go beside every time kept. The throughput metric of the repo is
+``torch.cuda.Event`` pairs (``best_seconds``: the least of a few calls,
+by the host clock where a caller asked for the CPU); ``device_name`` is
+the card's name and power limit, which go beside every time kept. The
+throughput metric of the repo is
 
     Mrays/s = W * H * spp * max_bounces / time
 
@@ -68,6 +70,23 @@ def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end))
     return times, result
+
+
+def best_seconds(fn: Callable, reps: int = 3, device=None) -> float:
+    """The least seconds of one call of ``fn()`` in ``reps`` calls after one
+    warm-up: CUDA events (``time_fn``) on a CUDA device, the host clock on
+    the CPU, which only a caller's own ``device="cpu"`` selects."""
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    if torch.device(device).type != "cpu":
+        ms, _ = time_fn(fn, warmup=1, iters=max(reps, 1), device=device)
+        return min(ms) / 1e3
+    fn()
+    seconds = []
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        fn()
+        seconds.append(time.perf_counter() - t0)
+    return min(seconds)
 
 
 def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: float) -> float:

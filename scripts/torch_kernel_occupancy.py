@@ -48,7 +48,6 @@ import hashlib
 import importlib.util
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -94,32 +93,13 @@ SASS_PATTERNS = {
     "FADD": r"\bFADD\b", "FFMA": r"\bFFMA\b", "FSETP": r"\bFSETP\b", "FSEL": r"\bFSEL\b",
 }
 SASS_RE = {k: re.compile(v) for k, v in SASS_PATTERNS.items()}
-_SASS_LINE = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(.*?);")
 
 
 def sass_report(lib: Path):
     """{kernel: counts + "instructions" + "sha256"} from ``cuobjdump -sass``."""
-    tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
-    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()}")
-    out, text, name = {}, {}, None
-    for line in proc.stdout.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = {k: 0 for k in SASS_PATTERNS}
-            out[name]["instructions"] = 0
-            text[name] = []
-            continue
-        m = _SASS_LINE.match(line)
-        if name and m:
-            out[name]["instructions"] += 1
-            text[name].append(m.group(1).strip())
-            for key, pat in SASS_RE.items():
-                if pat.search(line):
-                    out[name][key] += 1
-    for name, lines in text.items():
+    functions = build.sass_functions(lib)
+    out = build.sass_counts(functions, SASS_RE)
+    for name, lines in functions.items():
         out[name]["sha256"] = hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
     return out
 

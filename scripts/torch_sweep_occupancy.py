@@ -99,30 +99,6 @@ def ptxas_report(source: Path, out_dir: str):
     return rows
 
 
-def sass_counts(lib: Path, dump_dir=None):
-    """{kernel: {pattern: count}} from ``cuobjdump -sass``."""
-    tool = shutil.which("cuobjdump") or str(Path(build.find_nvcc()).parent / "cuobjdump")
-    proc = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cuobjdump failed: {proc.stderr.strip()}")
-    if dump_dir:
-        Path(dump_dir).mkdir(parents=True, exist_ok=True)
-        (Path(dump_dir) / (lib.stem + ".sass")).write_text(proc.stdout)
-    out, name = {}, None
-    for line in proc.stdout.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = {k: 0 for k in SASS_PATTERNS}
-            out[name]["instructions"] = 0
-        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-            out[name]["instructions"] += 1
-            for key, pat in SASS_PATTERNS.items():
-                if pat.search(line):
-                    out[name][key] += 1
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=20)
@@ -155,7 +131,8 @@ def main() -> int:
         print("== SASS, static counts by kernel")
         result["sass"] = {}
         for mod in (nk, ak):
-            counts = sass_counts(build.build_library(mod.SOURCE), args.dump_sass)
+            counts = build.sass_counts(build.sass_functions(build.build_library(mod.SOURCE),
+                                                             args.dump_sass), SASS_PATTERNS)
             pretty = demangle(list(counts))
             for name, c in counts.items():
                 if "reduce_partials" in name:

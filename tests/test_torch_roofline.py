@@ -71,8 +71,9 @@ def test_fused_steps_round_once():
     a = torch.tensor([[1.0 + 2.0 ** -12] * 128], dtype=torch.float32)
     b = x * np.float32(3e-8)  # a quarter of an ulp; the product's lost bit is half of one
     one = (x.double() * a.double() + b.double()).float()
-    assert torch.equal(rf._step_plain("fma", x, a, b, b), one)
-    assert not torch.equal(rf._step_plain("mul_then_add", x, a, b, b), one)
+    b64 = b.double()
+    assert torch.equal(rf._step_plain("fma", x, a, b, b, b64, b64), one)
+    assert not torch.equal(rf._step_plain("mul_then_add", x, a, b, b, b64, b64), one)
 
 
 def test_zero_trips_return_the_start():
