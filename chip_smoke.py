@@ -3,7 +3,7 @@
 Run from the root of a checkout with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA device, builds the kernels from
 ``pathtrace_tpu_torch/csrc/`` with nvcc (one nvcc a source, all at once),
-and runs twenty-four phases, each printing its own lines; any failure raises
+and runs twenty-five phases, each printing its own lines; any failure raises
 and exits non-zero.
 
 1. Environment: the card's name and power limit, torch's CUDA version, nvcc
@@ -228,7 +228,7 @@ and exits non-zero.
    ``cli.main(["-d", "--checkpoint", ...])`` denoises a 512x512x4 frame with
    the trained weights; the native IO library's EXR and BMP against the
    Python codec where it builds; (d) CUDA-event times of a ``train_step``
-   (median of 20) and of an epoch on each route (median of 3), the step's
+   (median of 20) and of an epoch on each route (one after a warm-up), the step's
    device time and idle share by ``torch.profiler``, and its bound.
 20. The ("tiles", "samples") grid of ``pathtrace_tpu_torch/parallel/`` with
    several ranks sharing the one card (gloo: NCCL refuses two ranks on one
@@ -326,6 +326,24 @@ and exits non-zero.
    launches from 0; the kernels line adds them to phase 11's, and puts the
    cycles of a dependent ``fma`` step measured here beside K7's 4-cycle
    bound (``fma_dependent_cycles_measured``).
+25. Launches that never wait for the card (the kernels take their scene,
+   camera and seed blocks from device memory, as the TPU kernels take them
+   from SMEM): (a) every entry point of the main paths
+   (``main_path_calls``: the CLI's frame, ``render_aovs``,
+   ``render_color_sums``, the three routes of ``fused_loss_grads`` and
+   ``loss_and_grads``, ``nee_loss_and_grads``, ``ad_loss_and_grads``,
+   ``cross_grads`` and the three inverse ``step_fn``s, at the bench's
+   512x512x32 and the inverse steps' 256x256 sizes), with scene and camera
+   on the host and on the card, runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, with the launch counts set to
+   0 before and read after (the kernels line adds them); every output must
+   be finite; (b) one launch of each kernel and mode (K1 in its three
+   modes, K2 fused and dump, K5, K3 fused and replay, K4) is captured in a
+   ``torch.cuda.CUDAGraph`` over static device blocks at 256x256x8; a
+   changed scene (every albedo x0.9, sphere 6's radius x0.8) and the next
+   frame's seed are copied into the blocks, and the replay must equal an
+   eager launch on the new blocks to the bit and differ from the old
+   blocks' output.
 
 Before the kernels line, the seconds each phase took and the torch.profiler
 sessions that saw no time of their kernel and were taken again.
@@ -717,7 +735,7 @@ def grad_phase_7(dev, scene, cam, gk, tk):
 
 def plain_cross_grads(gk, tk, scene, cam, cfg, step, target, device):
     """``grad_kernel.cross_grads`` with the dump's plain version."""
-    sb, cb, _ = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb = scene.to("cpu").packed(), tk.camera_block(cam.to("cpu"), cfg)
     kw = dict(local_h=cfg.height, spp=cfg.spp, device=device)
     a, acc_a = gk.dump_plain(sb, cb, tk.make_seed_block(cfg, 2 * step), cfg, **kw)
     b, acc_b = gk.dump_plain(sb, cb, tk.make_seed_block(cfg, 2 * step + 1), cfg, **kw)
@@ -1162,7 +1180,7 @@ def plain_nee_cross_grads(nk, tk, scene, cam, cfg, step, target, device):
     """``grad_kernel.cross_grads`` under NEE with the plain versions."""
     import torch
 
-    sb, cb, _ = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb = scene.to("cpu").packed(), tk.camera_block(cam.to("cpu"), cfg)
     kw = dict(local_h=cfg.height, spp=cfg.spp, device=device)
     seeds = [tk.make_seed_block(cfg, 2 * step + k) for k in (0, 1)]
     a, b = (tk.trace_plain(sb, cb, sd, cfg, mode="color", **kw) / cfg.spp for sd in seeds)
@@ -1392,7 +1410,7 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
             raise RuntimeError(f"render_loss_grads for {name} is not one colour-sum launch and "
                                f"one K4 launch")
         # The plain route: trace_plain's colour, the loss's cotangent, replay_plain.
-        sb, cb, _ = tk.host_blocks(corrupted, cam, cfg, dev)
+        sb, cb = corrupted.to("cpu").packed(), tk.camera_block(cam.to("cpu"), cfg)
         seed = tk.make_seed_block(cfg, 0)
         kw = dict(local_h=512, spp=32, device=dev)
         diff = tk.trace_plain(sb, cb, seed, cfg, mode="color", **kw) / cfg.spp - target
@@ -1945,9 +1963,10 @@ ADAM_LR, ADAM_UPDATE_L2 = 1e-4, 0.2
 # the bits: until the training step was made deterministic, the updates of
 # two runs of one route spread apart by up to 0.092 of their norm.
 SCAN_EPOCH_L2 = 0.5
-# An epoch is 105 steps (1.4-2.9 s on an H100, by host): a median of 3 of
-# each route (315 steps) keeps the phase under two minutes.
-STEP_ITERS, EPOCH_ITERS = 20, 3
+# An epoch is 105 steps (1.4-3.6 s on an H100, by host): one timed epoch of
+# each route after its warm-up keeps the whole script near its budget on a
+# slow host.
+STEP_ITERS, EPOCH_ITERS = 20, 1
 
 
 def state_errors(got, want):
@@ -2971,6 +2990,234 @@ def fma_probe_phase_24(smi):
         raise RuntimeError(f"the FMA script did not launch K6 and K7: {launches}")
     return launches, rec["latency_cycles_per_step"]["fma"]
 
+# -- phase 25: launches that never wait for the card ------------------------------
+
+SYNC_STEPS = 2  # inverse steps a route under the sync check
+GRAPH_SIZE, GRAPH_SPP = 256, 8  # the inverse steps' frame, for the captured launches
+
+
+def _tensors(x):
+    """Every tensor in an entry point's result (tuples, lists, dicts, Scene,
+    Camera)."""
+    import torch
+
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    fields = ("radius", "position", "emission", "color") if hasattr(x, "radius") else \
+        ("position", "yaw", "pitch") if hasattr(x, "yaw") else ()
+    return [getattr(x, k) for k in fields]
+
+
+def kernel_launch_counts(tk, gk, nk, ak) -> dict:
+    """Every kernel's launch count, by its name in the kernels line."""
+    out = {"pathtrace_kernel": tk.CUDA_KERNEL.launches, "ad_grad_kernel": ak.CUDA_KERNEL.launches}
+    out.update({name: gk.CUDA_KERNEL.launches[mode] for mode, name, _ in GRAD_KERNELS})
+    out.update({f"nee_grad_kernel[{m}]": nk.CUDA_KERNEL.launches[m] for m in nk.MODES})
+    return out
+
+
+def reset_launch_counts(tk, gk, nk, ak):
+    tk.CUDA_KERNEL.launches = 0
+    ak.CUDA_KERNEL.launches = 0
+    gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
+    nk.CUDA_KERNEL.launches = {m: 0 for m in nk.MODES}
+
+
+def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
+    """The entry points of the main paths, as (name, call) pairs; each call
+    runs one on ``dev`` with ``scene`` and ``cam`` where they lie: the CLI's
+    frame (``render_aovs`` at 4 spp, as ``cli.main`` calls it),
+    ``render_aovs`` and the three routes of ``fused_loss_grads`` and
+    ``loss_and_grads`` at size x size x spp (the bench's frame),
+    ``nee_loss_and_grads`` and ``ad_loss_and_grads`` (glossy) there too;
+    ``render_color_sums`` (NEE, 16 spp), ``cross_grads`` and SYNC_STEPS steps
+    of each inverse ``step_fn`` at the inverse steps' size (diffuse and
+    glossy 8 spp, NEE 16). Targets lie on the card and the inverse steps
+    are made here: the calls are what a step or a loss costs."""
+    import torch
+
+    from pathtrace_tpu_torch import RenderConfig, inverse
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+    from pathtrace_tpu_torch.ops import grad_kernel as gk
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import trace_kernel as tk
+    from pathtrace_tpu_torch.render import render_aovs
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    t_frame = torch.rand((size, size, 3), generator=gen, device=dev)
+    t_step = torch.rand((step_size, step_size, 3), generator=gen, device=dev)
+    routes = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"}}
+    frame = {r: RenderConfig(width=size, height=size, spp=spp, **x) for r, x in routes.items()}
+    step = {r: RenderConfig(width=step_size, height=step_size, spp=16 if r == "nee" else 8, **x)
+            for r, x in routes.items()}
+    p = functools.partial
+    calls = [("CLI frame (render_aovs, 4 spp)",
+              p(render_aovs, scene, cam, RenderConfig(width=size, height=size, spp=4), 1, dev)),
+             ("render_aovs", p(render_aovs, scene, cam, frame["diffuse"], 0, dev)),
+             ("render_color_sums [nee]", p(tk.render_color_sums, scene, cam, step["nee"], 0,
+                                           device=dev))]
+    for r in routes:
+        calls += [(f"fused_loss_grads [{r}]",
+                   p(gk.fused_loss_grads, scene, cam, frame[r], 0, t_frame, dev)),
+                  (f"loss_and_grads [{r}]",
+                   p(gk.loss_and_grads, scene, cam, frame[r], 0, t_frame, dev))]
+    calls += [("nee_loss_and_grads", p(nk.nee_loss_and_grads, scene, cam, frame["nee"], 0,
+                                       t_frame, dev)),
+              ("ad_loss_and_grads [glossy]", p(ak.ad_loss_and_grads, scene, cam,
+                                               frame["glossy"], 0, t_frame, dev))]
+    calls += [(f"cross_grads [{r}]", p(gk.cross_grads, scene, cam, step[r], 3, t_step, dev))
+              for r in routes]
+    optimize = {"diffuse": ("color",), "nee": ("position", "radius"),
+                "glossy": ("color", "position")}
+    rates = {"diffuse": 2e-2,
+             "nee": {"position": inverse.exponential_decay(0.5, 400, 0.02),
+                     "radius": inverse.exponential_decay(0.1, 400, 0.02)},
+             "glossy": {"color": 2e-2, "position": 0.5}}
+    for r in routes:
+        state, step_fn, _ = inverse.make_inverse_step(scene, cam, step[r], t_step, optimize[r],
+                                                      rates[r], device=dev)
+
+        def steps(step_fn=step_fn, held=[state]):
+            loss = None
+            for _ in range(SYNC_STEPS):
+                held[0], loss = step_fn(held[0])
+            return held[0].params, loss
+
+        calls.append((f"inverse step_fn [{r}]", steps))
+    return calls
+
+
+def graph_cases(dev, tk, gk, nk, ak, sb, cb, sd):
+    """One launch of each kernel and mode over the static device blocks
+    ``sb``, ``cb``, ``sd`` at GRAPH_SIZE^2 x GRAPH_SPP, as (name, call)."""
+    import torch
+
+    from pathtrace_tpu_torch import RenderConfig
+
+    n = GRAPH_SIZE
+    cfg = RenderConfig(width=n, height=n, spp=GRAPH_SPP)
+    nee, glossy = RenderConfig(width=n, height=n, spp=GRAPH_SPP, nee=True), \
+        RenderConfig(width=n, height=n, spp=GRAPH_SPP, brdf="glossy")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    px = torch.rand((n, n, 3), generator=gen, device=dev)
+    ct = (torch.rand((n, n, 3), generator=gen, device=dev) - 0.5) * 1e-5
+    ct3 = ct.permute(2, 0, 1).contiguous()
+    kw = dict(local_h=n, spp=GRAPH_SPP, device=dev)
+    p = functools.partial
+    return [("K1 channels", p(tk.trace, sb, cb, sd, cfg, mode="channels", **kw)),
+            ("K1 partials [nee]", p(tk.trace, sb, cb, sd, nee, mode="partials", **kw)),
+            ("K1 color [glossy]", p(tk.trace, sb, cb, sd, glossy, mode="color", **kw)),
+            ("K2 fused", p(gk.fused, sb, cb, sd, cfg, px, **kw)),
+            ("K2 dump", p(gk.dump, sb, cb, sd, cfg, **kw)),
+            ("K5 replay", p(gk.replay, sb, cb, sd, cfg, ct, **kw)),
+            ("K3 fused", p(nk.fused, sb, cb, sd, nee, px, **kw)),
+            ("K3 replay", p(nk.replay, sb, cb, sd, nee, ct, **kw)),
+            ("K4 [glossy, colour]", p(ak.replay, sb, cb, sd, glossy, ct3, **kw))]
+
+
+def launch_phase_25(dev, tk, gk, nk, ak):
+    """(a) Every main-path entry point (``main_path_calls``) with scene and
+    camera on the host and on the card runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any call
+    that waits for the card; every output must be finite. (b) One launch of
+    each kernel and mode (``graph_cases``) is captured in a CUDA graph over
+    static device blocks; a changed scene (every albedo, sphere 6's radius)
+    and the next frame's seed are copied into those blocks, and the replay
+    must equal an eager launch on the new blocks to the bit (and differ from
+    the old blocks' output). -> launches of (a), by kernel name."""
+    import torch
+
+    from pathtrace_tpu_torch import Camera, cornell_box
+
+    phase(25, "launches that never wait for the card: (a) the main paths' entry points under "
+              "torch.cuda.set_sync_debug_mode('error'); (b) each kernel captured in a CUDA graph "
+              "and replayed on new device blocks")
+    launches = {}
+    places = {"host": (cornell_box(), Camera.create()),
+              "card": (cornell_box(device=dev), Camera.create(device=dev))}
+    for where, (scene, cam) in places.items():
+        calls = main_path_calls(dev, scene, cam)
+        torch.cuda.synchronize()
+        reset_launch_counts(tk, gk, nk, ak)
+        outs = {}
+        ts = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for name, call in calls:
+                try:
+                    outs[name] = call()
+                except RuntimeError as e:
+                    raise RuntimeError(f"(a) {name} with scene and camera on the {where} waited "
+                                       f"for the card: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_s = time.perf_counter() - ts
+        counts = kernel_launch_counts(tk, gk, nk, ak)
+        torch.cuda.synchronize()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for name, out in outs.items():
+            ts_ = _tensors(out)
+            if not ts_ or not all(bool(torch.isfinite(t).all()) for t in ts_):
+                raise RuntimeError(f"(a) {name} ({where}): no output or a non-finite one")
+        print(f"(a) scene and camera on the {where}: {len(calls)} entry points, none waited "
+              f"for the card; enqueued in {host_s:.3f} s; every output finite; launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        print("    " + "; ".join(name for name, _ in calls))
+
+    graph_replay_checks(dev, tk, gk, nk, ak)
+    print(f"(c) launches on the main paths of (a): {json.dumps(launches)}")
+    return launches
+
+
+def graph_replay_checks(dev, tk, gk, nk, ak):
+    """Phase 25 (b): each of ``graph_cases`` captured in a CUDA graph over
+    static device blocks, replayed on a changed scene and the next frame's
+    seed copied into them, must equal an eager launch on the new blocks to
+    the bit and differ from the old blocks' output."""
+    import torch
+
+    from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
+
+    scene, cam = cornell_box(), Camera.create()
+    cfg = RenderConfig(width=GRAPH_SIZE, height=GRAPH_SIZE, spp=GRAPH_SPP)
+    old_sb = scene.packed().to(dev)
+    color = scene.color * 0.9
+    radius = scene.radius.clone()
+    radius[6] = radius[6] * 0.8
+    new_sb = scene.replace(color=color, radius=radius).packed().to(dev)
+    old_sd = tk.seed_array(tk.make_seed_block(cfg, 4), dev)
+    new_sd = tk.seed_array(tk.make_seed_block(cfg, 5), dev)
+    sb, sd = old_sb.clone(), old_sd.clone()
+    cb = tk.camera_block(cam, cfg).to(dev)
+    for name, fn in graph_cases(dev, tk, gk, nk, ak, sb, cb, sd):
+        sb.copy_(old_sb)
+        sd.copy_(old_sd)
+        old = [t.clone() for t in _tensors(fn())]  # also loads the library before capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = _tensors(fn())
+        sb.copy_(new_sb)
+        sd.copy_(new_sd)
+        graph.replay()
+        replayed = [t.clone() for t in captured]
+        eager = _tensors(fn())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+        moved = any(not torch.equal(a, b) for a, b in zip(replayed, old))
+        print(f"(b) {name:22s} replay on the new blocks = eager launch to the bit: {same}; "
+              f"differs from the old blocks' output: {moved}")
+        if not same or not moved or len(replayed) != len(eager):
+            raise RuntimeError(f"(b) {name}: the captured launch did not read its blocks when "
+                               f"replayed")
+        del graph
+
+
 def main() -> int:
     import torch
 
@@ -3131,6 +3378,7 @@ def main() -> int:
     gate_phase_22()
     bench_phase_23(statistics.median(times["kernel", 32]), smi)
     fma_launches, fma_cycles = fma_probe_phase_24(smi)
+    sync_launches = launch_phase_25(dev, tk, gk, nk, ak)
     _PHASE_STARTS["kernels line"] = time.perf_counter()
 
     # One line a kernel: its time at its main shape beside its bounds.
@@ -3214,6 +3462,8 @@ def main() -> int:
     # that the grid runs, phase 21's dataset to K1's, and phase 24's to the
     # probes'.
     grid_launches["pathtrace_kernel"] += dp_launches
+    for name, n in sync_launches.items():
+        grid_launches[name] = grid_launches.get(name, 0) + n
     for probe, n in fma_launches.items():
         grid_launches[f"probe_kernel[{probe}]"] = n
     for k in kernels:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from pathtrace_tpu_torch.utils.transfer import to_device
+
 # Defaults from reference include/Camera.h:28-32.
 DEFAULT_YAW = -90.0
 DEFAULT_PITCH = 0.0
@@ -64,8 +66,8 @@ class Camera:
             torch.sin(yaw) * torch.cos(pitch),
         ])
         front = front / _norm(front)
-        world_up = torch.tensor([0.0, 1.0, 0.0], dtype=self.position.dtype,
-                                device=self.device)
+        world_up = to_device(torch.tensor([0.0, 1.0, 0.0], dtype=self.position.dtype),
+                             self.device)
         right = torch.linalg.cross(front, world_up)
         right = right / _norm(right)
         up = torch.linalg.cross(right, front)
@@ -120,18 +122,21 @@ class Camera:
         m[2, 3] = -1.0
         m[3, 2] = 1.0 / d
         m[3, 3] = c / d
-        return m.to(device)
+        return to_device(m, device)
 
     def eye_ray_basis(self, width: int, height: int) -> torch.Tensor:
         """Four corner ray directions, [4, 3]: NDC corners (-1,-1), (+1,-1),
         (-1,+1), (+1,+1) (reference ``Camera.h:131-148``: ray00, ray10,
         ray01, ray11). Not normalized: depth is measured in units of this
         basis. Formed as ``R_view^-1 @ unproject_view(corner)``, which keeps
-        f32 accuracy that ``unproject_world(corner) - eye`` loses."""
+        f32 accuracy that ``unproject_world(corner) - eye`` loses. Its
+        constants reach a camera on the card without a wait for it
+        (``utils/transfer.py``), so the basis of such a camera is built on
+        the card without one."""
         dt = self.position.dtype
-        corners = torch.tensor(
+        corners = to_device(torch.tensor(
             [[-1.0, -1.0, 0.0, 1.0], [1.0, -1.0, 0.0, 1.0],
-             [-1.0, 1.0, 0.0, 1.0], [1.0, 1.0, 0.0, 1.0]], dtype=dt, device=self.device
+             [-1.0, 1.0, 0.0, 1.0], [1.0, 1.0, 0.0, 1.0]], dtype=dt), self.device
         )  # clip z = 0 as in the reference
         view = corners @ self.inverse_projection_matrix(width, height, dt, self.device).T
         view3 = view[:, :3] / view[:, 3:4]

@@ -164,8 +164,8 @@ def main(argv=None) -> int:
         spp_chunk=args.spp_chunk, backend=args.backend, seed=args.seed,
         brdf=args.brdf, nee=args.nee, block=args.threads_per_block,
     )
-    # Scene and camera stay on the host: render_aovs moves them where the
-    # backend reads them (the kernel takes them by value).
+    # Scene and camera stay on the host: render_aovs builds the kernel's
+    # blocks there and moves them to the card without waiting for it.
     scene = cornell_box()
     cam = Camera.create(position=(args.camera_x, args.camera_y, args.camera_z),
                         yaw=args.camera_yaw, pitch=args.camera_pitch)

@@ -51,6 +51,11 @@
 // nee_grad_kernel.cu's REPLAY instance, and with zeros in the AOV planes it
 // runs additions of zero beside it: the same sums either way.
 //
+// The scene, camera and seed blocks are device arrays, as the TPU kernel's
+// SMEM operands (pallas_ad.py:254-256: scene [N, 10], cam [5, 3], seed [5]);
+// the C entry point queues their copy into constant memory before the
+// launch (common.cuh::stage_blocks), so a launch never waits for the card.
+//
 // Built with the forward kernel's flags (-fmad=false, no fast math).
 
 #include "sweep.cuh"
@@ -98,7 +103,7 @@ ad_grad_kernel(const TraceParams p, const float* __restrict__ ct,
   // Every thread of a warp sweeps, so that every lane takes its turns; one
   // without a pixel has no path and nothing to add.
   for (int s = 0; s < p.spp; ++s) {
-    rng.sample = p.sample_offset + (uint32_t)s;
+    rng.sample = c_blocks.sample_offset + (uint32_t)s;
     int n_hit = 0;
     if (inside) forward<GLOSSY, NEE, true, GEOM>(p, rng, rows, cols, out, tape, n_hit);
     reverse_sweep<GLOSSY, NEE, AOV>(p, blk.sph, rng, rows, cols, tape, n_hit, inside, g, aov,
@@ -143,7 +148,7 @@ extern "C" int pt_ad_grad_occupancy(int glossy, int nee, int aov, int block,
 }
 
 // C entry point, bound with ctypes. scene [num_spheres, 10], cam [5, 3] and
-// seed [5] are HOST arrays, as for pt_trace_launch. light_index < 0: no NEE.
+// seed [5] are DEVICE arrays, as for pt_trace_launch. light_index < 0: no NEE.
 // ct is a device buffer [num_ct, local_h, W] of floats, num_ct 3 (colour
 // rgb) or 10 (colour rgb, normal xyz, albedo rgb, depth); partial a device
 // buffer of ceil(W / block) * ceil(local_h / block) * (10N + 16) DOUBLES;
@@ -160,14 +165,8 @@ extern "C" int pt_ad_grad_launch(const float* scene, int num_spheres,
                                  int light_index, int glossy, int num_ct, int block,
                                  const float* ct, double* partial, float* out,
                                  void* stream) {
-  if (num_spheres < 1 || num_spheres > kMaxAdSpheres || local_h < 1 || width < 1 ||
-      spp < 1 || max_bounces < 0 || max_bounces > kMaxBounces || block < 1 ||
-      block > kMaxBlock || light_index >= num_spheres || ct == nullptr ||
-      (num_ct != 3 && num_ct != kNumCt) || partial == nullptr || out == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
   TraceParams p;
-  fill_params(p, scene, num_spheres, cam, seed);
+  p.num_spheres = num_spheres;
   p.spp = spp;
   p.max_bounces = max_bounces;
   p.jitter = jitter;
@@ -178,6 +177,12 @@ extern "C" int pt_ad_grad_launch(const float* scene, int num_spheres,
   p.inv_height = inv_height;
   p.inv_spp = inv_spp;
   p.push = push;
+  if (!valid_launch(scene, cam, seed, p) || num_spheres > kMaxAdSpheres ||
+      max_bounces > kMaxBounces || block < 1 || block > kMaxBlock ||
+      light_index >= num_spheres || ct == nullptr || (num_ct != 3 && num_ct != kNumCt) ||
+      partial == nullptr || out == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
 
   const bool nee = light_index >= 0, aov = num_ct == kNumCt;
   const int n_threads = block * block;
@@ -188,6 +193,9 @@ extern "C" int pt_ad_grad_launch(const float* scene, int num_spheres,
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  std::lock_guard<std::mutex> hold(launch_lock());
+  err = stage_blocks(scene, num_spheres, cam, seed, s);
+  if (err != cudaSuccess) return (int)err;
   const dim3 threads(block, block);
   const dim3 grid((width + block - 1) / block, (local_h + block - 1) / block);
   const int n_out = 10 * num_spheres + 16;

@@ -1,8 +1,10 @@
 // What the forward kernel (trace_kernel.cu) and the gradient kernels
 // (grad_kernel.cu; nee_grad_kernel.cu and ad_grad_kernel.cu through
-// sweep.cuh) share: the parameter block, the random lattice, the sphere
-// test, one forward path segment (with an optional tape of what a reverse
-// sweep cannot recompute) and the fixed-order sum of per-block partials.
+// sweep.cuh) share: the launch parameters, the scene, camera and seed
+// blocks in constant memory and the copies that fill them, the random
+// lattice, the sphere test, one forward path segment (with an optional tape
+// of what a reverse sweep cannot recompute) and the fixed-order sum of
+// per-block partials.
 //
 // The gradient kernels retrace the forward kernel's paths sample for
 // sample, so both must run this code with the same arithmetic: every file
@@ -14,7 +16,10 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace pt {
 
@@ -37,35 +42,83 @@ struct Sphere {
   float rad, px, py, pz, er, eg, eb, cr, cg, cb;
 };
 
+// A launch's by-value parameters: its sizes and modes. Its scene, camera
+// and seed blocks are not among them: the kernels read them from c_blocks.
 struct TraceParams {
-  Sphere sph[kMaxSpheres];
-  float eye[3];
-  float basis[4][3];  // corner rays 00, 10, 01, 11
-  uint32_t seed, frame, sample_offset, row_offset, col_offset;
   int num_spheres, spp, max_bounces, jitter, local_h, width, light_index;
   float inv_width, inv_height, inv_spp, push;
 };
 
-// Fills p from the host arrays of the C entry points: scene [num_spheres,
-// 10] (radius, pos xyz, emission rgb, colour rgb), cam [5, 3] (eye, corner
-// rays 00, 10, 01, 11), seed [5] (seed, frame, sample/row/col offsets).
-inline void fill_params(TraceParams& p, const float* scene, int num_spheres,
-                        const float* cam, const uint32_t* seed) {
-  for (int i = 0; i < kMaxSpheres; ++i) {
-    const float* r = scene + 10 * i;
-    p.sph[i] = i < num_spheres
-                   ? Sphere{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8], r[9]}
-                   : Sphere{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+// The launch's scene [N, 10] (radius, pos xyz, emission rgb, colour rgb),
+// camera [5, 3] (eye, corner rays 00, 10, 01, 11) and seed [5] (seed, frame,
+// sample/row/col offsets) blocks, as the TPU kernels hold them in SMEM
+// (scalar prefetch: pallas_trace.py:662-664, pallas_grad.py:704-706,
+// pallas_nee_grad.py:787, pallas_ad.py:254-256): this library's copy in
+// constant memory, filled by stage_blocks from the device arrays the caller
+// passes, by copies queued on the launch's stream just before the launch.
+// So the host reads no block back, a launch never waits for the card, and a
+// launch captured in a CUDA graph copies its blocks' contents when it is
+// replayed. The sphere tests read row i, the same in every lane, which the
+// constant bank broadcasts without a register of each thread for it.
+struct SceneBlocks {
+  Sphere sph[kMaxSpheres];
+  float eye[3];
+  float basis[4][3];  // corner rays 00, 10, 01, 11
+  uint32_t seed, frame, sample_offset, row_offset, col_offset;
+};
+constexpr int kCamWord = 10 * kMaxSpheres;  // where the camera's 15 floats start
+static_assert(sizeof(SceneBlocks) == 4 * (kCamWord + 15 + 5), "SceneBlocks is 180 words");
+static __constant__ SceneBlocks c_blocks;
+
+// Queues on `stream` the copies of the device arrays scene [n, 10], cam
+// [5, 3] and seed [5] into c_blocks: one copy where they lie as SceneBlocks
+// does (the scene padded to 16 rows, the camera, the seed: how the wrappers
+// stage host blocks), else one for the scene and one or two for the camera
+// and seed. A launch queued on the same stream right after them reads what
+// they copied, and a later launch on that stream its own blocks; launches
+// of one library on two streams at once share c_blocks and are not ordered.
+// The caller holds launch_lock() from the copies to the launch, so that two
+// host threads on one stream do not interleave them. Both are static: a
+// function-local static of an inline function is one object for every
+// library loaded into the process, and each library has its own c_blocks.
+static inline cudaError_t stage_blocks(const float* scene, int n, const float* cam,
+                                       const uint32_t* seed, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static char* symbol[kMaxDevices] = {};  // c_blocks' address on each device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (symbol[dev] == nullptr) {
+    void* addr = nullptr;
+    err = cudaGetSymbolAddress(&addr, c_blocks);
+    if (err != cudaSuccess) return err;
+    symbol[dev] = static_cast<char*>(addr);
   }
-  for (int k = 0; k < 3; ++k) p.eye[k] = cam[k];
-  for (int j = 0; j < 4; ++j)
-    for (int k = 0; k < 3; ++k) p.basis[j][k] = cam[3 + 3 * j + k];
-  p.seed = seed[0];
-  p.frame = seed[1];
-  p.sample_offset = seed[2];
-  p.row_offset = seed[3];
-  p.col_offset = seed[4];
-  p.num_spheres = num_spheres;
+  char* dst = symbol[dev];
+  const cudaMemcpyKind d2d = cudaMemcpyDeviceToDevice;
+  const bool cam_seed = seed == reinterpret_cast<const uint32_t*>(cam + 15);
+  if (cam_seed && cam == scene + kCamWord)
+    return cudaMemcpyAsync(dst, scene, sizeof(SceneBlocks), d2d, stream);
+  err = cudaMemcpyAsync(dst, scene, sizeof(Sphere) * n, d2d, stream);
+  if (err != cudaSuccess) return err;
+  if (cam_seed) return cudaMemcpyAsync(dst + offsetof(SceneBlocks, eye), cam, 80, d2d, stream);
+  err = cudaMemcpyAsync(dst + offsetof(SceneBlocks, eye), cam, 60, d2d, stream);
+  if (err != cudaSuccess) return err;
+  return cudaMemcpyAsync(dst + offsetof(SceneBlocks, seed), seed, 20, d2d, stream);
+}
+
+static inline std::mutex& launch_lock() {
+  static std::mutex lock;
+  return lock;
+}
+
+// The checks of a launch's blocks and sizes that every C entry point makes.
+inline bool valid_launch(const float* scene, const float* cam, const uint32_t* seed,
+                         const TraceParams& p) {
+  return scene != nullptr && cam != nullptr && seed != nullptr && p.num_spheres >= 1 &&
+         p.num_spheres <= kMaxSpheres && p.local_h >= 1 && p.width >= 1 && p.spp >= 1 &&
+         p.max_bounces >= 0;
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -96,13 +149,13 @@ struct Rng {
 template <bool GLOSSY>
 __device__ __forceinline__ Rng pixel_rng(const TraceParams& p, int row, int col,
                                          float& rows, float& cols) {
-  const uint32_t row_i = (uint32_t)row + p.row_offset;
-  const uint32_t col_i = (uint32_t)col + p.col_offset;
+  const uint32_t row_i = (uint32_t)row + c_blocks.row_offset;
+  const uint32_t col_i = (uint32_t)col + c_blocks.col_offset;
   rows = (float)(int32_t)row_i;
   cols = (float)(int32_t)col_i;
   Rng rng;
   rng.pix_key = mix32(row_i * kGold ^ col_i * kRow);
-  rng.base_key = mix32((p.seed & 0x7FFFFFFFu) ^ mix32(p.frame * kFrame));
+  rng.base_key = mix32((c_blocks.seed & 0x7FFFFFFFu) ^ mix32(c_blocks.frame * kFrame));
   rng.n_slots = 2u + (GLOSSY ? 5u : 2u) * (uint32_t)p.max_bounces;
   rng.sample = 0u;
   return rng;
@@ -139,8 +192,8 @@ __device__ __forceinline__ void primary_ray(const TraceParams& p, const Rng& rng
   float d[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float bottom = p.basis[0][k] * (1.0f - u) + p.basis[1][k] * u;
-    const float top = p.basis[2][k] * (1.0f - u) + p.basis[3][k] * u;
+    const float bottom = c_blocks.basis[0][k] * (1.0f - u) + c_blocks.basis[1][k] * u;
+    const float top = c_blocks.basis[2][k] * (1.0f - u) + c_blocks.basis[3][k] * u;
     d[k] = bottom * (1.0f - v) + top * v;
   }
   dx = d[0];
@@ -189,11 +242,12 @@ struct BounceTape {
 // (mr, mg, mb) takes the hit sphere's albedo. With TAPED, a hit also fills
 // tape; the arithmetic is the same either way.
 //
-// The sphere tests read p.sph[i], the same row in every lane: the constant
-// bank broadcasts it. The rows read by a per-lane index (the winner's, and
-// under NEE the light's) come from `table`: the block's copy in shared
-// memory, where any index a lane holds reads a field in one wavefront
-// (K2), or p.sph itself (K1, and the sweep's forward in K3 and K4).
+// The sphere tests read c_blocks.sph[i], the same row in every lane: the
+// constant bank broadcasts it. The rows read by a per-lane index (the
+// winner's, and under NEE the light's) come from `table`: the block's copy
+// in shared memory, where any index a lane holds reads a field in one
+// wavefront (K2), or c_blocks.sph itself (K1, and the sweep's forward in K3
+// and K4).
 template <bool FIRST, bool GLOSSY, bool NEE, bool TAPED>
 __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Sphere* table,
                                               const Rng& rng, int bounce, float& ox,
@@ -214,7 +268,7 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Sphere
   bool far_root = false;
   for (int i = 0; i < p.num_spheres; ++i) {
     float det, tca, thc;
-    sphere_hit(p.sph[i], ox, oy, oz, dnx, dny, dnz, det, tca, thc);
+    sphere_hit(c_blocks.sph[i], ox, oy, oz, dnx, dny, dnz, det, tca, thc);
     // inv_len is 1 after the first bounce: the product is then exact.
     const float t_near = (tca - thc) * inv_len;
     const float t_far = (tca + thc) * inv_len;
@@ -279,7 +333,7 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Sphere
     for (int i = 0; i < p.num_spheres; ++i) {
       if (i == li) continue;
       float det, tca, thc;
-      sphere_hit(p.sph[i], sox, soy, soz, ldx, ldy, ldz, det, tca, thc);
+      sphere_hit(c_blocks.sph[i], sox, soy, soz, ldx, ldy, ldz, det, tca, thc);
       const float t_near = tca - thc, t_far = tca + thc;
       const float t = t_near > 0.0f ? t_near : t_far;
       if (det >= 0.0f && t > 0.0f && t < t_light) vis = false;
@@ -373,7 +427,7 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Sphere
   return true;
 }
 
-// The same segment with its rows read from the kernel parameter.
+// The same segment with its rows read from c_blocks.
 template <bool FIRST, bool GLOSSY, bool NEE, bool TAPED>
 __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& rng,
                                               int bounce, float& ox, float& oy,
@@ -381,8 +435,8 @@ __device__ __forceinline__ bool segment_taped(const TraceParams& p, const Rng& r
                                               float& dz, float& mr, float& mg,
                                               float& mb, Sample& out,
                                               int& hit_index, BounceTape& tape) {
-  return segment_taped<FIRST, GLOSSY, NEE, TAPED>(p, p.sph, rng, bounce, ox, oy, oz, dx, dy,
-                                                  dz, mr, mg, mb, out, hit_index, tape);
+  return segment_taped<FIRST, GLOSSY, NEE, TAPED>(p, c_blocks.sph, rng, bounce, ox, oy, oz, dx,
+                                                  dy, dz, mr, mg, mb, out, hit_index, tape);
 }
 
 // Untaped, with the rows read by index from the block's `table`.
@@ -397,13 +451,13 @@ __device__ __forceinline__ bool segment(const TraceParams& p, const Sphere* tabl
                                                   dz, mr, mg, mb, out, hit_index, unused);
 }
 
-// Copies the N rows of p.sph into a block's shared `table` (10 floats a row:
-// row i, field f at word 10 i + f; gcd(10, 32) = 2, so one field of the 16
-// rows lies in 16 distinct banks). Every thread of the block calls it; the
-// caller synchronises before the first read.
+// Copies the N rows of c_blocks.sph into a block's shared `table` (10 floats
+// a row: row i, field f at word 10 i + f; gcd(10, 32) = 2, so one field of
+// the 16 rows lies in 16 distinct banks). Every thread of the block calls
+// it; the caller synchronises before the first read.
 __device__ __forceinline__ void copy_sphere_table(const TraceParams& p, float* table, int tid,
                                                   int threads) {
-  const float* src = &p.sph[0].rad;
+  const float* src = &c_blocks.sph[0].rad;
   for (int k = tid; k < 10 * p.num_spheres; k += threads) table[k] = src[k];
 }
 

@@ -51,6 +51,13 @@
 //     conflicts. 9 spheres and 64 pixels take 14 KB.
 //   * The sphere rows the sweep and the segment read by a per-lane index
 //     (the winner's) are a copy in the same shared memory (common.cuh).
+//   * The scene, camera and seed blocks are device arrays, as the TPU
+//     kernels' scalar-prefetch operands are SMEM arrays (pallas_grad.py:
+//     704-706, the same three for K5): the C entry point queues their copy
+//     into this library's constant memory on the launch's stream
+//     (common.cuh::c_blocks, stage_blocks), where the kernel reads them as
+//     it read its by-value parameters. The launch never waits for the card,
+//     and a captured launch reads new block contents when it is replayed.
 //   * DUMP: the pixel's lanes split its 6N stores, lane j writing the
 //     accumulators k = j, j + L, ... of its row of [h, W, 6N]. Staging the
 //     block's accumulators as [pixels][6N + 1] and writing each pixel row
@@ -143,10 +150,10 @@ grad_kernel(const TraceParams p, int block, int lane_bits, const float* __restri
     uint64_t tape = 0;
     int n_hit = 0;
     if (inside && base + lane < p.spp) {
-      rng.sample = p.sample_offset + (uint32_t)(base + lane);
+      rng.sample = c_blocks.sample_offset + (uint32_t)(base + lane);
       float dx, dy, dz;
       primary_ray(p, rng, rows, cols, dx, dy, dz);
-      float ox = p.eye[0], oy = p.eye[1], oz = p.eye[2];
+      float ox = c_blocks.eye[0], oy = c_blocks.eye[1], oz = c_blocks.eye[2];
       float mr = 1.0f, mg = 1.0f, mb = 1.0f;
       int sel;
       if (p.max_bounces >= 1 &&
@@ -342,7 +349,7 @@ extern "C" int pt_grad_occupancy(int mode, int block, int lanes, int num_spheres
 }
 
 // C entry point, bound with ctypes. scene [num_spheres, 10], cam [5, 3] and
-// seed [5] are HOST arrays, as for pt_trace_launch. mode 0 FUSED (in_px the
+// seed [5] are DEVICE arrays, as for pt_trace_launch. mode 0 FUSED (in_px the
 // target; writes color, partial and out), 1 DUMP (writes color and acc), 2
 // REPLAY (in_px the cotangent; writes partial and out). partial is a device
 // buffer of ceil(W / block) * ceil(local_h / block) * (6N + 1) floats; out
@@ -366,16 +373,8 @@ extern "C" int pt_grad_launch_padded(const float* scene, int num_spheres,
   const bool needs_color = mode == kFused || mode == kDump;
   const bool needs_sums = mode == kFused || mode == kReplay;
   const int lane_bits = lane_bits_of(block, lanes);
-  if (num_spheres < 1 || num_spheres > kMaxSpheres || local_h < 1 || width < 1 ||
-      spp < 1 || max_bounces < 0 || max_bounces > kMaxBounces || block < 1 ||
-      block > kMaxBlock || lane_bits < 0 || mode < kFused || mode > kReplay ||
-      (needs_in && in_px == nullptr) || (needs_color && color == nullptr) ||
-      (mode == kDump && acc == nullptr) ||
-      (needs_sums && (partial == nullptr || out == nullptr)) || pad_shared < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
   TraceParams p;
-  fill_params(p, scene, num_spheres, cam, seed);
+  p.num_spheres = num_spheres;
   p.spp = spp;
   p.max_bounces = max_bounces;
   p.jitter = jitter;
@@ -386,8 +385,18 @@ extern "C" int pt_grad_launch_padded(const float* scene, int num_spheres,
   p.inv_height = inv_height;
   p.inv_spp = inv_spp;
   p.push = push;
+  if (!valid_launch(scene, cam, seed, p) || max_bounces > kMaxBounces || block < 1 ||
+      block > kMaxBlock || lane_bits < 0 || mode < kFused || mode > kReplay ||
+      (needs_in && in_px == nullptr) || (needs_color && color == nullptr) ||
+      (mode == kDump && acc == nullptr) ||
+      (needs_sums && (partial == nullptr || out == nullptr)) || pad_shared < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  std::lock_guard<std::mutex> hold(launch_lock());
+  const cudaError_t err = stage_blocks(scene, num_spheres, cam, seed, s);
+  if (err != cudaSuccess) return (int)err;
   switch (mode) {
     case kFused:
       return (int)launch<kFused>(p, block, lane_bits, pad_shared, in_px, color, acc, partial,

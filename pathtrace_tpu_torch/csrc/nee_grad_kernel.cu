@@ -17,7 +17,10 @@
 // The estimator, the tape, the reverse sweep, the sums in shared memory and
 // the fixed-order double-precision block sums are sweep.cuh's, shared with
 // ad_grad_kernel.cu; this kernel is its <diffuse, NEE, colour cotangent
-// only> instance with the two modes above.
+// only> instance with the two modes above. Like the TPU kernel's SMEM
+// operands (pallas_nee_grad.py:787: scene [N, 10], cam [5, 3], seed [5]),
+// the three blocks are device arrays; the C entry point queues their copy
+// into constant memory before the launch (common.cuh::stage_blocks).
 //
 // What bounds it: the instruction throughput of scalar f32 chains (1,211.6
 // counted operations a segment in replay; fused runs 2,102.4 with its colour
@@ -80,7 +83,7 @@ nee_grad_kernel(const TraceParams p, const float* __restrict__ in_px,
       // the spp average rides in g.
       float sum[3] = {0.0f, 0.0f, 0.0f};
       for (int s = 0; s < p.spp; ++s) {
-        rng.sample = p.sample_offset + (uint32_t)s;
+        rng.sample = c_blocks.sample_offset + (uint32_t)s;
         forward<false, true, false, true>(p, rng, rows, cols, out, tape, n_hit);
         sum[0] += out.cr;
         sum[1] += out.cg;
@@ -99,7 +102,7 @@ nee_grad_kernel(const TraceParams p, const float* __restrict__ in_px,
   // Every thread of a warp sweeps, so that every lane takes its turns; one
   // without a pixel has no path and nothing to add.
   for (int s = 0; s < p.spp; ++s) {
-    rng.sample = p.sample_offset + (uint32_t)s;
+    rng.sample = c_blocks.sample_offset + (uint32_t)s;
     n_hit = 0;
     if (inside) forward<false, true, true, true>(p, rng, rows, cols, out, tape, n_hit);
     reverse_sweep<false, true, false>(p, blk.sph, rng, rows, cols, tape, n_hit, inside, g,
@@ -162,7 +165,7 @@ extern "C" int pt_nee_grad_occupancy(int mode, int block, int num_spheres, int p
 }
 
 // C entry point, bound with ctypes. scene [num_spheres, 10], cam [5, 3] and
-// seed [5] are HOST arrays, as for pt_trace_launch. mode 0 FUSED (in_px the
+// seed [5] are DEVICE arrays, as for pt_trace_launch. mode 0 FUSED (in_px the
 // target; writes color, partial and out), 1 REPLAY (in_px the cotangent;
 // writes partial and out). partial is a device buffer
 // of ceil(W / block) * ceil(local_h / block) * (10N + 16) DOUBLES; out holds
@@ -184,16 +187,8 @@ extern "C" int pt_nee_grad_launch_padded(const float* scene, int num_spheres,
                                          const float* in_px, float* color,
                                          double* partial, float* out, void* stream,
                                          int pad_shared) {
-  if (pad_shared < 0 || num_spheres < 1 || num_spheres > kMaxSpheres || local_h < 1 || width < 1 ||
-      spp < 1 || max_bounces < 0 || max_bounces > kMaxBounces || block < 1 ||
-      block > kMaxBlock || mode < kFused || mode > kReplay ||
-      light_index < 0 || light_index >= num_spheres || in_px == nullptr ||
-      (mode != kReplay && color == nullptr) || partial == nullptr ||
-      out == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
   TraceParams p;
-  fill_params(p, scene, num_spheres, cam, seed);
+  p.num_spheres = num_spheres;
   p.spp = spp;
   p.max_bounces = max_bounces;
   p.jitter = jitter;
@@ -204,8 +199,17 @@ extern "C" int pt_nee_grad_launch_padded(const float* scene, int num_spheres,
   p.inv_height = inv_height;
   p.inv_spp = inv_spp;
   p.push = push;
+  if (!valid_launch(scene, cam, seed, p) || pad_shared < 0 || max_bounces > kMaxBounces ||
+      block < 1 || block > kMaxBlock || mode < kFused || mode > kReplay || light_index < 0 ||
+      light_index >= num_spheres || in_px == nullptr || (mode != kReplay && color == nullptr) ||
+      partial == nullptr || out == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  std::lock_guard<std::mutex> hold(launch_lock());
+  const cudaError_t err = stage_blocks(scene, num_spheres, cam, seed, s);
+  if (err != cudaSuccess) return (int)err;
   if (mode == kFused)
     return (int)launch<kFused>(p, block, pad_shared, in_px, color, partial, out, s);
   return (int)launch<kReplay>(p, block, pad_shared, in_px, color, partial, out, s);

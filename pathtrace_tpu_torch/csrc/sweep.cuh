@@ -68,8 +68,14 @@
 //     radius 1e5), where a float and its Kahan compensation term took the
 //     same 8 bytes and four dependent adds: as fast, and no less accurate;
 //   * the sphere rows the sweep reads by hit index are in shared memory: a
-//     per-lane index into the kernel parameter is a constant-bank load
-//     serialised by address;
+//     per-lane index into c_blocks is a constant-bank load serialised by
+//     address;
+//   * the scene, camera and seed blocks are device arrays, as the TPU
+//     kernels' scalar-prefetch operands are SMEM arrays
+//     (pallas_nee_grad.py:787, pallas_ad.py:254-256): the C entry points
+//     queue their copy into the library's constant memory on the launch's
+//     stream (common.cuh::c_blocks, stage_blocks), so a launch never waits
+//     for the card and a captured launch reads new blocks when replayed;
 //   * the tape, 14 words a bounce and 17 under GLOSSY (the decisions, the
 //     ray and t; the throughput before the bounce, so that the sweep does
 //     not rebuild that product bounce by bounce; the cosine sample and the
@@ -199,7 +205,7 @@ __device__ __forceinline__ void reverse_sweep(const TraceParams& p, const Sphere
   constexpr bool GEOM = NEE || AOV;
   const int n4 = 4 * p.num_spheres;
   const int li = NEE ? p.light_index : 0;
-  const Sphere& l = p.sph[li];
+  const Sphere& l = c_blocks.sph[li];
   const float lb_x = l.px, lb_y = l.py - l.rad, lb_z = l.pz;
   const float le[3] = {l.er, l.eg, l.eb};
 
@@ -521,7 +527,7 @@ __device__ __forceinline__ void forward(const TraceParams& p, const Rng& rng,
   out = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, false};
   float dx, dy, dz;
   primary_ray(p, rng, rows, cols, dx, dy, dz);
-  float ox = p.eye[0], oy = p.eye[1], oz = p.eye[2];
+  float ox = c_blocks.eye[0], oy = c_blocks.eye[1], oz = c_blocks.eye[2];
   float mr = 1.0f, mg = 1.0f, mb = 1.0f;
   int sel;
   n_hit = 0;

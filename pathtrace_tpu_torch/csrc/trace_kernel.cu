@@ -11,7 +11,8 @@
 // plus sin/cos/sqrt (9 sphere tests, the normal, the cosine bounce; NEE
 // adds a shadow ray against 8 more spheres), and a pixel writes only 56
 // bytes (14 channels) once, after all its samples. Nothing is read from
-// device memory but the parameters.
+// device memory but the parameters and the scene, camera and seed blocks in
+// constant memory.
 //
 // What the design does about it:
 //   * A pixel's samples are spread over L sample lanes: neighbouring threads
@@ -35,10 +36,18 @@
 //     version (trace_plain) does; an idle lane of the last round adds
 //     nothing. Every lane holds the same sums (no divergent owner branches),
 //     and lane j stores the channels c with c % L == j.
-//   * The sphere rows stay in the by-value parameter block. A copy in shared
-//     memory for the rows read by a per-lane index (the winner's) was
-//     measured and did not pay here (PERF.md, PR 6); the gradient kernel
-//     keeps one, where its sweep reads those rows again.
+//   * The scene, camera and seed blocks are device arrays, as the TPU
+//     kernel's scalar-prefetch operands are SMEM arrays (pallas_trace.py:
+//     662-664: scene [N, 10], cam [5, 3], seed [5]). The C entry point queues
+//     their copy into this library's constant memory on the launch's stream
+//     (common.cuh::c_blocks, stage_blocks), so the launch never waits for
+//     the card and a captured launch reads new block contents when it is
+//     replayed. The kernel reads the rows from the constant bank: the sphere
+//     tests load each row once for the warp. A copy in each block's shared memory, read there
+//     by every test, held each value in a register of every thread: up to 29
+//     more registers a thread, and 8-12% longer at 512x512 (PERF.md); a
+//     shared copy of the winner's row alone was a tie or slower. The
+//     gradient kernel keeps one, where its sweep reads those rows again.
 //   * Every running sum stays in registers; the only stores are the final
 //     channel vector, channels-last [h, W, C]. The ragged edge is
 //     bounds-checked, nothing is padded.
@@ -95,18 +104,18 @@ __device__ __forceinline__ Sample trace_sample(const TraceParams& p, const Rng& 
   Sample out = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, false};
   float dx, dy, dz;
   primary_ray(p, rng, rows, cols, dx, dy, dz);
-  float ox = p.eye[0], oy = p.eye[1], oz = p.eye[2];
+  float ox = c_blocks.eye[0], oy = c_blocks.eye[1], oz = c_blocks.eye[2];
   float mr = 1.0f, mg = 1.0f, mb = 1.0f;
   int sel;
 
   if (p.max_bounces >= 1) {
     // An escaped path only carried masked no-ops in the Pallas kernel:
     // stopping here leaves every sum unchanged.
-    if (!segment<true, GLOSSY, NEE>(p, p.sph, rng, 0, ox, oy, oz, dx, dy, dz, mr, mg, mb,
+    if (!segment<true, GLOSSY, NEE>(p, c_blocks.sph, rng, 0, ox, oy, oz, dx, dy, dz, mr, mg, mb,
                                     out, sel))
       return out;
     for (int bounce = 1; bounce < p.max_bounces; ++bounce) {
-      if (!segment<false, GLOSSY, NEE>(p, p.sph, rng, bounce, ox, oy, oz, dx, dy, dz, mr,
+      if (!segment<false, GLOSSY, NEE>(p, c_blocks.sph, rng, bounce, ox, oy, oz, dx, dy, dz, mr,
                                        mg, mb, out, sel))
         return out;
     }
@@ -157,7 +166,7 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
   for (int base = 0; base < p.spp; base += lanes) {
     Sample o = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, false};
     if (inside && base + lane < p.spp) {
-      rng.sample = p.sample_offset + (uint32_t)(base + lane);
+      rng.sample = c_blocks.sample_offset + (uint32_t)(base + lane);
       o = trace_sample<GLOSSY, NEE>(p, rng, rows, cols);
     }
     // The round's samples in sample order, from the lanes that traced them.
@@ -270,9 +279,12 @@ cudaError_t launch(const void* fn, TraceParams p, int block, int lane_bits, int 
 
 // C entry point, bound with ctypes. scene [num_spheres, 10] (radius, pos
 // xyz, emission rgb, colour rgb), cam [5, 3] (eye, corner rays 00, 10, 01,
-// 11) and seed [5] (seed, frame, sample/row/col offsets) are HOST arrays;
-// out is a device buffer of local_h * width * n_channels floats. Returns a
-// cudaError_t: the launch's, or cudaErrorInvalidValue for bad arguments.
+// 11) and seed [5] (seed, frame, sample/row/col offsets) are DEVICE arrays:
+// the call queues their copy into constant memory and the launch on
+// `stream` (common.cuh::stage_blocks) and does not wait for the card; out
+// is a device buffer of local_h * width * n_channels floats. Returns a
+// cudaError_t: the copies' or the launch's, or cudaErrorInvalidValue for
+// bad arguments.
 // block is the edge of the square block in pixels, 1..kMaxBlock; lanes the
 // sample lanes a pixel, 1, 2 or 4 with block^2 x lanes <= kMaxThreads.
 //
@@ -289,14 +301,8 @@ extern "C" int pt_trace_launch_padded(const float* scene, int num_spheres,
                                       int pad_shared) {
   const bool nee = light_index >= 0;
   const int lane_bits = lane_bits_of(block, lanes);
-  if (pad_shared < 0 || pad_shared > kMaxSharedBytes || num_spheres < 1 ||
-      num_spheres > kMaxSpheres || local_h < 1 || width < 1 || spp < 1 || max_bounces < 0 ||
-      block < 1 || block > kMaxBlock || lane_bits < 0 ||
-      (nee && light_index >= num_spheres) || out == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
   TraceParams p;
-  fill_params(p, scene, num_spheres, cam, seed);
+  p.num_spheres = num_spheres;
   p.spp = spp;
   p.max_bounces = max_bounces;
   p.jitter = jitter;
@@ -307,10 +313,17 @@ extern "C" int pt_trace_launch_padded(const float* scene, int num_spheres,
   p.inv_height = inv_height;
   p.inv_spp = inv_spp;
   p.push = push;
-
   const void* fn = kernel_of(n_channels, glossy != 0, nee, lane_bits);
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch(fn, p, block, lane_bits, pad_shared, out, static_cast<cudaStream_t>(stream));
+  if (!valid_launch(scene, cam, seed, p) || pad_shared < 0 || pad_shared > kMaxSharedBytes ||
+      block < 1 || block > kMaxBlock || lane_bits < 0 || (nee && light_index >= num_spheres) ||
+      out == nullptr || fn == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  std::lock_guard<std::mutex> hold(launch_lock());
+  const cudaError_t err = stage_blocks(scene, num_spheres, cam, seed, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(fn, p, block, lane_bits, pad_shared, out, s);
 }
 
 extern "C" int pt_trace_launch(const float* scene, int num_spheres, const float* cam,

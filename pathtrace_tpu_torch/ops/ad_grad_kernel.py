@@ -46,7 +46,7 @@ from pathtrace_tpu_torch.config import RenderConfig
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
-from pathtrace_tpu_torch.ops.grad_kernel import _device, _per_pixel
+from pathtrace_tpu_torch.ops.grad_kernel import _per_pixel
 from pathtrace_tpu_torch.render import resolve_device
 # The two kernels share their output layout and the rules that hold a
 # kernel against its plain version, by kind of entry.
@@ -139,8 +139,9 @@ class CudaAdGradKernel:
                local_h: int, spp: int, device: torch.device) -> torch.Tensor:
         """Launch on the current stream of ``device`` (asynchronous) -> sums."""
         fn = self._function()
-        scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
-        n_out = 10 * scene_np.shape[0] + 16
+        held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
+                                                              device)
+        n_out = 10 * scene_block.shape[0] + 16
         w, block = cfg.width, cfg.block
         n_blocks = -(-w // block) * -(-local_h // block)
         partial = torch.empty((n_blocks, n_out), dtype=torch.float64, device=device)
@@ -148,8 +149,8 @@ class CudaAdGradKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(
-                scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
-                seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
+                scene_at, scene_block.shape[0], cam_at, seed_at, local_h, w,
+                tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
                 cfg.push_ray_origin, cfg.light_index if cfg.nee else -1,
                 int(cfg.brdf == "glossy"), cotangent.shape[0], block, cotangent.data_ptr(),
@@ -192,7 +193,7 @@ def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_
     """The kernel wrapper -> sums [10N + 16] (0 in the loss slot) on ``device``
     (default: the blocks'). CPU: the plain version. CUDA: the kernel, or an
     exception."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev)
     kw = dict(local_h=local_h, spp=spp, device=dev)
     if dev.type == "cpu":
@@ -230,7 +231,7 @@ def ad_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_offs
     cotangents ``ct_block`` [10, local_h, W], or [3, local_h, W] for colour
     only (1/global-spp folded in by the caller): one launch. Blocks of
     different slabs and sample ranges add up to the frame's."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                   _per_pixel(ct_block, device),
                   local_h=cfg.height if local_h is None else local_h,
@@ -254,7 +255,7 @@ def ad_loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None)
     any configuration: one colour-sum launch of the forward kernel, then one
     replay launch against the loss's cotangent."""
     color = tk.render_color_sums(scene, cam, cfg, frame, device=device) / cfg.spp
-    diff = color - torch.as_tensor(target, dtype=torch.float32, device=color.device)
+    diff = color - _per_pixel(target, color.device)
     denom = cfg.height * cfg.width * 3
     grads = ad_aov_grads(scene, cam, cfg, frame, ct_color=2.0 * diff / denom,
                          device=color.device)

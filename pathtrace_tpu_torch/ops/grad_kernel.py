@@ -54,6 +54,7 @@ from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
 from pathtrace_tpu_torch.render import resolve_device
 from pathtrace_tpu_torch.scene import Scene
+from pathtrace_tpu_torch.utils.transfer import to_device
 
 SOURCE = CSRC / "grad_kernel.cu"
 MODES = ("fused", "dump", "replay")
@@ -220,8 +221,9 @@ class CudaGradKernel:
         sums. ``pad_shared``, ``lanes``: as ``trace_kernel.CudaTraceKernel.
         launch``."""
         fn = self._function()
-        scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
-        n6 = 6 * scene_np.shape[0]
+        held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
+                                                              device)
+        n6 = 6 * scene_block.shape[0]
         w, block = cfg.width, cfg.block
         if lanes is None:
             lanes = tk.sample_lanes(spp, block, local_h * w, tk.device_sm_count(device), MAX_LANES)
@@ -242,8 +244,8 @@ class CudaGradKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(
-                scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
-                seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
+                scene_at, scene_block.shape[0], cam_at, seed_at, local_h, w,
+                tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
                 cfg.push_ray_origin, MODES.index(mode), block, lanes, ptr(pixels), ptr(color),
                 ptr(acc), ptr(partial), ptr(sums), stream, pad_shared,
@@ -278,19 +280,12 @@ def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels
         raise ValueError(f"no gradient kernel for device {dev}")
 
 
-def _device(scene_block, device):
-    dev = scene_block.device if device is None else torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def fused(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: int, spp: int,
           device=None):
     """The fused-mode wrapper -> (sums [6N + 1], colour [local_h, W, 3]) on
     ``device`` (default: the blocks'). CPU: the plain version. CUDA: the
     kernel, or an exception."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, target, dev, "fused")
     if dev.type == "cpu":
         return fused_plain(scene_block, cam_block, seed, cfg, target, local_h=local_h, spp=spp,
@@ -303,7 +298,7 @@ def dump(scene_block, cam_block, seed, cfg: RenderConfig, *, local_h: int, spp: 
          device=None):
     """The dump-mode wrapper -> (colour [local_h, W, 3], accumulators
     [local_h, W, 6N])."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, None, dev, "dump")
     if dev.type == "cpu":
         return dump_plain(scene_block, cam_block, seed, cfg, local_h=local_h, spp=spp,
@@ -315,7 +310,7 @@ def dump(scene_block, cam_block, seed, cfg: RenderConfig, *, local_h: int, spp: 
 def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
            spp: int, device=None):
     """The replay-mode wrapper -> sums [6N + 1] (0 in the loss slot)."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev, "replay")
     if dev.type == "cpu":
         return replay_plain(scene_block, cam_block, seed, cfg, cotangent, local_h=local_h,
@@ -374,7 +369,9 @@ def _split(sums: torch.Tensor, n: int, denom=1):
 
 
 def _per_pixel(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+    """``x`` as a contiguous float32 tensor on ``device``, moved from the host
+    without a wait for the card."""
+    return to_device(torch.as_tensor(x, dtype=torch.float32), device).contiguous()
 
 
 def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
@@ -387,7 +384,7 @@ def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     if kind == "nee":
         from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 
-        sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+        sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
         sums, color = nk.fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
                                _per_pixel(target, device), local_h=cfg.height, spp=cfg.spp,
                                device=device)
@@ -395,11 +392,11 @@ def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
         return sums[-1] / denom, d.emission, d.color, color
     if kind == "ad":
         color = tk.render_color_sums(scene, cam, cfg, frame, device=device) / cfg.spp
-        diff = color - torch.as_tensor(target, dtype=torch.float32, device=color.device)
+        diff = color - _per_pixel(target, color.device)
         d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, 2.0 * diff / denom,
                                             color.device))
         return torch.sum(diff * diff) / denom, d.emission, d.color, color
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     sums, color = fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
                         _per_pixel(target, device), local_h=cfg.height,
                         spp=cfg.spp, device=device)
@@ -412,7 +409,7 @@ def grad_acc_slab(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_h=No
     """One dump launch on rows [row_offset, row_offset + local_h) and samples
     [sample_offset, sample_offset + spp) -> (colour [local_h, W, 3], acc
     [local_h, W, 6N]), both averaged over those samples."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     local_h = cfg.height if local_h is None else local_h
     return dump(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                 local_h=local_h, spp=cfg.spp if spp is None else spp, device=device)
@@ -441,7 +438,7 @@ def render_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=N
     if route(cfg) != "chain":
         d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, cotangent, device))
         return d.emission, d.color
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     ct = _per_pixel(cotangent, device) / cfg.spp
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
                   spp=cfg.spp, device=device)
@@ -491,11 +488,11 @@ def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     if route(cfg) == "chain":
         a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
         b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
-        target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
+        target = _per_pixel(target, a.device)
         return cross_contract(a, acc_a, b, acc_b, target)
     a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device) / cfg.spp
     b = tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device) / cfg.spp
-    target = torch.as_tensor(target, dtype=torch.float32, device=a.device)
+    target = _per_pixel(target, a.device)
     ra, rb = a - target, b - target
     denom = a.numel()
     d = _scene_grads(_color_grads_block(scene, cam, cfg, 2 * step, rb / denom, device)
@@ -522,10 +519,12 @@ def loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
 
         return ak.ad_loss_and_grads(scene, cam, cfg, frame, target, device)
     loss, d_e, d_c, _ = fused_loss_grads(scene, cam, cfg, frame, target, device)
-    scene, cam = scene.to(loss.device), cam.to(loss.device)
-    d_scene = Scene(torch.zeros_like(scene.radius), torch.zeros_like(scene.position), d_e, d_c)
-    d_cam = Camera(torch.zeros_like(cam.position), torch.zeros_like(cam.yaw),
-                   torch.zeros_like(cam.pitch))
+
+    def zeros(x):  # x's shape and dtype on the loss's device: nothing is copied
+        return torch.zeros(x.shape, dtype=x.dtype, device=loss.device)
+
+    d_scene = Scene(zeros(scene.radius), zeros(scene.position), d_e, d_c)
+    d_cam = Camera(zeros(cam.position), zeros(cam.yaw), zeros(cam.pitch))
     return loss, (d_scene, d_cam)
 
 

@@ -49,10 +49,11 @@ import torch
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.config import RenderConfig
 from pathtrace_tpu_torch.ops import trace_kernel as tk
-from pathtrace_tpu_torch.ops.grad_kernel import _device, _per_pixel
+from pathtrace_tpu_torch.ops.grad_kernel import _per_pixel
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
 from pathtrace_tpu_torch.scene import Scene
+from pathtrace_tpu_torch.utils.transfer import to_device
 
 SOURCE = CSRC / "nee_grad_kernel.cu"
 MODES = ("fused", "replay")
@@ -406,8 +407,9 @@ class CudaNeeGradKernel:
         fit an SM; only the occupancy curve of ``scripts/
         torch_sweep_occupancy.py`` and ``chip_smoke.py`` passes it."""
         fn = self._function()
-        scene_np, cam_np, seed_np = tk.host_arrays(scene_block, cam_block, seed)
-        n_out = 10 * scene_np.shape[0] + 16
+        held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
+                                                              device)
+        n_out = 10 * scene_block.shape[0] + 16
         w, block = cfg.width, cfg.block
         color = None
         if mode == "fused":
@@ -418,8 +420,8 @@ class CudaNeeGradKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(
-                scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
-                seed_np.ctypes.data, local_h, w, tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
+                scene_at, scene_block.shape[0], cam_at, seed_at, local_h, w,
+                tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
                 cfg.push_ray_origin, cfg.light_index, MODES.index(mode), block,
                 pixels.data_ptr(),
@@ -458,7 +460,7 @@ def fused(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: i
     """The fused-mode wrapper -> (sums [10N + 16], colour [local_h, W, 3]) on
     ``device`` (default: the blocks'). CPU: the plain version. CUDA: the
     kernel, or an exception."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, target, dev, "fused")
     kw = dict(local_h=local_h, spp=spp, device=dev)
     if dev.type == "cpu":
@@ -469,7 +471,7 @@ def fused(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: i
 def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
            spp: int, device=None):
     """The replay-mode wrapper -> sums [10N + 16] (0 in the loss slot)."""
-    dev = _device(scene_block, device)
+    dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev, "replay")
     kw = dict(local_h=local_h, spp=spp, device=dev)
     if dev.type == "cpu":
@@ -543,31 +545,43 @@ def scene_grads_from_block(block: torch.Tensor) -> Scene:
     return Scene(block[:n, 0], block[:n, 1:4], block[:n, 4:7], block[:n, 7:10])
 
 
+def basis_jacobian(cam, cfg: RenderConfig) -> torch.Tensor:
+    """[2, 12]: the derivatives of ``Camera.eye_ray_basis`` [4, 3] (flattened)
+    by yaw and by pitch, taken with autograd where the camera lives, in one
+    batched backward (the chain the ``"torch"`` backend differentiates; the
+    basis does not depend on the position)."""
+    yaw, pitch = (getattr(cam, k).detach().requires_grad_(True) for k in ("yaw", "pitch"))
+    with torch.enable_grad():
+        basis = Camera(cam.position.detach(), yaw, pitch).eye_ray_basis(cfg.width, cfg.height)
+        rows = torch.eye(basis.numel(), dtype=basis.dtype, device=basis.device)
+        d_yaw, d_pitch = torch.autograd.grad(basis, (yaw, pitch),
+                                             grad_outputs=rows.reshape(-1, *basis.shape),
+                                             is_grads_batched=True)
+    return torch.stack([d_yaw, d_pitch])
+
+
 def grads_from_block(scene, cam, cfg: RenderConfig, block: torch.Tensor):
     """Gradient block -> (d_scene, d_camera) on the block's device. The corner
-    rays' cotangents are pulled back through ``Camera.eye_ray_basis`` with
-    autograd on the host (the chain the ``"torch"`` backend differentiates),
-    and the ray origin's eye cotangent adds to the position gradient."""
+    rays' cotangents are pulled back through ``Camera.eye_ray_basis`` as
+    ``jax.vjp`` pulls them back on the block's device: its Jacobian
+    (``basis_jacobian``) is taken where the camera lives, moved to the
+    block's device without a wait for the card and contracted there, so
+    nothing is read back from the card. The ray origin's eye cotangent is
+    the position gradient."""
     n = scene.num_objects
     if tuple(block.shape) != (n + 5, BLOCK_COLS):
         raise ValueError(f"block must be [{n + 5}, {BLOCK_COLS}], got {tuple(block.shape)}")
-    host = block.detach().to("cpu")
-    leaves = [getattr(cam, k).detach().to("cpu").requires_grad_(True)
-              for k in ("position", "yaw", "pitch")]
-    with torch.enable_grad():
-        basis = Camera(*leaves).eye_ray_basis(cfg.width, cfg.height)
-        grads = torch.autograd.grad(basis, leaves, grad_outputs=host[n + 1: n + 5, 0:3],
-                                    allow_unused=True)
-    d_pos, d_yaw, d_pitch = (torch.zeros_like(x) if g is None else g
-                             for x, g in zip(leaves, grads))
-    d_cam = Camera(d_pos + host[n, 0:3], d_yaw, d_pitch, device=block.device)
+    block = block.detach()
+    jac = to_device(basis_jacobian(cam, cfg), block.device)
+    d_yaw, d_pitch = (jac * block[n + 1: n + 5, 0:3].reshape(1, -1)).sum(dim=1)
+    d_cam = Camera(block[n, 0:3].clone(), d_yaw, d_pitch, device=block.device)
     return scene_grads_from_block(block), d_cam
 
 
 def nee_loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     """(loss, (d_scene, d_camera)) of the mean-squared pixel colour loss for an
     NEE diffuse config, all parameters: one fused launch."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     sums, _ = fused(sb, cb, tk.make_seed_block(cfg, frame), cfg, _per_pixel(target, device),
                     local_h=cfg.height, spp=cfg.spp, device=device)
     block = block_from_sums(sums) / (cfg.height * cfg.width * 3)
@@ -581,7 +595,7 @@ def nee_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_off
     per-SAMPLE colour cotangent ``ct_block`` [3, local_h, W] (1/global-spp
     folded in by the caller): one replay launch. Blocks of different slabs
     and sample ranges add up to the frame's."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     local_h = cfg.height if local_h is None else local_h
     ct = _per_pixel(ct_block, device).permute(1, 2, 0).contiguous()
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg, ct,
@@ -592,7 +606,7 @@ def nee_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_off
 def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
     """Gradient block [N + 5, 11] of sum(cotangent * mean colour) for
     ``cotangent`` [H, W, 3]: one replay launch."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     ct = _per_pixel(cotangent, device) / cfg.spp
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
                   spp=cfg.spp, device=device)

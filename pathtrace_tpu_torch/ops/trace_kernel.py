@@ -15,9 +15,16 @@ of three modes:
 ``trace`` is the wrapper. On the CPU it runs ``trace_plain``, a direct
 transcription of ``trace_tile_sample`` + ``sample_body`` over [h, W]
 tensors; on a CUDA device it launches the kernel, or raises. It never falls
-back from one to the other. The scene and camera blocks are the kernel's
-by-value parameters: the entry points build them on the host, so a launch
-reads nothing back from the device.
+back from one to the other. The scene [N, 10], camera [5, 3] and seed [5]
+blocks are device arrays, as the TPU kernel's scalar-prefetch operands are
+SMEM arrays: the launch queues their copy into the kernel's constant memory
+on its stream, just before the kernel (``csrc/common.cuh::stage_blocks``).
+The entry points build the scene and camera blocks where the scene and
+camera live (``device_blocks``); the wrapper takes blocks on the launch
+device, or on the host, which it moves there with the seed block by one
+copy that does not wait for the card (``launch_operands``). So no entry
+point reads a value back from the card, and a launch on device blocks can
+be captured in a CUDA graph and replayed on new block contents.
 
 ``agreement`` holds two outputs of one mode against each other, channel by
 channel, under the tolerances stated with it.
@@ -30,7 +37,7 @@ the flags change) and bound with ctypes. Both versions draw the lattice of ``rng
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from pathtrace_tpu_torch.config import MAX_BLOCK, RenderConfig
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.variance import LUMA, Moments
 from pathtrace_tpu_torch.render import FEATURES, resolve_device, unpack_channels
+from pathtrace_tpu_torch.utils.transfer import to_device
 
 T_BIG = 1.0e6
 TWO_PI = 6.283185307179586
@@ -61,7 +69,9 @@ STAT_CHANNELS = {
 
 SOURCE = CSRC / "trace_kernel.cu"
 
-SeedBlock = Tuple[int, int, int, int, int]
+# A seed block: the five integers of make_seed_block, or their int32 [5]
+# tensor (seed_array), on the host or on the launch device.
+SeedBlock = Union[Tuple[int, int, int, int, int], torch.Tensor]
 
 
 def make_seed_block(cfg: RenderConfig, frame=0, sample_offset=0, row_offset=0,
@@ -70,6 +80,27 @@ def make_seed_block(cfg: RenderConfig, frame=0, sample_offset=0, row_offset=0,
     lattice position of a launch. The offsets are the sharding hook."""
     return (cfg.seed & 0x7FFFFFFF, int(frame), int(sample_offset), int(row_offset),
             int(col_offset))
+
+
+def seed_array(seed: SeedBlock, device=None) -> torch.Tensor:
+    """The seed block as the kernels read it: int32 [5] holding each value's
+    low 32 bits (read as uint32), on ``device`` (default: the host), moved
+    there without a wait for the card. ``make_seed_array``'s values in the
+    JAX package."""
+    if torch.is_tensor(seed):
+        return to_device(seed, device)
+    words = [int(x) & 0xFFFFFFFF for x in seed]
+    host = torch.tensor([w - (1 << 32) if w >= 1 << 31 else w for w in words],
+                        dtype=torch.int32)
+    return to_device(host, device)
+
+
+def seed_values(seed: SeedBlock) -> tuple:
+    """The five integers of a seed block (a tensor's as uint32, read on the
+    host: the plain versions' route)."""
+    if torch.is_tensor(seed):
+        return tuple(int(x) & 0xFFFFFFFF for x in seed.tolist())
+    return tuple(seed)
 
 
 def camera_block(cam, cfg: RenderConfig) -> torch.Tensor:
@@ -320,7 +351,7 @@ class PlainLattice:
         cam = cam_block.detach().to("cpu", torch.float32).numpy()
         self.eye = [float(x) for x in cam[0]]
         self.basis = [[float(x) for x in b] for b in cam[1:5]]
-        seed_v, frame, self.sample_offset, row_offset, col_offset = seed
+        seed_v, frame, self.sample_offset, row_offset, col_offset = seed_values(seed)
         rows_i = torch.arange(local_h, device=dev)[:, None] + row_offset
         cols_i = torch.arange(cfg.width, device=dev)[None, :] + col_offset
         rows_i, cols_i = torch.broadcast_tensors(rows_i, cols_i)
@@ -436,14 +467,85 @@ def sphere_table_banks(num_spheres: int, field: int) -> np.ndarray:
 
 # -- the CUDA kernel -----------------------------------------------------------
 
-def host_arrays(scene_block, cam_block, seed: SeedBlock):
-    """A launch's by-value inputs as contiguous host arrays: scene [N, 10] and
-    camera [5, 3] float32, seed [5] uint32. The kernels copy them into their
-    parameter struct: host blocks cost no device round trip, device blocks
-    are read back first."""
-    return (np.ascontiguousarray(scene_block.detach().cpu().numpy(), np.float32),
-            np.ascontiguousarray(cam_block.detach().cpu().numpy(), np.float32),
-            np.array([x & 0xFFFFFFFF for x in seed], np.uint32))
+def launch_device(scene_block, device=None) -> torch.device:
+    """The device of a launch: ``device``, or the scene block's; a CUDA
+    device with its index."""
+    dev = scene_block.device if device is None else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+CAM_WORD = SPHERE_ROW_WORDS * MAX_SPHERES  # csrc/common.cuh::kCamWord
+
+
+def _host_words(block) -> np.ndarray:
+    """A host block's 4-byte words as float32 bits: a float32 or int32
+    tensor (``check_blocks``), or the seed's five integers."""
+    if torch.is_tensor(block):
+        return block.detach().numpy().reshape(-1).view(np.float32)
+    return np.array([int(x) & 0xFFFFFFFF for x in block], np.uint32).view(np.float32)
+
+
+def _stage(words: dict, device):
+    """Host words {block index: float32 array} -> (one buffer on ``device``,
+    {block index: word offset}), written on the host (pinned, for the card)
+    and moved by one copy that does not wait for the card. All three blocks
+    are laid out as the kernels' constant copy of them (``csrc/common.cuh::
+    SceneBlocks``: the scene padded to ``MAX_SPHERES`` rows, the camera, the
+    seed), so that a launch copies them in one piece; fewer, one after the
+    other."""
+    if len(words) == 3:
+        starts = {0: 0, 1: CAM_WORD, 2: CAM_WORD + 15}
+    else:
+        starts, at = {}, 0
+        for k, w in words.items():
+            starts[k], at = at, at + w.size
+    size = max(starts[k] + w.size for k, w in words.items())
+    buf = torch.empty(size, dtype=torch.float32, pin_memory=device.type == "cuda")
+    host = buf.numpy()
+    host[:] = 0.0
+    for k, w in words.items():
+        host[starts[k]: starts[k] + w.size] = w
+    return buf.to(device, non_blocking=True), starts
+
+
+def launch_operands(scene_block, cam_block, seed: SeedBlock, device: torch.device):
+    """The device addresses of a CUDA launch's scene [N, 10] and camera [5, 3]
+    float32 and seed int32 [5] blocks -> (what keeps staged blocks alive
+    until the launch is queued, scene, camera, seed address). A block on
+    ``device`` is passed as it is; blocks on the host, and a seed given as
+    its five integers, are staged by one copy (``_stage``); a block on
+    another device raises ValueError."""
+    blocks = [scene_block, cam_block, seed]
+    for name, t in zip(("scene", "camera", "seed"), blocks):
+        if torch.is_tensor(t) and t.device != device and t.device.type != "cpu":
+            raise ValueError(f"{name} block is on {t.device}, the launch on {device}")
+    words = {k: _host_words(t) for k, t in enumerate(blocks)
+             if not torch.is_tensor(t) or t.device.type == "cpu"}
+    if not words:
+        return None, scene_block.data_ptr(), cam_block.data_ptr(), seed.data_ptr()
+    staged, starts = _stage(words, device)
+    addr = [staged.data_ptr() + 4 * starts[k] if k in starts else t.data_ptr()
+            for k, t in enumerate(blocks)]
+    return staged, *addr
+
+
+def stage_blocks(blocks, device) -> tuple:
+    """``blocks`` (scene [N, 10] and camera [5, 3] float32, and seed int32 [5],
+    in that order; the seed may be left out) as tensors on ``device``: those
+    on the host staged by one copy (``_stage``) and cut into views, the
+    others moved without a wait for the card."""
+    device = torch.device(device)
+    blocks = list(blocks)
+    words = {k: _host_words(t) for k, t in enumerate(blocks) if t.device.type == "cpu"}
+    if words and device.type != "cpu":
+        staged, starts = _stage(words, device)
+        for k in words:
+            t = blocks[k]
+            part = staged[starts[k]: starts[k] + t.numel()]
+            blocks[k] = (part if t.dtype == torch.float32 else part.view(t.dtype)).view(t.shape)
+    return tuple(to_device(t, device) for t in blocks)
 
 
 class CudaTraceKernel:
@@ -494,7 +596,7 @@ class CudaTraceKernel:
         fit an SM; only the occupancy curve of ``scripts/
         torch_kernel_occupancy.py`` passes it."""
         fn = self._function()
-        scene_np, cam_np, seed_np = host_arrays(scene_block, cam_block, seed)
+        held, scene_at, cam_at, seed_at = launch_operands(scene_block, cam_block, seed, device)
         n_ch = MODES[mode]
         if lanes is None:
             lanes = sample_lanes(spp, cfg.block, local_h * cfg.width, device_sm_count(device))
@@ -502,8 +604,8 @@ class CudaTraceKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(
-                scene_np.ctypes.data, scene_np.shape[0], cam_np.ctypes.data,
-                seed_np.ctypes.data, local_h, cfg.width, _f32(1.0 / cfg.width),
+                scene_at, scene_block.shape[0], cam_at, seed_at, local_h,
+                cfg.width, _f32(1.0 / cfg.width),
                 _f32(1.0 / cfg.height), spp, _f32(1.0 / spp), cfg.max_bounces,
                 int(cfg.resolved_jitter), cfg.push_ray_origin,
                 cfg.light_index if cfg.nee else -1, int(cfg.brdf == "glossy"),
@@ -533,7 +635,14 @@ def check_blocks(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp):
         raise ValueError(f"camera block must be [5, 3], got {tuple(cam_block.shape)}")
     if cam_block.device != scene_block.device:
         raise ValueError("scene and camera blocks must be on one device")
-    if len(seed) != 5:
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int32 or tuple(seed.shape) != (5,) or not seed.is_contiguous():
+            raise ValueError(f"seed block must be a contiguous int32 [5], got {seed.dtype} "
+                             f"{tuple(seed.shape)}")
+        if seed.device not in (scene_block.device, torch.device("cpu")):
+            raise ValueError(f"seed block is on {seed.device}, the scene block on "
+                             f"{scene_block.device}")
+    elif len(seed) != 5:
         raise ValueError(f"seed block must hold 5 integers, got {len(seed)}")
     if local_h < 1 or cfg.width < 1 or spp < 1 or cfg.max_bounces < 0:
         raise ValueError("local_h, width and spp must be >= 1, max_bounces >= 0")
@@ -552,7 +661,7 @@ def trace(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     check_blocks(scene_block, cam_block, seed, cfg, local_h, spp)
-    dev = scene_block.device if device is None else torch.device(device)
+    dev = launch_device(scene_block, device)
     if dev.type == "cpu":
         return trace_plain(scene_block, cam_block, seed, cfg, local_h=local_h, spp=spp,
                            mode=mode, device=dev)
@@ -608,20 +717,29 @@ def agreement(got: torch.Tensor, ref: torch.Tensor, mode: str, spp: int):
 
 # -- entry points (the JAX package's signatures, plus a device) ---------------
 
-def host_blocks(scene, cam, cfg, device):
-    """(scene block, camera block, device): the blocks are built on the host,
-    since the kernel takes them by value. ``device`` None is the current CUDA
-    device (``render.resolve_device``)."""
+def device_blocks(scene, cam, cfg, device):
+    """(scene block, camera block, device) of a launch on ``device`` (None: the
+    current CUDA device, ``render.resolve_device``). The blocks are built
+    where the scene and camera live (the camera's basis in its own
+    arithmetic, so a host camera gives the same bits as ever). For a CUDA
+    launch, host blocks stay on the host when both are there: the launch
+    stages them with its seed block in one copy; else both go to the card
+    without a wait for it. Nothing is read back from the card."""
     device = resolve_device(device)
-    cpu = torch.device("cpu")
-    return scene.to(cpu).packed(), camera_block(cam.to(cpu), cfg), device
+    sb, cb = scene.packed(), camera_block(cam, cfg)
+    if device.type == "cpu":
+        return sb.to(device), cb.to(device), device
+    if sb.device.type == cb.device.type == "cpu":
+        return sb, cb, device
+    sb, cb = stage_blocks((sb, cb), device)
+    return sb, cb, device
 
 
 def render_channels(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:
     """Render via the kernel -> packed [H, W, 14] buffer."""
-    sb, cb, device = host_blocks(scene, cam, cfg, device)
-    return trace(sb, cb, make_seed_block(cfg, frame), cfg, local_h=cfg.height,
-                 spp=cfg.spp, mode="channels", device=device)
+    sb, cb, device = device_blocks(scene, cam, cfg, device)
+    return trace(sb, cb, make_seed_block(cfg, frame), cfg, local_h=cfg.height, spp=cfg.spp,
+                 mode="channels", device=device)
 
 
 def render_aovs(scene, cam, cfg: RenderConfig, frame=0, device=None) -> Dict[str, torch.Tensor]:
@@ -632,7 +750,7 @@ def render_color_sums(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_
                       spp=None, sample_offset=0, device=None) -> torch.Tensor:
     """RAW colour sums [local_h, W, 3] over samples [sample_offset,
     sample_offset + spp) of rows [row_offset, row_offset + local_h)."""
-    sb, cb, device = host_blocks(scene, cam, cfg, device)
+    sb, cb, device = device_blocks(scene, cam, cfg, device)
     return trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                  local_h=cfg.height if local_h is None else local_h,
                  spp=cfg.spp if spp is None else spp, mode="color", device=device)
@@ -658,7 +776,7 @@ def accumulate_frame_kernel(scene, cam, cfg: RenderConfig, frame, row_offset=0,
                             local_h=None, spp=None, sample_offset=0, device=None):
     """Kernel slab pass -> (sums, moments) partials: rows [row_offset,
     row_offset + local_h), samples [sample_offset, sample_offset + spp)."""
-    sb, cb, device = host_blocks(scene, cam, cfg, device)
+    sb, cb, device = device_blocks(scene, cam, cfg, device)
     out = trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                 local_h=cfg.height if local_h is None else local_h,
                 spp=cfg.spp if spp is None else spp, mode="partials", device=device)

@@ -113,7 +113,7 @@ def count_segments(scene, cam, cfg: RenderConfig, frame=0, device=None) -> int:
     """Path segments the kernels trace for this frame: every sample's primary
     ray, and one more for each bounce that hit and is not the last. Counted
     with the kernels' plain trajectory (``trace_kernel.PlainLattice``)."""
-    sb, cb, device = tk.host_blocks(scene, cam, cfg, device)
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     lat = tk.PlainLattice(sb, cb, tk.make_seed_block(cfg, frame), cfg, cfg.height, device)
     if cfg.max_bounces < 1:
         return 0

@@ -30,7 +30,12 @@ limit:
    single launches, the host's launch gap included) and by ``torch.profiler``
    (device time of the kernel alone over ``--iters`` launches): K1's 14
    channels at 512x512x4 and 512x512x32, its colour sums at 256x256x16 NEE
-   and 256x256x8 glossy; K2's dump at 256x256x8, fused and K5 at 512x512x32.
+   and 256x256x8 glossy; K2's dump at 256x256x8, fused and K5 at 512x512x32;
+   K3 fused and replay at 512x512x32 NEE, K4 against a colour cotangent at
+   512x512x32 glossy and NEE diffuse, and K1's NEE colour sums there (the
+   two launches of the bench's ``vjp_fwd_bwd_mrays``). A tree whose kernels
+   take their blocks as device arrays (``trace_kernel.stage_blocks``) is
+   given them there once; an older tree takes them on the host.
 6. With ``--digests``: ``chip_smoke.kernel_digests`` (the bit gate of phase
    17) and K1's max |kernel - plain| on the twelve cases of phase 3.
 
@@ -128,7 +133,7 @@ def main() -> int:
     scene, cam = cornell_box(), Camera.create()
     sb, n = scene.packed(), scene.num_objects
     sources = (tk.SOURCE, gk.SOURCE, nk.SOURCE, ak.SOURCE)
-    build.build_all(sources[:2] if args.skip_report else sources)
+    build.build_all(sources)
 
     if not args.skip_report:
         print("== ptxas -v: registers, stack frame, spill stores, spill loads (bytes)")
@@ -184,20 +189,40 @@ def main() -> int:
         "K2 dump 256x256x8": (RenderConfig(width=256, height=256, spp=8), "dump"),
         "K2 fused 512x512x32": (RenderConfig(width=512, height=512, spp=32), "fused"),
         "K5 replay 512x512x32": (RenderConfig(width=512, height=512, spp=32), "replay"),
+        "K3 fused 512x512x32": (RenderConfig(width=512, height=512, spp=32, nee=True),
+                                "nee fused"),
+        "K3 replay 512x512x32": (RenderConfig(width=512, height=512, spp=32, nee=True),
+                                 "nee replay"),
+        "K4 glossy colour 512x512x32": (RenderConfig(width=512, height=512, spp=32,
+                                                     brdf="glossy"), "ad"),
+        "K1 color nee 512x512x32": (RenderConfig(width=512, height=512, spp=32, nee=True),
+                                    "color"),
+        "K4 nee colour 512x512x32": (RenderConfig(width=512, height=512, spp=32, nee=True),
+                                     "ad"),
     }
+    profiled = {"nee fused": "nee_grad_kernel", "nee replay": "nee_grad_kernel",
+                "ad": "ad_grad_kernel"}
 
     def launcher(cfg, mode, pad=0):
-        cb, seed = tk.camera_block(cam, cfg), tk.make_seed_block(cfg)
-        kw = dict(local_h=cfg.height, spp=cfg.spp, device=dev, pad_shared=pad)
+        sbl, cb, seed = sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg)
+        if hasattr(tk, "stage_blocks"):
+            sbl, cb, seed = tk.stage_blocks((sbl, cb, tk.seed_array(seed)), dev)
+        kw = dict(local_h=cfg.height, spp=cfg.spp, device=dev)
+        px = None
+        if mode not in tk.MODES and mode != "dump":
+            px = torch.full((cfg.height, cfg.width, 3), 0.25 if "fused" in mode else 1e-6,
+                            device=dev)
+        if mode == "ad":
+            ct = px.permute(2, 0, 1).contiguous()
+            return lambda: ak.CUDA_KERNEL.launch(sbl, cb, seed, cfg, ct, **kw)
+        if mode.startswith("nee "):
+            return lambda: nk.CUDA_KERNEL.launch(mode[4:], sbl, cb, seed, cfg, px, **kw)
+        kw["pad_shared"] = pad
         if args.lanes:
             kw["lanes"] = args.lanes
         if mode in tk.MODES:
-            return lambda: tk.CUDA_KERNEL.launch(sb, cb, seed, cfg, mode=mode, **kw)
-        px = None
-        if mode != "dump":
-            px = torch.full((cfg.height, cfg.width, 3), 0.25 if mode == "fused" else 1e-6,
-                            device=dev)
-        return lambda: gk.CUDA_KERNEL.launch(mode, sb, cb, seed, cfg, px, **kw)
+            return lambda: tk.CUDA_KERNEL.launch(sbl, cb, seed, cfg, mode=mode, **kw)
+        return lambda: gk.CUDA_KERNEL.launch(mode, sbl, cb, seed, cfg, px, **kw)
 
     if not args.skip_curve:
         print(f"== occupancy curve: dynamic shared memory padded; median of {args.iters} launches")
@@ -232,9 +257,8 @@ def main() -> int:
     for key, (cfg, mode) in cases.items():
         fn = launcher(cfg, mode)
         ms, _ = time_fn(fn, warmup=3, iters=args.iters, device=dev)
-        prof, device_all = chip_smoke.kernel_profiler_ms(fn, args.iters,
-                                                         "pathtrace_kernel" if mode in tk.MODES
-                                                         else "grad_kernel")
+        match = profiled.get(mode, "pathtrace_kernel" if mode in tk.MODES else "grad_kernel")
+        prof, device_all = chip_smoke.kernel_profiler_ms(fn, args.iters, match)
         result["times"][key] = dict(events=statistics.median(ms), events_min=min(ms),
                                     events_max=max(ms), profiler=prof, device_all=device_all)
         print(f"  [{args.label}] {key:28s} events {statistics.median(ms):.4f} ms (runs "

@@ -161,8 +161,9 @@ def main() -> int:
     result["curve"] = {}
     for size, spp in ((512, 32), (256, 16)):
         cfg = RenderConfig(width=size, height=size, spp=spp, nee=True)
-        cb = tk.camera_block(cam, cfg)
-        seed = tk.make_seed_block(cfg)
+        sbl, cb, seed = sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg)
+        if hasattr(tk, "stage_blocks"):  # kernels that take their blocks as device arrays
+            sbl, cb, seed = tk.stage_blocks((sbl, cb, tk.seed_array(seed)), dev)
         ct = torch.full((size, size, 3), 1e-6, device=dev)
         kw = dict(local_h=size, spp=spp, device=dev)
         first = None
@@ -172,7 +173,7 @@ def main() -> int:
             if pad < 0:
                 continue
             occ = nk.CUDA_KERNEL.occupancy("replay", 8, n, pad)
-            ms, _ = time_fn(lambda: nk.CUDA_KERNEL.launch("replay", sb, cb, seed, cfg, ct,
+            ms, _ = time_fn(lambda: nk.CUDA_KERNEL.launch("replay", sbl, cb, seed, cfg, ct,
                                                           pad_shared=pad, **kw),
                             warmup=2, iters=args.iters, device=dev)
             med = statistics.median(ms)
