@@ -27,6 +27,7 @@ from pathtrace_tpu_torch.models.infer import denoise_channels
 from pathtrace_tpu_torch.progressive import ProgressiveRenderer
 from pathtrace_tpu_torch.render import pack_channels, render_aovs, resolve_device
 from pathtrace_tpu_torch.utils.metrics import JsonlLogger
+from pathtrace_tpu_torch.utils.timing import span
 
 
 def to_display(color: torch.Tensor) -> torch.Tensor:
@@ -108,24 +109,31 @@ class FrameStepper:
         return self._prog.aovs()
 
     def step(self) -> np.ndarray:
-        t0 = time.perf_counter()
-        aovs = self._step_aovs()
-        if self.denoising and self.checkpoint:
-            color = denoise_channels(pack_channels(aovs), self.checkpoint)
-            if self.progressive and self._prog is not None:
-                # Denoise while converging: w * CNN + (1 - w) * accumulation,
-                # w = clip(max(sqrt(max(var, 0) / n) / fade_std, fade_spp / n), 0, 1)
-                # per pixel (pathtrace_tpu/interactive.py:117-159).
-                n = float(max(self._prog.samples_done, 1))
-                std_mean = torch.sqrt(torch.clamp(aovs["color_var"], min=0.0) / n)
-                w = torch.clamp(torch.clamp(std_mean / self.denoise_fade_std,
-                                            min=self.denoise_fade_spp / n), 0.0, 1.0)[..., None]
-                color = w * color + (1.0 - w) * aovs["color"]
-        else:
-            color = aovs["color"]
-        rgb = to_display(color).cpu().numpy()  # the copy waits for the card
-        self.last_ms = (time.perf_counter() - t0) * 1000.0
-        self.frame += 1
+        """One frame, in the spans ``frame`` (the call), ``frame.render``,
+        ``frame.denoise`` (with the fade) and ``frame.display``."""
+        with span("frame"):
+            t0 = time.perf_counter()
+            with span("frame.render"):
+                aovs = self._step_aovs()
+            if self.denoising and self.checkpoint:
+                with span("frame.denoise"):
+                    color = denoise_channels(pack_channels(aovs), self.checkpoint)
+                    if self.progressive and self._prog is not None:
+                        # Denoise while converging: w * CNN + (1 - w) * accumulation,
+                        # w = clip(max(sqrt(max(var, 0) / n) / fade_std, fade_spp / n), 0, 1)
+                        # per pixel (pathtrace_tpu/interactive.py:117-159).
+                        n = float(max(self._prog.samples_done, 1))
+                        std_mean = torch.sqrt(torch.clamp(aovs["color_var"], min=0.0) / n)
+                        w = torch.clamp(torch.clamp(std_mean / self.denoise_fade_std,
+                                                    min=self.denoise_fade_spp / n),
+                                        0.0, 1.0)[..., None]
+                        color = w * color + (1.0 - w) * aovs["color"]
+            else:
+                color = aovs["color"]
+            with span("frame.display"):
+                rgb = to_display(color).cpu().numpy()  # the copy waits for the card
+            self.last_ms = (time.perf_counter() - t0) * 1000.0
+            self.frame += 1
         return rgb
 
 

@@ -43,6 +43,7 @@ from pathtrace_tpu_torch.ops import grad_kernel
 from pathtrace_tpu_torch.ops.sampling import clip01, clip01_grad
 from pathtrace_tpu_torch.render import render_aovs, resolve_backend, resolve_device
 from pathtrace_tpu_torch.scene import Scene
+from pathtrace_tpu_torch.utils.timing import span
 
 
 class InverseState(NamedTuple):
@@ -82,7 +83,8 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
 
     step_fn(state) -> (state', loss): one Adam step on the cross-estimator
     with respect to the fields in ``optimize``; ``loss`` is the estimate
-    before the step. ``learning_rate`` is a float, a schedule (a callable
+    before the step. Its spans: ``inverse.step`` (the call), ``inverse.grads``
+    and ``inverse.adam``. ``learning_rate`` is a float, a schedule (a callable
     ``step -> lr``), or a dict {field: float or schedule} for fields of
     different natural scales. ``grad_mask`` ({field: 0/1 tensor
     broadcastable to the field}) freezes entries: Adam normalizes step
@@ -138,13 +140,16 @@ def make_inverse_step(base_scene: Scene, cam, cfg: RenderConfig, target: torch.T
     loss_grads = kernel_loss_grads if use_kernel else autograd_loss_grads
 
     def step_fn(state: InverseState):
-        loss, grads = loss_grads(state.params, state.step)
-        for name, g in grads.items():
-            state.params[name].grad = g * masks[name] if name in masks else g
-        for group, name in zip(state.opt_state.param_groups, optimize):
-            if name in schedules:
-                group["lr"] = float(schedules[name](state.step))
-        state.opt_state.step()
+        with span("inverse.step"):
+            with span("inverse.grads"):
+                loss, grads = loss_grads(state.params, state.step)
+            with span("inverse.adam"):
+                for name, g in grads.items():
+                    state.params[name].grad = g * masks[name] if name in masks else g
+                for group, name in zip(state.opt_state.param_groups, optimize):
+                    if name in schedules:
+                        group["lr"] = float(schedules[name](state.step))
+                state.opt_state.step()
         return InverseState(state.params, state.opt_state, state.step + 1), loss
 
     return InverseState(params, opt, 0), step_fn, opt

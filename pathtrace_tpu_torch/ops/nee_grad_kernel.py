@@ -53,6 +53,7 @@ from pathtrace_tpu_torch.ops.grad_kernel import _per_pixel
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
 from pathtrace_tpu_torch.scene import Scene
+from pathtrace_tpu_torch.utils import timing
 from pathtrace_tpu_torch.utils.transfer import to_device
 
 SOURCE = CSRC / "nee_grad_kernel.cu"
@@ -406,6 +407,7 @@ class CudaNeeGradKernel:
         shared bytes to ask for beyond the block's own, so that fewer blocks
         fit an SM; only the occupancy curve of ``scripts/
         torch_sweep_occupancy.py`` and ``chip_smoke.py`` passes it."""
+        t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
                                                               device)
@@ -431,10 +433,13 @@ class CudaNeeGradKernel:
         if err != 0:
             raise RuntimeError(f"NEE grad kernel ({mode}) launch failed: cudaError {err}")
         self.launches[mode] += 1
+        if mode == "replay":
+            timing.add_launch_ns("k3.replay", t0)
         return (sums, color) if mode == "fused" else sums
 
 
 CUDA_KERNEL = CudaNeeGradKernel()
+timing.launch_counter("k3.replay", lambda: CUDA_KERNEL.launches["replay"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels, dev, what):

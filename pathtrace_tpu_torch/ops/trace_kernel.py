@@ -47,6 +47,7 @@ from pathtrace_tpu_torch.config import MAX_BLOCK, RenderConfig
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.variance import LUMA, Moments
 from pathtrace_tpu_torch.render import FEATURES, resolve_device, unpack_channels
+from pathtrace_tpu_torch.utils import timing
 from pathtrace_tpu_torch.utils.transfer import to_device
 
 T_BIG = 1.0e6
@@ -595,6 +596,7 @@ class CudaTraceKernel:
         shared bytes to ask for beyond the block's own, so that fewer blocks
         fit an SM; only the occupancy curve of ``scripts/
         torch_kernel_occupancy.py`` passes it."""
+        t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = launch_operands(scene_block, cam_block, seed, device)
         n_ch = MODES[mode]
@@ -614,10 +616,12 @@ class CudaTraceKernel:
         if err != 0:
             raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
         self.launches += 1
+        timing.add_launch_ns("k1", t0)
         return out
 
 
 CUDA_KERNEL = CudaTraceKernel()
+timing.launch_counter("k1", lambda: CUDA_KERNEL.launches)
 
 
 def check_blocks(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp):

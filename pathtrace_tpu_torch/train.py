@@ -72,6 +72,7 @@ from pathtrace_tpu_torch.models.denoise_cnn import (DenoiseCNN, cudnn_determinis
                                                     init_model)
 from pathtrace_tpu_torch.models.preprocess import preprocess_channels, preprocess_target
 from pathtrace_tpu_torch.render import resolve_device
+from pathtrace_tpu_torch.utils.timing import span
 
 BATCH_SIZE = 5
 BASE_LR = 0.01
@@ -250,25 +251,32 @@ def train_step(state: TrainState, batch: torch.Tensor, target: torch.Tensor,
     of the batch, BatchNorm's statistics and the L1 mean are the whole
     batch's, and the gradients are summed over the ranks before the step.
     -> the whole batch's loss, a 0-d tensor on the device (reading it waits
-    for the step), the same on every rank."""
+    for the step), the same on every rank. Its spans: ``train.step`` (the
+    call), ``train.upload``, ``train.forward``, ``train.backward`` and
+    ``train.sgd``."""
     device = state.device
-    if dp is not None:
-        rows = dp.rows(batch.shape[0])
-        batch, target = batch[rows], target[rows]
-    batch, target = batch.to(device), target.to(device)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.lr
-    state.model.train()
-    with cudnn_tf32(False), cudnn_deterministic():
-        state.optimizer.zero_grad(set_to_none=True)
-        pred = state.model(batch, None if dp is None else dp.group)
-        # This rank's share of the whole batch's mean: the shares sum to it.
-        loss = l1_loss(pred, target) / (1 if dp is None else dp.size)
-        loss.backward()
-        loss = loss.detach()
-        if dp is not None:
-            loss = _all_reduce_grads(state.model, loss, dp.group)
-        state.optimizer.step()
+    with span("train.step"):
+        with span("train.upload"):
+            if dp is not None:
+                rows = dp.rows(batch.shape[0])
+                batch, target = batch[rows], target[rows]
+            batch, target = batch.to(device), target.to(device)
+        with cudnn_tf32(False), cudnn_deterministic():
+            with span("train.forward"):
+                state.model.train()
+                state.optimizer.zero_grad(set_to_none=True)
+                pred = state.model(batch, None if dp is None else dp.group)
+                # This rank's share of the whole batch's mean: the shares sum to it.
+                loss = l1_loss(pred, target) / (1 if dp is None else dp.size)
+            with span("train.backward"):
+                loss.backward()
+                loss = loss.detach()
+                if dp is not None:
+                    loss = _all_reduce_grads(state.model, loss, dp.group)
+            with span("train.sgd"):
+                for group in state.optimizer.param_groups:
+                    group["lr"] = state.lr
+                state.optimizer.step()
     return loss
 
 
@@ -276,14 +284,16 @@ def loop_epoch(state: TrainState, inputs: np.ndarray, targets: np.ndarray,
                order: np.ndarray, batch_size: int, dp: Optional[DataParallel] = None) -> float:
     """One epoch the way the JAX package's ``fit`` loops: each minibatch
     gathered on the host in ``order`` and moved to the device (with ``dp``,
-    this rank's rows of it), each loss read back; the remainder is dropped.
+    this rank's rows of it), each loss read back (the span
+    ``train.loss_read``, of the step's unit); the remainder is dropped.
     -> the mean loss."""
     epoch_loss, batches = 0.0, 0
     for i in range(0, len(order) - batch_size + 1, batch_size):
         idx = order[i: i + batch_size]
         loss = train_step(state, torch.from_numpy(inputs[idx]), torch.from_numpy(targets[idx]),
                           dp)
-        epoch_loss += float(loss)
+        with span("train.loss_read", tail=True):
+            epoch_loss += float(loss)
         batches += 1
     return epoch_loss / max(batches, 1)
 

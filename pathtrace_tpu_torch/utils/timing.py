@@ -9,18 +9,28 @@ throughput metric of the repo is
 
     Mrays/s = W * H * spp * max_bounces / time
 
-(path segments per second). ``trace`` records a ``torch.profiler`` trace
-of a block; ``MetricsLogger`` prints per-frame or per-step fields and
-appends them to a JSONL file.
+(path segments per second).
+
+Spans and launch counters: the entry points mark their phases with
+``span(name)`` (a frame's render, denoise and display; an inverse step's
+gradients and Adam; a training step's upload, forward, backward and SGD),
+and the wrappers of K1 and K3's replay, the launches of an inverse step,
+time their host side with ``launch_clock`` and ``add_launch_ns`` and name
+their ``launches`` count with ``launch_counter``. Nothing is recorded
+unless a caller brackets a block with ``start_recording()`` and
+``stop_recording()``, which returns the spans closed in between and the
+launches made, in memory. Spans are stamped with
+``time.time_ns()``, the clock ``torch.profiler`` stamps its host events
+with, so they lie on the same time line as a profiler's trace of the block.
+The recording is the process's, for one thread.
 """
 
 from __future__ import annotations
 
-import contextlib
-import json
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass, field
 from typing import Callable, List, Tuple
 
 import torch
@@ -93,40 +103,145 @@ def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: 
     return width * height * spp * max_bounces / seconds / 1e6
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """``torch.profiler`` trace of the block, written to ``log_dir`` as a
-    Chrome trace (``*.pt.trace.json``); the card's kernels are recorded where
-    there is a CUDA device. Yields the profiler, whose ``key_averages()``
-    sums the time by operation."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=activities,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
-        yield prof
+# -- spans and launch counters ------------------------------------------------
+
+# the kernel wrappers' launches a recording counts and times: K1
+# (trace_kernel) and K3's replay (nee_grad_kernel), by ``launch_counter``
+LAUNCH_KEYS = ("k1", "k3.replay")
+_COUNTERS = {}  # key -> the function that reads its wrapper's ``launches``
 
 
-class MetricsLogger:
-    """Structured per-frame/per-step metrics to stdout and an optional JSONL
-    file (``pathtrace_tpu.utils.timing.MetricsLogger``)."""
+@dataclass
+class Recording:
+    """What ``stop_recording`` returns. ``spans``: (name, start_ns, end_ns,
+    parent, unit) in the order they started; ``parent`` is the index of the
+    enclosing span (None at the root), ``unit`` the index of the root span
+    whose frame or step the span belongs to. ``launches`` and ``launch_ns``:
+    the kernel wrappers' launches and the host ns spent in their ``launch``,
+    by ``LAUNCH_KEYS``. ``start_ns``, ``stop_ns``: the recording's bounds."""
 
-    def __init__(self, jsonl_path=None, quiet=False):
-        self.path = jsonl_path
-        self.quiet = quiet
-        self._fh = open(jsonl_path, "a") if jsonl_path else None
+    spans: list = field(default_factory=list)
+    launches: dict = field(default_factory=dict)
+    launch_ns: dict = field(default_factory=dict)
+    start_ns: int = 0
+    stop_ns: int = 0
 
-    def log(self, **fields):
-        fields.setdefault("ts", time.time())
-        if not self.quiet:
-            printable = {k: v for k, v in fields.items() if k != "ts"}
-            print(" ".join(f"{k}={v}" for k, v in printable.items()))
-        if self._fh:
-            self._fh.write(json.dumps(fields) + "\n")
-            self._fh.flush()
 
-    def close(self):
-        if self._fh:
-            self._fh.close()
-            self._fh = None
+class _Recorder:
+    def __init__(self):
+        self.on = False
+        self.spans = []
+        self.open = []  # (index, unit) of the spans entered and not yet left
+        self.last_root = None
+        self.launch_ns = {}
+        self.counts = {}
+        self.start_ns = 0
+
+
+_REC = _Recorder()
+
+
+class _Off:
+    """The span of a process that is not recording: reads no clock."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "tail", "index", "parent", "unit", "start")
+
+    def __init__(self, name: str, tail: bool):
+        self.name, self.tail = name, tail
+
+    def __enter__(self):
+        rec = _REC
+        self.index = len(rec.spans)
+        rec.spans.append(None)  # its place, in the order spans start
+        if rec.open:
+            self.parent, self.unit = rec.open[-1]
+        else:
+            self.parent = None
+            self.unit = rec.last_root if self.tail else self.index
+        rec.open.append((self.index, self.unit))
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        rec = _REC
+        rec.open.pop()
+        rec.spans[self.index] = (self.name, self.start, end, self.parent, self.unit)
+        if self.parent is None and not self.tail:
+            rec.last_root = self.index
+        return False
+
+
+def span(name: str, tail: bool = False):
+    """A context manager that records the block as the span ``name`` while
+    recording, and does nothing otherwise. ``tail``: a span at the root that
+    belongs to the unit of the root span closed last (a step's loss, read
+    after the step returned)."""
+    return _Span(name, tail) if _REC.on else _OFF
+
+
+def launch_clock() -> int:
+    """The clock at the start of a kernel wrapper's ``launch``; 0 when not
+    recording."""
+    return time.time_ns() if _REC.on else 0
+
+
+def add_launch_ns(key: str, start_ns: int) -> None:
+    """Add the host ns since ``start_ns`` (``launch_clock``) to ``key``."""
+    if start_ns:
+        _REC.launch_ns[key] = _REC.launch_ns.get(key, 0) + time.time_ns() - start_ns
+
+
+def launch_counter(key: str, read: Callable[[], int]) -> None:
+    """Name ``read``, which returns a wrapper's ``launches`` count, as the
+    count of ``key`` (one of ``LAUNCH_KEYS``); the wrapper's module calls it
+    once, when it is imported."""
+    _COUNTERS[key] = read
+
+
+def _launch_counts() -> dict:
+    return {k: _COUNTERS[k]() if k in _COUNTERS else 0 for k in LAUNCH_KEYS}
+
+
+def start_recording() -> None:
+    """Record spans and launches from here (a recording in progress is
+    dropped)."""
+    rec = _REC
+    if rec.open:
+        raise RuntimeError("start_recording inside a span")
+    rec.spans, rec.last_root, rec.launch_ns = [], None, {}
+    rec.counts = _launch_counts()
+    rec.on = True
+    rec.start_ns = time.time_ns()
+
+
+def stop_recording() -> Recording:
+    """Stop recording -> the spans closed and the launches made since
+    ``start_recording``; an empty ``Recording`` where none was started.
+    Raises inside a span, whose end would be lost."""
+    rec = _REC
+    if not rec.on:
+        return Recording()
+    if rec.open:
+        raise RuntimeError("stop_recording inside a span")
+    stop = time.time_ns()
+    rec.on = False
+    counts = _launch_counts()
+    out = Recording(spans=rec.spans, launches={k: counts[k] - rec.counts[k] for k in LAUNCH_KEYS},
+                    launch_ns={k: rec.launch_ns.get(k, 0) for k in LAUNCH_KEYS},
+                    start_ns=rec.start_ns, stop_ns=stop)
+    rec.spans, rec.launch_ns = [], {}
+    return out

@@ -1,5 +1,5 @@
-"""The port's debug mode and checked render (tests/test_debug.py's cases),
-the profiler trace and the metrics loggers."""
+"""The port's debug mode and checked render (tests/test_debug.py's cases)
+and the JSONL event logger."""
 
 import pytest
 import torch
@@ -52,28 +52,11 @@ def test_debug_mode_stops_at_a_nan_gradient():
     assert torch.isnan(x.grad[0])
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    from pathtrace_tpu_torch.utils.timing import trace
-
-    with trace(str(tmp_path)) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64))
-    files = list(tmp_path.glob("*.pt.trace.json"))
-    assert len(files) == 1 and "traceEvents" in files[0].read_text()
-    assert any("matmul" in e.key for e in prof.key_averages())
-
-
-def test_metrics_logger(tmp_path, capsys):
+def test_jsonl_logger(tmp_path):
     import json
 
     from pathtrace_tpu_torch.utils.metrics import JsonlLogger
-    from pathtrace_tpu_torch.utils.timing import MetricsLogger
 
-    log = MetricsLogger(str(tmp_path / "m.jsonl"))
-    log.log(step=1, ms=2.5)
-    log.close()
-    assert capsys.readouterr().out.strip() == "step=1 ms=2.5"
-    rec = json.loads((tmp_path / "m.jsonl").read_text())
-    assert rec["step"] == 1 and rec["ms"] == 2.5 and "ts" in rec
     with JsonlLogger(str(tmp_path / "sub" / "e.jsonl")) as events:
         events.log("frame", frame=0)
     rec = json.loads((tmp_path / "sub" / "e.jsonl").read_text())
