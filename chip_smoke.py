@@ -80,7 +80,8 @@ and exits non-zero.
    ``inverse.make_inverse_step``: 256x256, 16 spp, NEE, 400 Adam steps,
    sphere 6 displaced by (6, -4, 8) and shrunk 20%, learning rates 0.5 and
    0.1 decaying to x0.02, gradients masked to sphere 6, target at 64 spp;
-   every step must launch the trace kernel twice and the NEE replay twice.
+   every step must launch the trace kernel twice and the NEE replay twice,
+   both replays sweeping the path tapes of the step's colour passes.
    The case's target, radius and whole position error both below 70% of
    their start, is printed as MET or NOT MET and does not stop the run:
    along the view axis (z) this estimator, whose silhouette terms are
@@ -169,7 +170,10 @@ and exits non-zero.
    256x256x8 glossy): the shading-only ones and the NEE replay against their
    plain versions, each last output held against the plain version's, the
    NEE ones of K4 held to the bits of the full instance, which phase 15
-   holds against its plain version at that size; and the NEE and glossy
+   holds against its plain version at that size; the NEE replay at
+   256x256x16 also taped (the sweep over a path tape that K1's taped colour
+   pass wrote), timed and held to the retracing replay's bits, its line
+   after the kernels line bound by the tape's bytes; and the NEE and glossy
    inverse steps' device time and idle share from phases 12 and 15.
 17. The bit gate of the forward kernel and the product-chain gradient
    kernel: ``kernel_digests`` (sha256 of the bytes K1 writes in its three
@@ -924,7 +928,7 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
     def zero_counts():
         tk.CUDA_KERNEL.launches = 0
         for k in (gk, nk):
-            for mode in k.MODES:
+            for mode in k.CUDA_KERNEL.launches:
                 k.CUDA_KERNEL.launches[mode] = 0
 
     phase(10, f"NEE gradient path at full size on cuda:0: (a) fused loss+grads 512x512x32; "
@@ -978,19 +982,23 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
         grad_mask={"position": pos_mask, "radius": rad_mask}, device=dev)
     losses, step_ms = [], []
     for i in range(NEE_INVERSE_STEPS):
-        before = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"])
+        before = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"],
+                  nk.CUDA_KERNEL.launches["replay_taped"])
         t_step = time.perf_counter()
         state, loss = step_fn(state)
         losses.append(float(loss))  # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t_step))
-        after = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"])
-        if (after[0] - before[0], after[1] - before[1]) != (2, 2):
-            raise RuntimeError(f"NEE inverse step {i} launched trace {after[0] - before[0]} and "
-                               f"replay {after[1] - before[1]} times, not 2 and 2")
+        after = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"],
+                 nk.CUDA_KERNEL.launches["replay_taped"])
+        if tuple(a - b for a, b in zip(after, before)) != (2, 2, 2):
+            raise RuntimeError(f"NEE inverse step {i} launched trace {after[0] - before[0]}, "
+                               f"replay {after[1] - before[1]} and taped replay "
+                               f"{after[2] - before[2]} times, not 2, 2 and 2")
     launches["replay"] = nk.CUDA_KERNEL.launches["replay"]
     launches["trace"] = tk.CUDA_KERNEL.launches
     others = nk.CUDA_KERNEL.launches["fused"] + sum(gk.CUDA_KERNEL.launches.values())
-    print(f"(b) launches: trace {launches['trace']}, NEE replay {launches['replay']}, "
+    print(f"(b) launches: trace {launches['trace']}, NEE replay {launches['replay']} (sweeping "
+          f"the colour passes' path tapes: {nk.CUDA_KERNEL.launches['replay_taped']}), "
           f"others {others}")
     if others:
         raise RuntimeError("the NEE inverse step launched another gradient kernel")
@@ -1376,7 +1384,7 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
         tk.CUDA_KERNEL.launches = 0
         ak.CUDA_KERNEL.launches = 0
         for k in (gk, nk):
-            for mode in k.MODES:
+            for mode in k.CUDA_KERNEL.launches:
                 k.CUDA_KERNEL.launches[mode] = 0
 
     def counts():
@@ -1719,6 +1727,19 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
                                        lambda: nk.replay_plain(sb, cb, seed, cfg, ct, **kw_t))
     err_nee = nee_compare(f"{label}/sums", got, ref, "sums")
     out["nee_replay", 256, "kernel"], out["nee_replay", 256, "plain"] = med["kernel"], med["plain"]
+    # The inverse step's replay: the sweep alone, over the path tape that
+    # K1's taped colour pass wrote for the same blocks.
+    tape = nk.PathTape.empty(cfg, 256, 16, dev)
+    tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw_t)
+    ms, taped = time_fn(lambda: nk.replay(sb, cb, seed, cfg, ct, tape=tape, **kw_t), warmup=2,
+                        iters=2 * TIMING_ITERS, device=dev)
+    out["nee_replay_taped", 256, "kernel"] = statistics.median(ms)
+    same = bool(torch.equal(taped, got))
+    print(f"{label}, taped (the path tape, {nk.tape_bytes(cfg, 256, 16)} B): kernel "
+          f"{out['nee_replay_taped', 256, 'kernel']:.4f} ms (runs {min(ms):.4f}..{max(ms):.4f}); "
+          f"the retracing replay's bits: {same}")
+    if not same:
+        raise RuntimeError(f"{label}: the taped replay is not the retracing replay's bits")
     print(f"the inverse steps (phases 12 and 15): NEE 256x256x16 {nee_times['step', 'kernel']:.4f} "
           f"ms a step, device {nee_times['step', 'device']:.4f} ms, idle "
           f"{nee_times['step', 'idle']:.3f}; glossy 256x256x8 {ad_times['step']:.4f} ms a step, "
@@ -3016,7 +3037,7 @@ def kernel_launch_counts(tk, gk, nk, ak) -> dict:
     """Every kernel's launch count, by its name in the kernels line."""
     out = {"pathtrace_kernel": tk.CUDA_KERNEL.launches, "ad_grad_kernel": ak.CUDA_KERNEL.launches}
     out.update({name: gk.CUDA_KERNEL.launches[mode] for mode, name, _ in GRAD_KERNELS})
-    out.update({f"nee_grad_kernel[{m}]": nk.CUDA_KERNEL.launches[m] for m in nk.MODES})
+    out.update({f"nee_grad_kernel[{m}]": n for m, n in nk.CUDA_KERNEL.launches.items()})
     return out
 
 
@@ -3024,7 +3045,7 @@ def reset_launch_counts(tk, gk, nk, ak):
     tk.CUDA_KERNEL.launches = 0
     ak.CUDA_KERNEL.launches = 0
     gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
-    nk.CUDA_KERNEL.launches = {m: 0 for m in nk.MODES}
+    nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
 
 
 def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
@@ -3512,6 +3533,11 @@ def main() -> int:
     print(f"  nee_grad_kernel[replay] 256x256x16 {ms:8.4f} ms  bound {b:.4f} ms by operations  "
           f"share of bound {b / ms:.3f}  (plain "
           f"{sweep_times['nee_replay', 256, 'plain']:.1f} ms)")
+    ms = sweep_times["nee_replay_taped", 256, "kernel"]
+    b = 1e3 * nk.tape_bytes(RenderConfig(width=256, height=256, spp=16, nee=True), 256, 16) \
+        / PUBLISHED_BYTES_PER_S
+    print(f"  nee_grad_kernel[replay_taped] 256x256x16 {ms:8.4f} ms  bound {b:.4f} ms by the "
+          f"path tape's bytes read  share of bound {b / ms:.3f}")
     b = rf.bound_ms(seg["512x32 nee"], ops["nee_grad_two_pass"], PUBLISHED_F32_FLOPS)
     print(f"  nee_grad_kernel[fused] against the count of its own two loops "
           f"({ops['nee_grad_two_pass']} a segment; its bound above is the one-pass count, the "

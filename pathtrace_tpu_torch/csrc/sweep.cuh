@@ -43,10 +43,15 @@
 // What bounds the sweep on an H100: the instruction throughput of scalar f32
 // chains (no matrix product and no bulk tile anywhere, so wgmma and TMA have
 // nothing to do), 607-1,331 counted operations a segment by instance
-// (utils/roofline.py), three quarters of them the forward retrace, and the
-// warps an SM keeps resident to hide their latency: measured, the time
-// falls as 1 / blocks up to 4 resident 64-thread blocks an SM and flattens
-// from there (PERF.md). What the design does about that:
+// (utils/roofline.py), three quarters of them the forward retrace where the
+// kernel traces its paths again, and the warps an SM keeps resident to hide
+// their latency: measured, the time falls as 1 / blocks up to 4 resident
+// 64-thread blocks an SM and flattens from there (PERF.md). Where K1 has
+// traced the paths already (NEE diffuse, the inverse step), K3 sweeps the
+// path tape K1 wrote (PathTapeLayout, TapeRing) and runs the sweep's
+// quarter alone, 0.20 ms a 256x256x16 launch against 0.50 retracing; its
+// 56 bytes a segment come from device memory behind the sweep. What the
+// design does about that:
 //   * a block's dynamic shared memory holds only the sums (T threads, N
 //     spheres, G = ceil(T / kLanes) groups):
 //         geometry sums  [4N + 15][G] of 8 bytes  (GEOM only)
@@ -80,9 +85,11 @@
 //     ray and t; the throughput before the bounce, so that the sweep does
 //     not rebuild that product bounce by bounce; the cosine sample and the
 //     glossy jitter, so that it does not hash, take roots, sines and cosines
-//     again), stays a thread's local array: with the sums halved L1 holds
-//     most of it, and in shared memory it cost an SM one resident block and
-//     ran slower;
+//     again), stays a thread's local array where the kernel traces: with
+//     the sums halved L1 holds most of it, and a whole tape in shared memory
+//     cost an SM one resident block and ran slower. The path tape's ring
+//     holds two bounces a thread (7,168 bytes a 64-thread block), which
+//     keeps 8 blocks an SM;
 //   * the kernels are bounded for the block they are launched with
 //     (kSmallThreads threads, kSmallMinBlocks blocks an SM, or 256 and 1);
 //     bounding for 10 or 12 blocks costs more in registers than the warps
@@ -95,6 +102,8 @@
 // paths are the forward's.
 
 #pragma once
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -111,12 +120,16 @@ static_assert(kLanes >= 1 && 32 % kLanes == 0, "a group must lie in one warp");
 // sample and the glossy jitter.
 constexpr int kTapeM = 8, kTapeFrame = kTapeM + 3;
 __host__ __device__ constexpr int tape_words_of(bool geom) { return geom ? kTapeFrame + 6 : 4; }
+// Of an NEE diffuse bounce, which has no glossy jitter: the path tape's.
+constexpr int kPathTapeWords = kTapeFrame + 3;
 
-// Where a block's arrays lie in its dynamic shared memory, in 4-byte words.
+// Where a block's arrays lie in its dynamic shared memory, in 4-byte words;
+// with `ring`, TapeRing's two bounces of each thread's path tape after them.
 struct SweepLayout {
   int threads, groups, n_geom, n_shade, tape_words;
-  int shade_off, loss_off, sph_off, words;
-  __host__ __device__ SweepLayout(bool geom, int n, int threads_) : threads(threads_) {
+  int shade_off, loss_off, sph_off, ring_off, words;
+  __host__ __device__ SweepLayout(bool geom, int n, int threads_, bool ring = false)
+      : threads(threads_) {
     groups = (threads + kLanes - 1) / kLanes;
     n_geom = geom ? 4 * n + 15 : 0;
     n_shade = 6 * n;
@@ -124,23 +137,124 @@ struct SweepLayout {
     shade_off = 2 * n_geom * groups;
     loss_off = shade_off + n_shade * groups;
     sph_off = loss_off + threads;
-    words = sph_off + 10 * n;
+    ring_off = sph_off + 10 * n;
+    words = ring_off + (ring ? 2 * kPathTapeWords * threads : 0);
   }
   __host__ __device__ int bytes() const { return 4 * words; }
 };
 
-// A thread's tape, word w of bounce b: a local array.
+// A thread's tape, word w of bounce b: a local array, which forward fills
+// and reverse_sweep reads from the warp's longest path down.
 struct Tape {
+  static constexpr bool kFromTop = false;
   float local[kMaxBounces * tape_words_of(true)];
   int words;
   __device__ __forceinline__ float& at(int b, int w) { return local[words * b + w]; }
   __device__ __forceinline__ const float& at(int b, int w) const {
     return local[words * b + w];
   }
+  __device__ __forceinline__ void enter(int, int&) {}
+  __device__ __forceinline__ void finish(int, int) {}
 };
 
-template <bool GEOM, bool GLOSSY>
-__device__ __forceinline__ void tape_store(Tape& tape, int b, const BounceTape& t,
+// The path tape of an NEE diffuse slab in device memory: K1's taped colour
+// pass (trace_kernel.cu) writes it as it traces, and K3's taped replay
+// (nee_grad_kernel.cu) sweeps it instead of tracing every path again. A
+// bounce is tape_store's 14 words (flags, o, d, t, the throughput before the
+// bounce, the cosine sample). Word w of bounce b of sample s of the pixel
+// that thread q of the replay's block k takes lies at
+//     (((s * blocks + k) * bounces + b) * kPathTapeWords + w) * threads + q,
+// threads = edge^2 of the replay's edge x edge blocks: a warp of either
+// kernel stores or reads a word of 8 or 32 neighbouring pixels as whole
+// 32-byte sectors, and a bounce of a block is one piece. Bounce bounces - 1
+// is always stored: its flags word carries the sample's hit count above
+// kHitShift, and is the count alone where the path ended sooner.
+constexpr int kHitShift = 8;
+static_assert(kMaxBounces < (1 << 5), "the hit count takes bits 8-12 of a flags word");
+
+struct PathTapeLayout {
+  int edge, threads, grid_x;
+  size_t chunk, sample;  // floats of a (sample, block): its bounces; of a sample
+  __host__ __device__ PathTapeLayout(const TraceParams& p, int edge_)
+      : edge(edge_), threads(edge_ * edge_), grid_x((p.width + edge_ - 1) / edge_) {
+    chunk = (size_t)p.max_bounces * kPathTapeWords * threads;
+    sample = chunk * grid_x * ((p.local_h + edge - 1) / edge);
+  }
+  // Word 0 of bounce 0 of sample 0 of local pixel (row, col).
+  __device__ __forceinline__ size_t pixel(int row, int col) const {
+    return (size_t)((row / edge) * grid_x + col / edge) * chunk + (row % edge) * edge +
+           col % edge;
+  }
+};
+
+// K1's view of one sample's words in the path tape: forward stores each hit
+// bounce through it, then the hit count.
+struct TapeWriter {
+  float* base;  // word 0 of bounce 0
+  int stride;   // PathTapeLayout::threads: from one word to the next
+  int last;     // the last bounce
+  __device__ __forceinline__ float& at(int b, int w) {
+    return base[(b * kPathTapeWords + w) * stride];
+  }
+  __device__ __forceinline__ void finish(int last_flags, int n_hit) {
+    if (last >= 0) at(last, 0) = __int_as_float((n_hit > last ? last_flags : 0) |
+                                                n_hit << kHitShift);
+  }
+};
+
+// K3's view of the path tape: a ring of two bounces in the block's shared
+// memory that cp.async fills one bounce ahead of the sweep, so that a
+// bounce's words are on their way while the bounce before them is swept.
+// Each thread copies and reads its own words, so no barrier: a copy group a
+// bounce, and a wait for all but the newest. The sweep takes every bounce
+// from the last down, sample after sample (kFromTop), so the order of the
+// copies is fixed; the flags of the last bounce bring the sample's hit
+// count before any bounce is swept.
+struct TapeRing {
+  static constexpr bool kFromTop = true;
+  const float* src;    // word 0 of bounce 0 of sample 0 of this thread's pixel
+  size_t sample;       // floats from a sample's words to the next sample's
+  float* ring;         // this thread's word 0 of slot 0; words at `stride`
+  const float* cur;    // word 0 of the bounce being swept
+  int stride, bounces, spp;
+  int next_s, next_b, slot;  // the next bounce to copy; the slot being swept
+  bool inside;
+
+  __device__ __forceinline__ TapeRing(const TraceParams& p, const PathTapeLayout& lay,
+                                      const float* tape, int block, int tid, float* ring_,
+                                      bool inside_)
+      : src(tape + block * lay.chunk + tid), sample(lay.sample), ring(ring_ + tid),
+        cur(ring_ + tid), stride(lay.threads), bounces(p.max_bounces), spp(p.spp), next_s(0),
+        next_b(p.max_bounces - 1), slot(0), inside(inside_) {
+    if (bounces > 0) copy(0);
+  }
+  __device__ __forceinline__ void copy(int to_slot) {
+    if (next_s < spp) {
+      const float* from = src + next_s * sample + next_b * kPathTapeWords * stride;
+      float* to = ring + to_slot * kPathTapeWords * stride;
+#pragma unroll
+      for (int w = 0; w < kPathTapeWords; ++w)
+        __pipeline_memcpy_async(to + w * stride, from + w * stride, sizeof(float));
+    }
+    __pipeline_commit();
+    if (--next_b < 0) {
+      next_b = bounces - 1;
+      ++next_s;
+    }
+  }
+  // At the top of bounce b: queue the next bounce's words, wait for b's.
+  __device__ __forceinline__ void enter(int b, int& n_hit) {
+    cur = ring + slot * kPathTapeWords * stride;
+    copy(slot ^ 1);
+    __pipeline_wait_prior(1);
+    slot ^= 1;
+    if (b == bounces - 1) n_hit = inside ? __float_as_int(cur[0]) >> kHitShift : 0;
+  }
+  __device__ __forceinline__ const float& at(int, int w) const { return cur[w * stride]; }
+};
+
+template <bool GEOM, bool GLOSSY, class TapeT>
+__device__ __forceinline__ void tape_store(TapeT& tape, int b, const BounceTape& t,
                                            float mr, float mg, float mb) {
   tape.at(b, 0) = __int_as_float(t.flags);
   if (GEOM) {
@@ -194,11 +308,12 @@ struct Acc {
 // AOVs: aov[0..2] the (flipped) normal, aov[3..5] the albedo, aov[6] the
 // depth. sph: the block's sphere table in shared memory. inside: the thread
 // has a pixel (else n_hit is 0 and it only keeps the warp's turns). Without
-// NEE p.light_index is not read.
-template <bool GLOSSY, bool NEE, bool AOV>
+// NEE p.light_index is not read. tape: a Tape that forward filled, or the
+// path tape's TapeRing, which brings n_hit with the last bounce's words.
+template <bool GLOSSY, bool NEE, bool AOV, class TapeT>
 __device__ __forceinline__ void reverse_sweep(const TraceParams& p, const Sphere* sph,
                                               const Rng& rng, float rows, float cols,
-                                              const Tape& tape, int n_hit, bool inside,
+                                              TapeT& tape, int n_hit, bool inside,
                                               const float (&g)[3],
                                               const float (&aov)[7],
                                               const Acc& acc) {
@@ -213,7 +328,8 @@ __device__ __forceinline__ void reverse_sweep(const TraceParams& p, const Sphere
   float oh[3] = {0.0f, 0.0f, 0.0f}, dh[3] = {0.0f, 0.0f, 0.0f};
   float hb[3] = {0.0f, 0.0f, 0.0f};  // suffix derivative by the throughput
 
-  for (int b = acc.longest(n_hit) - 1; b >= 0; --b) {
+  for (int b = TapeT::kFromTop ? p.max_bounces - 1 : acc.longest(n_hit) - 1; b >= 0; --b) {
+    tape.enter(b, n_hit);
     const bool live = b < n_hit;
     const bool first = b == 0;
     int idx = 0;
@@ -519,11 +635,12 @@ __device__ __forceinline__ void reverse_sweep(const TraceParams& p, const Sphere
 }
 
 // One sample's forward path. TAPED: the hit bounces are taped (GEOM: with
-// the ray and t) and counted in n_hit. -> the sample's colour in out.
-template <bool GLOSSY, bool NEE, bool TAPED, bool GEOM>
+// the ray and t) into a Tape or the path tape's TapeWriter, and counted in
+// n_hit. -> the sample's colour in out.
+template <bool GLOSSY, bool NEE, bool TAPED, bool GEOM, class TapeT>
 __device__ __forceinline__ void forward(const TraceParams& p, const Rng& rng,
                                         float rows, float cols, Sample& out,
-                                        Tape& tape, int& n_hit) {
+                                        TapeT& tape, int& n_hit) {
   out = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, false};
   float dx, dy, dz;
   primary_ray(p, rng, rows, cols, dx, dy, dz);
@@ -546,6 +663,7 @@ __device__ __forceinline__ void forward(const TraceParams& p, const Rng& rng,
       n_hit = b + 1;
     }
   }
+  if (TAPED) tape.finish(entry.flags, n_hit);  // entry: the last hit bounce's
 }
 
 // A block's shared memory at the start of a kernel: the sums zeroed, the
@@ -557,8 +675,8 @@ struct SweepBlock {
   const Sphere* sph;
   float* loss;  // this thread's
   __device__ __forceinline__ SweepBlock(bool geom, const TraceParams& p, void* smem,
-                                        int tid, int threads)
-      : lay(geom, p.num_spheres, threads), words(static_cast<float*>(smem)) {
+                                        int tid, int threads, bool ring = false)
+      : lay(geom, p.num_spheres, threads, ring), words(static_cast<float*>(smem)) {
     const unsigned mask = __activemask();  // every thread of the block is here
     for (int k = tid; k < lay.sph_off; k += threads) words[k] = 0.0f;
     copy_sphere_table(p, words + lay.sph_off, tid, threads);
@@ -574,6 +692,7 @@ struct SweepBlock {
     t.words = lay.tape_words;
     return t;
   }
+  __device__ __forceinline__ float* ring() const { return words + lay.ring_off; }
 
   // After the last sweep of a block: its sums in a fixed order, in double,
   // into its row of partial [blocks, 10N + 16] (sphere i at 10 i: radius,

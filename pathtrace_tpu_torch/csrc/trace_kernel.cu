@@ -56,6 +56,15 @@
 //   * Output mode, BRDF, NEE and one lane or several are template
 //     parameters, so each of the 12 variants (24 instances) compiles without
 //     the code it does not run.
+//   * The taped instance (NEE diffuse colour sums, one lane or several) is
+//     the inverse step's colour pass. It traces each sample with the
+//     reverse sweep's own taped forward (sweep.cuh), whose segment is the
+//     one the other instances run, so its sums are theirs bit for bit, and
+//     stores the 14 words of each bounce and the hit count into the path
+//     tape that K3's taped replay sweeps instead of tracing every path a
+//     second time. What it adds is stores: 293.6 MB at 256x256x16 and 5
+//     bounces, 4 sectors of 32 bytes a warp-wide store (8 pixels x 4
+//     lanes), none of them read back here.
 //   * The first bounce (unnormalized primary ray, emission clamp, AOVs) is
 //     peeled at compile time; the later bounces are one loop, because the
 //     depth is a run-time flag.
@@ -90,7 +99,7 @@
 // 16-24 bytes; with it, no spills: 44-80 registers at one lane, 48-87 with
 // lanes (the shuffled values and the round loop).
 
-#include "common.cuh"
+#include "sweep.cuh"
 
 using namespace pt;
 
@@ -142,10 +151,16 @@ struct Welford {
 
 // block: the block's edge in pixels; lane_bits: log2 of the sample lanes L.
 // LANED = false is the one-lane instance: L = 1 at compile time, so the
-// shuffles, the round loop and the owner tests fold away.
-template <int NCH, bool GLOSSY, bool NEE, bool LANED>
+// shuffles, the round loop and the owner tests fold away. TAPED (NEE
+// diffuse colour sums only): each sample is traced by the sweep's taped
+// forward, the same segment with the same bits, which stores its bounces
+// and hit count into path_tape (sweep.cuh::PathTapeLayout, for a replay in
+// blocks of tape_edge x tape_edge) for K3's taped replay.
+template <int NCH, bool GLOSSY, bool NEE, bool LANED, bool TAPED = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __restrict__ out) {
+pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __restrict__ out,
+                 float* __restrict__ path_tape, int tape_edge) {
+  static_assert(!TAPED || (NCH == 3 && NEE && !GLOSSY), "a path tape is NEE diffuse colour's");
   const int tid = threadIdx.x;
   const unsigned mask = __activemask();  // the warp's threads, all of them here
   const int lane_bits = LANED ? lane_bits_arg : 0;
@@ -159,6 +174,15 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
 
   float rows, cols;
   Rng rng = pixel_rng<GLOSSY>(p, row, col, rows, cols);
+  size_t tape_at = 0;  // word 0 of this pixel's sample 0 (TAPED)
+  size_t tape_sample = 0;
+  int tape_stride = 0;
+  if constexpr (TAPED) {
+    const PathTapeLayout lay(p, tape_edge);
+    if (inside) tape_at = lay.pixel(row, col);
+    tape_sample = lay.sample;
+    tape_stride = lay.threads;
+  }
 
   float sum[10] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   Welford w_c = {0.f, 0.f, 0.f}, w_n = {0.f, 0.f, 0.f};
@@ -167,7 +191,14 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
     Sample o = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, false};
     if (inside && base + lane < p.spp) {
       rng.sample = c_blocks.sample_offset + (uint32_t)(base + lane);
-      o = trace_sample<GLOSSY, NEE>(p, rng, rows, cols);
+      if constexpr (TAPED) {
+        TapeWriter w = {path_tape + tape_at + (base + lane) * tape_sample, tape_stride,
+                        p.max_bounces - 1};
+        int n_hit;
+        forward<false, true, true, true>(p, rng, rows, cols, o, w, n_hit);
+      } else {
+        o = trace_sample<GLOSSY, NEE>(p, rng, rows, cols);
+      }
     }
     // The round's samples in sample order, from the lanes that traced them.
     const int flags = (o.active ? 1 : 0) | (o.hit0 ? 2 : 0);
@@ -238,10 +269,10 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
   }
 }
 
-template <int NCH, bool GLOSSY, bool NEE>
+template <int NCH, bool GLOSSY, bool NEE, bool TAPED = false>
 const void* instance(bool laned) {
-  return laned ? (const void*)pathtrace_kernel<NCH, GLOSSY, NEE, true>
-               : (const void*)pathtrace_kernel<NCH, GLOSSY, NEE, false>;
+  return laned ? (const void*)pathtrace_kernel<NCH, GLOSSY, NEE, true, TAPED>
+               : (const void*)pathtrace_kernel<NCH, GLOSSY, NEE, false, TAPED>;
 }
 
 template <int NCH>
@@ -251,9 +282,13 @@ const void* instance(bool glossy, bool nee, bool laned) {
 }
 
 // The kernel of a launch with n_channels channels and 2^lane_bits sample
-// lanes, or nullptr for a mode that does not exist.
-const void* kernel_of(int n_channels, bool glossy, bool nee, int lane_bits) {
+// lanes that writes a path tape or not, or nullptr for a mode that does not
+// exist.
+const void* kernel_of(int n_channels, bool glossy, bool nee, int lane_bits, bool taped) {
   const bool laned = lane_bits > 0;
+  if (taped) {
+    return n_channels == 3 && nee && !glossy ? instance<3, false, true, true>(laned) : nullptr;
+  }
   switch (n_channels) {
     case 14: return instance<14>(glossy, nee, laned);
     case 22: return instance<22>(glossy, nee, laned);
@@ -263,14 +298,14 @@ const void* kernel_of(int n_channels, bool glossy, bool nee, int lane_bits) {
 }
 
 cudaError_t launch(const void* fn, TraceParams p, int block, int lane_bits, int pad_shared,
-                   float* out, cudaStream_t stream) {
+                   float* out, float* path_tape, int tape_edge, cudaStream_t stream) {
   const dim3 grid((p.width + block - 1) / block, (p.local_h + block - 1) / block);
   if (pad_shared > 0) {
     const cudaError_t err =
         cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, pad_shared);
     if (err != cudaSuccess) return err;
   }
-  void* args[] = {&p, &block, &lane_bits, &out};
+  void* args[] = {&p, &block, &lane_bits, &out, &path_tape, &tape_edge};
   return cudaLaunchKernel(fn, grid, dim3((block * block) << lane_bits), args, pad_shared,
                           stream);
 }
@@ -287,6 +322,12 @@ cudaError_t launch(const void* fn, TraceParams p, int block, int lane_bits, int 
 // bad arguments.
 // block is the edge of the square block in pixels, 1..kMaxBlock; lanes the
 // sample lanes a pixel, 1, 2 or 4 with block^2 x lanes <= kMaxThreads.
+// path_tape: nullptr, or for NEE diffuse colour sums (n_channels 3) a device
+// buffer of spp * ceil(W / tape_edge) * ceil(local_h / tape_edge) *
+// max_bounces * 14 * tape_edge^2 floats that the launch fills with the
+// paths it traces, laid out for pt_nee_grad_launch's REPLAY_TAPED in blocks
+// of tape_edge x tape_edge (sweep.cuh::PathTapeLayout); its colour sums are
+// the untaped launch's, bit for bit.
 //
 // pt_trace_launch_padded is the same launch asking for pad_shared dynamic
 // shared bytes it does not use, so that fewer blocks fit an SM: the
@@ -298,8 +339,9 @@ extern "C" int pt_trace_launch_padded(const float* scene, int num_spheres,
                                       int max_bounces, int jitter, float push,
                                       int light_index, int glossy, int n_channels,
                                       int block, int lanes, float* out, void* stream,
-                                      int pad_shared) {
+                                      int pad_shared, float* path_tape, int tape_edge) {
   const bool nee = light_index >= 0;
+  const bool taped = path_tape != nullptr;
   const int lane_bits = lane_bits_of(block, lanes);
   TraceParams p;
   p.num_spheres = num_spheres;
@@ -313,17 +355,18 @@ extern "C" int pt_trace_launch_padded(const float* scene, int num_spheres,
   p.inv_height = inv_height;
   p.inv_spp = inv_spp;
   p.push = push;
-  const void* fn = kernel_of(n_channels, glossy != 0, nee, lane_bits);
+  const void* fn = kernel_of(n_channels, glossy != 0, nee, lane_bits, taped);
   if (!valid_launch(scene, cam, seed, p) || pad_shared < 0 || pad_shared > kMaxSharedBytes ||
       block < 1 || block > kMaxBlock || lane_bits < 0 || (nee && light_index >= num_spheres) ||
-      out == nullptr || fn == nullptr) {
+      out == nullptr || fn == nullptr ||
+      (taped && (tape_edge < 1 || tape_edge > kMaxBlock || max_bounces > kMaxBounces))) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   std::lock_guard<std::mutex> hold(launch_lock());
   const cudaError_t err = stage_blocks(scene, num_spheres, cam, seed, s);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch(fn, p, block, lane_bits, pad_shared, out, s);
+  return (int)launch(fn, p, block, lane_bits, pad_shared, out, path_tape, tape_edge, s);
 }
 
 extern "C" int pt_trace_launch(const float* scene, int num_spheres, const float* cam,
@@ -331,22 +374,23 @@ extern "C" int pt_trace_launch(const float* scene, int num_spheres, const float*
                                float inv_width, float inv_height, int spp, float inv_spp,
                                int max_bounces, int jitter, float push, int light_index,
                                int glossy, int n_channels, int block, int lanes, float* out,
-                               void* stream) {
+                               void* stream, float* path_tape, int tape_edge) {
   return pt_trace_launch_padded(scene, num_spheres, cam, seed, local_h, width, inv_width,
                                 inv_height, spp, inv_spp, max_bounces, jitter, push,
-                                light_index, glossy, n_channels, block, lanes, out, stream, 0);
+                                light_index, glossy, n_channels, block, lanes, out, stream, 0,
+                                path_tape, tape_edge);
 }
 
 // A measurement hook: out[0] resident blocks an SM of a launch of the
-// variant (n_channels, glossy, nee) with block x block pixels and `lanes`
-// sample lanes that asks for pad_shared dynamic shared bytes, out[1]
+// variant (n_channels, glossy, nee, taped) with block x block pixels and
+// `lanes` sample lanes that asks for pad_shared dynamic shared bytes, out[1]
 // registers a thread, out[2] dynamic shared bytes a block, out[3] local
 // (stack) bytes a thread.
-extern "C" int pt_trace_occupancy(int n_channels, int glossy, int nee, int block, int lanes,
-                                  int pad_shared, int* out) {
+extern "C" int pt_trace_occupancy(int n_channels, int glossy, int nee, int taped, int block,
+                                  int lanes, int pad_shared, int* out) {
   const int lane_bits = lane_bits_of(block, lanes);
   if (block < 1 || block > kMaxBlock || lane_bits < 0) return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_of(n_channels, glossy != 0, nee != 0, lane_bits);
+  const void* fn = kernel_of(n_channels, glossy != 0, nee != 0, lane_bits, taped != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)kernel_occupancy(fn, (block * block) << lane_bits, pad_shared, out);
 }

@@ -456,14 +456,15 @@ def cross_contract(a, acc_a, b, acc_b, target):
     return torch.sum(ra * rb) / denom, {"emission": d_ea + d_eb, "color": d_ca + d_cb}
 
 
-def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
+def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None, tape=None):
     """Gradient block [N + 5, 11] of sum(cotangent * mean colour), all
     parameters, for a configuration off the product chain: one replay launch
-    of K3 (NEE diffuse) or K4 (glossy)."""
+    of K3 (NEE diffuse; it sweeps ``tape``, the path tape of the frame's
+    colour pass, where one is given) or K4 (glossy)."""
     if route(cfg) == "nee":
         from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 
-        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device)
+        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device, tape)
     from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 
     device = resolve_device(device)
@@ -484,19 +485,32 @@ def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     {"emission", "color"}. NEE diffuse and glossy: two colour-sum launches
     of the forward kernel, then two replays (K3 for NEE diffuse, K4 for
     glossy), each against the other render's residual -> also "position"
-    and "radius"."""
+    and "radius". NEE diffuse on the card: each colour pass writes its paths
+    into a path tape, which its replay sweeps instead of tracing them again,
+    with the same bits. Each tape takes 56 B a pixel, sample and bounce
+    (``nee_grad_kernel.tape_bytes``: 293.6 MB at 256x256x16 and 5 bounces);
+    where the two would take more than ``nee_grad_kernel.TAPE_BUDGET``
+    (4 GiB), the replays trace again, in a few MB."""
     if route(cfg) == "chain":
         a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
         b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
         target = _per_pixel(target, a.device)
         return cross_contract(a, acc_a, b, acc_b, target)
-    a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device) / cfg.spp
-    b = tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device) / cfg.spp
+    device = resolve_device(device)
+    tapes = (None, None)
+    if route(cfg) == "nee":
+        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+
+        tapes = nk.step_tapes(cfg, device)
+    a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device, tape=tapes[0]) / cfg.spp
+    b = (tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device, tape=tapes[1])
+         / cfg.spp)
     target = _per_pixel(target, a.device)
     ra, rb = a - target, b - target
     denom = a.numel()
-    d = _scene_grads(_color_grads_block(scene, cam, cfg, 2 * step, rb / denom, device)
-                     + _color_grads_block(scene, cam, cfg, 2 * step + 1, ra / denom, device))
+    d = _scene_grads(
+        _color_grads_block(scene, cam, cfg, 2 * step, rb / denom, device, tapes[0])
+        + _color_grads_block(scene, cam, cfg, 2 * step + 1, ra / denom, device, tapes[1]))
     return torch.sum(ra * rb) / denom, {"emission": d.emission, "color": d.color,
                                         "position": d.position, "radius": d.radius}
 

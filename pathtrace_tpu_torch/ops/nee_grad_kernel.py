@@ -12,7 +12,10 @@ and albedo, the eye and the four corner rays. Two modes:
   pixel's samples twice, colour first, then the replay sweep against the
   pixel's own cotangent.
 - ``"replay"``: gradients of ``sum(cotangent * colour sum)`` for a given
-  per-pixel cotangent.
+  per-pixel cotangent. Given a ``PathTape`` that K1's taped colour pass
+  filled for the same frame, the replay sweeps the paths stored there
+  instead of tracing them again (the kernel's REPLAY_TAPED instance), with
+  the same bits: the inverse step's route (``grad_kernel.cross_grads``).
 
 ``fused`` and ``replay`` are the wrappers. On the CPU they run
 ``fused_plain`` and ``replay_plain``, a transcription of the kernel's own
@@ -42,6 +45,8 @@ offset: the sharding hook), ``grads_from_block``, and ``nee_color_grads``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -76,6 +81,7 @@ def require_nee_diffuse(cfg: RenderConfig, what: str):
 
 
 LANES = 2  # csrc/sweep.cuh's kLanes: threads that share one set of sums
+TAPE_WORDS = 14  # csrc/sweep.cuh's kPathTapeWords: a bounce of the path tape
 
 
 def n_slots(num_spheres: int, geom: bool = True) -> int:
@@ -84,13 +90,95 @@ def n_slots(num_spheres: int, geom: bool = True) -> int:
     return 6 * num_spheres + (2 * (4 * num_spheres + 15) if geom else 0)
 
 
-def shared_bytes(num_spheres: int, block: int, geom: bool = True) -> int:
+def shared_bytes(num_spheres: int, block: int, geom: bool = True, taped: bool = False) -> int:
     """Dynamic shared memory of a ``block`` x ``block`` launch
     (``csrc/sweep.cuh``'s ``SweepLayout``): the sums of every lane group, a
-    loss float a thread and the sphere table."""
+    loss float a thread and the sphere table; a taped replay's ring of two
+    bounces of path tape a thread after them."""
     threads = block * block
     groups = -(-threads // LANES)
-    return 4 * (n_slots(num_spheres, geom) * groups + threads + 10 * num_spheres)
+    ring = 2 * TAPE_WORDS * threads if taped else 0
+    return 4 * (n_slots(num_spheres, geom) * groups + threads + 10 * num_spheres + ring)
+
+
+# -- the path tape ----------------------------------------------------------------
+
+def tape_shape(cfg: RenderConfig, local_h: int, spp: int) -> tuple:
+    """[spp, blocks, max_bounces, TAPE_WORDS, block^2]: the float32 words of
+    the path tape of a ``local_h`` x W slab (``csrc/sweep.cuh``'s
+    ``PathTapeLayout``), blocks being the replay's ``cfg.block`` x
+    ``cfg.block`` blocks over the slab, and a block's threads last."""
+    blocks = -(-cfg.width // cfg.block) * -(-local_h // cfg.block)
+    return (spp, blocks, cfg.max_bounces, TAPE_WORDS, cfg.block * cfg.block)
+
+
+def tape_bytes(cfg: RenderConfig, local_h: int, spp: int) -> int:
+    return 4 * math.prod(tape_shape(cfg, local_h, spp))
+
+
+# The most device memory the two path tapes of an inverse step may take
+# (a twentieth of an H100's 80 GB). Above it the step's replays trace their
+# paths again, in a few MB: 256x256x16 and 512x512x16 at 5 bounces tape
+# (2 x 293.6 MB, 2 x 1.17 GB), 512x512x32 does not (2 x 2.35 GB).
+TAPE_BUDGET = 4 << 30
+
+
+def step_tapes(cfg: RenderConfig, device: torch.device) -> tuple:
+    """The two empty path tapes of a whole-frame inverse step on ``device``
+    (``grad_kernel.cross_grads``), or (None, None) where its replays trace
+    their paths again: on the CPU, and where the two would take more than
+    ``TAPE_BUDGET`` bytes."""
+    if device.type != "cuda" or 2 * tape_bytes(cfg, cfg.height, cfg.spp) > TAPE_BUDGET:
+        return None, None
+    return tuple(PathTape.empty(cfg, cfg.height, cfg.spp, device) for _ in range(2))
+
+
+@dataclasses.dataclass(eq=False)
+class PathTape:
+    """The paths of an NEE diffuse slab as K1's taped colour pass traced them,
+    for K3's taped replay: ``words`` [``tape_shape``] float32 on the card,
+    made for ``sizes`` (local_h, width, spp, max_bounces, block). The colour
+    pass sets ``written``. The tape holds no scene, camera or seed: a replay
+    reads it with the blocks of the colour pass that wrote it."""
+
+    words: torch.Tensor
+    sizes: tuple
+    written: bool = False
+
+    @classmethod
+    def empty(cls, cfg: RenderConfig, local_h: int, spp: int, device) -> "PathTape":
+        words = torch.empty(tape_shape(cfg, local_h, spp), dtype=torch.float32, device=device)
+        return cls(words, _tape_sizes(cfg, local_h, spp))
+
+    def check(self, cfg: RenderConfig, local_h: int, spp: int, device, written: bool):
+        """Raise ValueError unless a launch of ``cfg`` over ``local_h`` rows and
+        ``spp`` samples on ``device`` can write the tape (``written`` False:
+        K1) or read it (True: K3's replay, after a colour pass wrote it)."""
+        require_nee_diffuse(cfg, "a path tape")
+        want = _tape_sizes(cfg, local_h, spp)
+        if self.sizes != want:
+            raise ValueError(f"path tape made for (local_h, width, spp, max_bounces, block) "
+                             f"{self.sizes}, the launch is {want}")
+        if written and not self.written:
+            raise ValueError("no colour pass has written this path tape")
+        w = self.words
+        if w.device != device:
+            raise ValueError(f"path tape is on {w.device}, the launch on {device}")
+        if w.dtype != torch.float32 or tuple(w.shape) != tape_shape(cfg, local_h, spp):
+            raise ValueError(f"path tape words must be float32 {tape_shape(cfg, local_h, spp)}, "
+                             f"got {w.dtype} {tuple(w.shape)}")
+        if not w.is_contiguous():
+            raise ValueError("path tape words must be contiguous")
+        if cfg.max_bounces > MAX_BOUNCES:
+            raise ValueError(f"a path tape holds at most {MAX_BOUNCES} bounces, "
+                             f"got {cfg.max_bounces}")
+        if device.type != "cuda":
+            raise ValueError("a path tape is the CUDA kernels': the plain versions trace "
+                             "every path")
+
+
+def _tape_sizes(cfg: RenderConfig, local_h: int, spp: int) -> tuple:
+    return (local_h, cfg.width, spp, cfg.max_bounces, cfg.block)
 
 
 # -- the plain versions ----------------------------------------------------------
@@ -368,12 +456,14 @@ def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, 
 
 class CudaNeeGradKernel:
     """ctypes binding of ``pt_nee_grad_launch``. ``launches[mode]`` counts the
-    kernel launches made through ``launch`` in each mode."""
+    kernel launches made through ``launch`` in each mode;
+    ``launches["replay_taped"]`` the replays among them that read a path
+    tape."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
         self._fn = None
-        self.launches = {m: 0 for m in MODES}
+        self.launches = {m: 0 for m in MODES + ("replay_taped",)}
 
     def _function(self):
         if self._fn is None:
@@ -383,30 +473,32 @@ class CudaNeeGradKernel:
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ])
         return self._fn
 
-    def occupancy(self, mode: str, block: int, num_spheres: int, pad_shared: int = 0) -> dict:
-        """What the card gives a ``block`` x ``block`` launch of ``mode`` that
-        asks for ``pad_shared`` dynamic shared bytes beyond its own: resident
-        blocks an SM, registers a thread, dynamic shared bytes a block, local
-        bytes a thread."""
+    def occupancy(self, mode: str, block: int, num_spheres: int, pad_shared: int = 0,
+                  taped: bool = False) -> dict:
+        """What the card gives a ``block`` x ``block`` launch of ``mode`` (the
+        replay: taped or not) that asks for ``pad_shared`` dynamic shared
+        bytes beyond its own: resident blocks an SM, registers a thread,
+        dynamic shared bytes a block, local bytes a thread."""
         self._function()
         out = (ctypes.c_int * 4)()
-        err = self._lib.pt_nee_grad_occupancy(MODES.index(mode), block, num_spheres,
+        err = self._lib.pt_nee_grad_occupancy(_c_mode(mode, taped), block, num_spheres,
                                               pad_shared, out)
         if err != 0:
             raise RuntimeError(f"NEE grad kernel occupancy query failed: cudaError {err}")
         return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
 
     def launch(self, mode: str, scene_block, cam_block, seed, cfg: RenderConfig, pixels, *,
-               local_h: int, spp: int, device: torch.device, pad_shared: int = 0):
+               local_h: int, spp: int, device: torch.device, pad_shared: int = 0, tape=None):
         """Launch ``mode`` on the current stream of ``device`` (asynchronous).
         fused -> (sums, colour); replay -> sums. ``pad_shared``: dynamic
         shared bytes to ask for beyond the block's own, so that fewer blocks
         fit an SM; only the occupancy curve of ``scripts/
-        torch_sweep_occupancy.py`` and ``chip_smoke.py`` passes it."""
+        torch_sweep_occupancy.py`` and ``chip_smoke.py`` passes it. ``tape``:
+        the replay's ``PathTape``, checked by ``replay``."""
         t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
@@ -425,21 +517,32 @@ class CudaNeeGradKernel:
                 scene_at, scene_block.shape[0], cam_at, seed_at, local_h, w,
                 tk._f32(1.0 / w), tk._f32(1.0 / cfg.height),
                 spp, tk._f32(1.0 / spp), cfg.max_bounces, int(cfg.resolved_jitter),
-                cfg.push_ray_origin, cfg.light_index, MODES.index(mode), block,
+                cfg.push_ray_origin, cfg.light_index, _c_mode(mode, tape is not None), block,
                 pixels.data_ptr(),
                 None if color is None else color.data_ptr(), partial.data_ptr(),
                 sums.data_ptr(), stream, pad_shared,
+                None if tape is None else tape.words.data_ptr(),
             )
         if err != 0:
             raise RuntimeError(f"NEE grad kernel ({mode}) launch failed: cudaError {err}")
         self.launches[mode] += 1
+        if tape is not None:
+            self.launches["replay_taped"] += 1
         if mode == "replay":
             timing.add_launch_ns("k3.replay", t0)
         return (sums, color) if mode == "fused" else sums
 
 
+def _c_mode(mode: str, taped: bool) -> int:
+    """The C entry's mode: 0 fused, 1 replay, 2 the taped replay."""
+    if taped and mode != "replay":
+        raise ValueError(f"only the replay reads a path tape, not {mode!r}")
+    return 2 if taped else MODES.index(mode)
+
+
 CUDA_KERNEL = CudaNeeGradKernel()
 timing.launch_counter("k3.replay", lambda: CUDA_KERNEL.launches["replay"])
+timing.launch_counter("k3.replay_taped", lambda: CUDA_KERNEL.launches["replay_taped"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels, dev, what):
@@ -474,11 +577,18 @@ def fused(scene_block, cam_block, seed, cfg: RenderConfig, target, *, local_h: i
 
 
 def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
-           spp: int, device=None):
-    """The replay-mode wrapper -> sums [10N + 16] (0 in the loss slot)."""
+           spp: int, device=None, tape: PathTape | None = None):
+    """The replay-mode wrapper -> sums [10N + 16] (0 in the loss slot).
+    ``tape``: the ``PathTape`` that K1's taped colour pass wrote with the same
+    blocks, seed and sizes, whose paths the kernel sweeps instead of tracing
+    them again (on the card only; the same bits)."""
     dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev, "replay")
     kw = dict(local_h=local_h, spp=spp, device=dev)
+    if tape is not None:
+        tape.check(cfg, local_h, spp, dev, written=True)
+        return CUDA_KERNEL.launch("replay", scene_block, cam_block, seed, cfg, cotangent,
+                                  tape=tape, **kw)
     if dev.type == "cpu":
         return replay_plain(scene_block, cam_block, seed, cfg, cotangent, **kw)
     return CUDA_KERNEL.launch("replay", scene_block, cam_block, seed, cfg, cotangent, **kw)
@@ -608,11 +718,12 @@ def nee_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_off
     return block_from_sums(sums)
 
 
-def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
+def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None, tape=None):
     """Gradient block [N + 5, 11] of sum(cotangent * mean colour) for
-    ``cotangent`` [H, W, 3]: one replay launch."""
+    ``cotangent`` [H, W, 3]: one replay launch, which sweeps ``tape`` where
+    ``render_color_sums`` of the same frame wrote one."""
     sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     ct = _per_pixel(cotangent, device) / cfg.spp
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
-                  spp=cfg.spp, device=device)
+                  spp=cfg.spp, device=device, tape=tape)
     return block_from_sums(sums)

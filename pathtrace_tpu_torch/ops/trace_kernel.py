@@ -568,34 +568,39 @@ class CudaTraceKernel:
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int,
             ])
         return self._fn
 
     def occupancy(self, mode: str, cfg: RenderConfig, pad_shared: int = 0,
-                  lanes: int | None = None) -> dict:
+                  lanes: int | None = None, taped: bool = False) -> dict:
         """What the card gives a launch of ``mode`` under ``cfg`` (BRDF, NEE,
-        block edge, spp) that asks for ``pad_shared`` dynamic shared bytes
-        beyond its own: resident blocks an SM, registers a thread, dynamic
-        shared bytes a block, local bytes a thread."""
+        block edge, spp), writing a path tape or not, that asks for
+        ``pad_shared`` dynamic shared bytes beyond its own: resident blocks
+        an SM, registers a thread, dynamic shared bytes a block, local bytes
+        a thread."""
         self._function()
         if lanes is None:
             lanes = sample_lanes(cfg.spp, cfg.block, cfg.width * cfg.height,
                                  device_sm_count(torch.cuda.current_device()))
         out = (ctypes.c_int * 4)()
         err = self._lib.pt_trace_occupancy(MODES[mode], int(cfg.brdf == "glossy"),
-                                           int(cfg.nee), cfg.block, lanes, pad_shared, out)
+                                           int(cfg.nee), int(taped), cfg.block, lanes,
+                                           pad_shared, out)
         if err != 0:
             raise RuntimeError(f"trace kernel occupancy query failed: cudaError {err}")
         return dict(zip(("blocks_per_sm", "registers", "shared_bytes", "local_bytes"), out))
 
     def launch(self, scene_block, cam_block, seed: SeedBlock, cfg: RenderConfig, *,
                local_h: int, spp: int, mode: str, device: torch.device,
-               pad_shared: int = 0, lanes: int | None = None) -> torch.Tensor:
+               pad_shared: int = 0, lanes: int | None = None, tape=None) -> torch.Tensor:
         """Launch on the current stream of ``device`` -> [local_h, W, C]
         float32 (asynchronous, like any CUDA op). ``pad_shared``: dynamic
         shared bytes to ask for beyond the block's own, so that fewer blocks
         fit an SM; only the occupancy curve of ``scripts/
-        torch_kernel_occupancy.py`` passes it."""
+        torch_kernel_occupancy.py`` passes it. ``tape``: a ``nee_grad_kernel.
+        PathTape`` that the launch fills with the paths it traces (the taped
+        instance), checked by ``trace``."""
         t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = launch_operands(scene_block, cam_block, seed, device)
@@ -612,9 +617,12 @@ class CudaTraceKernel:
                 int(cfg.resolved_jitter), cfg.push_ray_origin,
                 cfg.light_index if cfg.nee else -1, int(cfg.brdf == "glossy"),
                 n_ch, cfg.block, lanes, out.data_ptr(), stream, pad_shared,
+                None if tape is None else tape.words.data_ptr(), cfg.block,
             )
         if err != 0:
             raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
+        if tape is not None:
+            tape.written = True
         self.launches += 1
         timing.add_launch_ns("k1", t0)
         return out
@@ -658,14 +666,22 @@ def check_blocks(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp):
 
 def trace(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
           cfg: RenderConfig, *, local_h: int, spp: int, mode: str,
-          device=None) -> torch.Tensor:
+          device=None, tape=None) -> torch.Tensor:
     """The kernel wrapper -> [local_h, W, C] float32 on ``device`` (default:
     the blocks' device). CPU: the plain version. CUDA: the kernel, or an
-    exception."""
+    exception. ``tape``: a ``nee_grad_kernel.PathTape`` made for this launch
+    (NEE diffuse ``"color"`` only, on the card), which the launch fills with
+    the paths it traces for K3's taped replay; the sums are the same bits."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     check_blocks(scene_block, cam_block, seed, cfg, local_h, spp)
     dev = launch_device(scene_block, device)
+    if tape is not None:
+        if mode != "color":
+            raise ValueError(f"a path tape is written by the 'color' mode, not {mode!r}")
+        tape.check(cfg, local_h, spp, dev, written=False)
+        return CUDA_KERNEL.launch(scene_block, cam_block, seed, cfg, local_h=local_h, spp=spp,
+                                  mode=mode, device=dev, tape=tape)
     if dev.type == "cpu":
         return trace_plain(scene_block, cam_block, seed, cfg, local_h=local_h, spp=spp,
                            mode=mode, device=dev)
@@ -751,13 +767,14 @@ def render_aovs(scene, cam, cfg: RenderConfig, frame=0, device=None) -> Dict[str
 
 
 def render_color_sums(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_h=None,
-                      spp=None, sample_offset=0, device=None) -> torch.Tensor:
+                      spp=None, sample_offset=0, device=None, tape=None) -> torch.Tensor:
     """RAW colour sums [local_h, W, 3] over samples [sample_offset,
-    sample_offset + spp) of rows [row_offset, row_offset + local_h)."""
+    sample_offset + spp) of rows [row_offset, row_offset + local_h).
+    ``tape``: see ``trace``."""
     sb, cb, device = device_blocks(scene, cam, cfg, device)
     return trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                  local_h=cfg.height if local_h is None else local_h,
-                 spp=cfg.spp if spp is None else spp, mode="color", device=device)
+                 spp=cfg.spp if spp is None else spp, mode="color", device=device, tape=tape)
 
 
 def partials_from_block(out: torch.Tensor):

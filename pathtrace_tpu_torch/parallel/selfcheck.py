@@ -155,7 +155,7 @@ def reset_launch_counts():
 
     tk.CUDA_KERNEL.launches = 0
     gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
-    nk.CUDA_KERNEL.launches = {m: 0 for m in nk.MODES}
+    nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
     ak.CUDA_KERNEL.launches = 0
 
 

@@ -106,8 +106,10 @@ def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: 
 # -- spans and launch counters ------------------------------------------------
 
 # the kernel wrappers' launches a recording counts and times: K1
-# (trace_kernel) and K3's replay (nee_grad_kernel), by ``launch_counter``
-LAUNCH_KEYS = ("k1", "k3.replay")
+# (trace_kernel) and K3's replay (nee_grad_kernel), by ``launch_counter``;
+# "k3.replay_taped" counts the replays among them that read a path tape (no
+# time of its own: its launches are timed under "k3.replay")
+LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped")
 _COUNTERS = {}  # key -> the function that reads its wrapper's ``launches``
 
 

@@ -149,6 +149,8 @@ def main() -> int:
     result["instances"] = {}
     for block in (8, 16):
         rows = {f"K3 {mode}": nk.CUDA_KERNEL.occupancy(mode, block, n) for mode in nk.MODES}
+        # the replay that sweeps K1's path tape
+        rows["K3 replay taped"] = nk.CUDA_KERNEL.occupancy("replay", block, n, taped=True)
         rows.update(ak.CUDA_KERNEL.instances(block, n))
         for name, occ in rows.items():
             print(f"  {block:2d}x{block:<2d} {name:28s} " + "  ".join(f"{k} {v}" for k, v in

@@ -240,6 +240,23 @@ def test_loss_and_grads_zeros_are_made_on_the_loss_device():
     assert bool(torch.isfinite(loss))
 
 
+def test_smoke_resets_and_reports_every_launch_count(monkeypatch):
+    """chip_smoke.py phase 25 sets every wrapper's launch counts to 0 before
+    the main paths run, the taped replays' among them, and reports each by
+    its name in the kernels line."""
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+
+    cs = _chip_smoke()
+    for k in (tk, gk, nk, ak):
+        launches = k.CUDA_KERNEL.launches
+        monkeypatch.setattr(k.CUDA_KERNEL, "launches",
+                            dict.fromkeys(launches, 3) if isinstance(launches, dict) else 3)
+    cs.reset_launch_counts(tk, gk, nk, ak)
+    assert nk.CUDA_KERNEL.launches == {"fused": 0, "replay": 0, "replay_taped": 0}
+    counts = cs.kernel_launch_counts(tk, gk, nk, ak)
+    assert counts["nee_grad_kernel[replay_taped]"] == 0 and set(counts.values()) == {0}
+
+
 # -- on the card --------------------------------------------------------------------
 
 @pytest.fixture

@@ -366,3 +366,109 @@ def test_block_layout():
     assert torch.equal(block[n, 0:3], sums[30:33]) and block[n, nk.LOSS_COL] == sums[-1]
     assert torch.equal(block[n + 1:, 0:3].reshape(-1), sums[33:45])
     assert nk.n_slots(9) == 156 and nk.n_slots(16) == 254
+
+
+# -- the path tape: K1's taped colour pass writes it, K3's taped replay reads it ----
+
+def test_tape_size_and_the_taped_replay_shared_memory():
+    """At the inverse cell's 256x256x16 and 5 bounces a path tape is 14 words
+    a bounce of 1,048,576 paths: 293,601,280 bytes. A ragged slab pads to
+    whole replay blocks. The taped replay's ring of two bounces a thread
+    keeps 8 blocks of 8 x 8 an SM within 228 KB, at 1 KB reserved a block."""
+    cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
+    assert nk.tape_shape(cfg, 256, 16) == (16, 1024, 5, nk.TAPE_WORDS, 64)
+    assert nk.tape_bytes(cfg, 256, 16) == 293_601_280
+    ragged = RenderConfig(width=45, height=37, spp=3, max_bounces=3, nee=True, block=7)
+    assert nk.tape_shape(ragged, 37, 3) == (3, 42, 3, 14, 49)
+    taped = nk.shared_bytes(9, 8, taped=True)
+    assert taped == nk.shared_bytes(9, 8) + 2 * 14 * 64 * 4 == 27_752
+    assert 8 * (taped + 1024) <= 228 * 1024
+
+
+_BAD_TAPES = ["device", "dtype", "shape", "contiguous", "unwritten", "height", "spp", "bounces",
+              "block", "plain", "glossy"]
+
+
+@pytest.mark.parametrize("entry, bad", [("replay", b) for b in _BAD_TAPES]
+                         + [("trace", b) for b in _BAD_TAPES if b != "unwritten"]
+                         + [("trace", "mode")])
+def test_tape_wrappers_refuse_bad_tapes(state, entry, bad):
+    """Both wrappers refuse a tape of the wrong device, dtype, shape or
+    contiguity, or one made for another frame size, spp, bounce count or
+    block; the replay one no colour pass wrote; and a tape on the CPU,
+    where the plain versions trace every path."""
+    _, _, scene, cam, _ = state
+    cfg = dataclasses.replace(CFG, width=8, height=8, spp=1)
+    made = dict(cfg=cfg, local_h=8, spp=1)
+    if bad in ("height", "spp", "bounces", "block"):
+        made = dict(cfg=dataclasses.replace(cfg, max_bounces=4) if bad == "bounces" else
+                    dataclasses.replace(cfg, block=4) if bad == "block" else cfg,
+                    local_h=7 if bad == "height" else 8, spp=2 if bad == "spp" else 1)
+    tape = nk.PathTape.empty(made["cfg"], made["local_h"], made["spp"], "cpu")
+    tape.written = bad != "unwritten"
+    words = tape.words
+    if bad == "device":
+        tape.words = torch.empty(words.shape, device="meta")
+    elif bad == "dtype":
+        tape.words = words.double()
+    elif bad == "shape":
+        tape.words = words[:, :, :, :-1]
+    elif bad == "contiguous":
+        tape.words = torch.empty(words.shape[::-1]).permute(4, 3, 2, 1, 0)
+    if bad == "glossy":
+        cfg = dataclasses.replace(cfg, brdf="glossy")
+    match = {"device": "is on meta", "dtype": "must be float32", "shape": "must be float32",
+             "contiguous": "contiguous", "unwritten": "no colour pass", "plain": "CUDA kernels'",
+             "glossy": "brdf='diffuse'", "mode": "'color' mode"}.get(bad, "made for")
+    args = (scene.packed(), tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg)
+    with pytest.raises(ValueError, match=match):
+        if entry == "replay":
+            nk.replay(*args, torch.zeros(8, 8, 3), local_h=8, spp=1, tape=tape)
+        else:
+            tk.trace(*args, local_h=8, spp=1, mode="channels" if bad == "mode" else "color",
+                     tape=tape)
+    assert tape.written == (bad != "unwritten")  # a refused colour pass writes nothing
+
+
+@pytest.mark.parametrize("size, spp, bounces, taped", [
+    (256, 16, 5, True), (512, 16, 5, True), (512, 32, 5, False), (1024, 64, 5, False),
+    (256, 16, 16, True), (512, 16, 16, False)])
+def test_step_tapes_keep_within_the_budget(monkeypatch, size, spp, bounces, taped):
+    """An inverse step on the card takes its two path tapes where both fit
+    ``TAPE_BUDGET`` and none above it; on the CPU none at any size."""
+    cfg = RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces, nee=True)
+    made = []
+
+    def empty(cfg_, local_h, spp_, device):
+        made.append((cfg_, local_h, spp_, device))
+        return len(made)
+
+    monkeypatch.setattr(nk.PathTape, "empty", empty)
+    cuda = torch.device("cuda", 0)
+    assert (2 * nk.tape_bytes(cfg, size, spp) <= nk.TAPE_BUDGET) == taped
+    assert nk.step_tapes(cfg, cuda) == ((1, 2) if taped else (None, None))
+    assert made == ([(cfg, size, spp, cuda)] * 2 if taped else [])
+    assert nk.step_tapes(cfg, torch.device("cpu")) == (None, None)
+
+
+def test_cross_grads_on_the_cpu_takes_no_tape(state, monkeypatch):
+    """On the CPU ``cross_grads`` under NEE makes no path tape and returns
+    the untaped route's bits: two colour passes, two retracing replays."""
+    _, _, scene, cam, target = state
+
+    def no_tape(*args, **kwargs):
+        raise AssertionError("a path tape on the CPU")
+
+    monkeypatch.setattr(nk.PathTape, "empty", no_tape)
+    step, t = 2, torch.from_numpy(target)
+    loss, d = gk.cross_grads(scene, cam, CFG, step, t, device="cpu")
+    a = tk.render_color_sums(scene, cam, CFG, 2 * step, device="cpu") / SPP
+    b = tk.render_color_sums(scene, cam, CFG, 2 * step + 1, device="cpu") / SPP
+    ra, rb = a - t, b - t
+    block = (nk.nee_color_grads(scene, cam, CFG, 2 * step, rb / ra.numel(), device="cpu")
+             + nk.nee_color_grads(scene, cam, CFG, 2 * step + 1, ra / ra.numel(), device="cpu"))
+    want = nk.scene_grads_from_block(block)
+    assert torch.equal(loss, torch.sum(ra * rb) / ra.numel())
+    assert set(d) == {"emission", "color", "position", "radius"}
+    for name, g in d.items():
+        assert torch.equal(g, getattr(want, name)), name

@@ -109,18 +109,52 @@ def test_long_sample_loop_matches_plain_to_the_bit(dev):
 def test_ragged_edges_and_block_sizes(dev, block):
     """Odd frame sizes are bounds-checked, and every block edge agrees with
     the plain version (the pixel sums are exact to the last rounding, so the
-    block shape moves nothing beyond it)."""
+    block shape moves nothing beyond it). The path tape pads the ragged
+    blocks: the taped colour pass and the taped replay give the untaped
+    bits."""
     cfg = RenderConfig(width=45, height=37, spp=3, max_bounces=3, nee=True, block=block)
     sb, cb, target = _inputs(dev, cfg, 37)
     seed = tk.make_seed_block(cfg, 4)
     kw = dict(local_h=37, spp=3, device=dev)
     ct = ((target - 0.5) / 3).contiguous()
-    _assert_agree(nk.replay(sb, cb, seed, cfg, ct, **kw),
-                  nk.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    retraced = nk.replay(sb, cb, seed, cfg, ct, **kw)
+    _assert_agree(retraced, nk.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    _assert_taped_is_untaped(sb, cb, seed, cfg, ct, retraced, **kw)
     sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
     ref, ref_color = nk.fused_plain(sb, cb, seed, cfg, target, **kw)
     _assert_agree(sums, ref)
     assert torch.equal(color, ref_color)
+
+
+def _assert_taped_is_untaped(sb, cb, seed, cfg, ct, retraced, *, local_h, spp, device):
+    """K1's taped colour sums and K3's taped replay equal their untaped
+    launches to the bit, one launch each, the replay counted as a replay and
+    as a taped one."""
+    kw = dict(local_h=local_h, spp=spp, device=device)
+    tape = nk.PathTape.empty(cfg, local_h, spp, device)
+    before = (tk.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches))
+    color = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
+    taped = nk.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
+    torch.cuda.synchronize()
+    assert tape.written and tk.CUDA_KERNEL.launches == before[0] + 1
+    assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 1
+    assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"] + 1
+    assert torch.equal(color, tk.trace(sb, cb, seed, cfg, mode="color", **kw))
+    assert torch.equal(taped, retraced)
+
+
+def test_taped_replay_is_the_retracing_replay_at_the_inverse_size(dev):
+    """At the inverse step's 256x256x16 and 5 bounces (4 sample lanes in K1,
+    1,024 replay blocks): the taped colour sums and the taped replay's sums
+    are the untaped launches' bits, and a second taped replay of the same
+    tape gives them again."""
+    cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
+    sb, cb, target = _inputs(dev, cfg, 256)
+    seed = tk.make_seed_block(cfg, 9)
+    kw = dict(local_h=256, spp=16, device=dev)
+    ct = ((target - 0.5) / (256 * 256 * 3 * 16)).contiguous()
+    retraced = nk.replay(sb, cb, seed, cfg, ct, **kw)
+    _assert_taped_is_untaped(sb, cb, seed, cfg, ct, retraced, **kw)
 
 
 def test_refuses_a_block_beyond_shared_memory(dev):
@@ -200,12 +234,64 @@ def test_nee_inverse_step_launches_two_trace_and_two_replay(dev):
         state, loss = step_fn(state)
         assert tk.CUDA_KERNEL.launches == before[0] + 2
         assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 2
+        assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"] + 2
         assert nk.CUDA_KERNEL.launches["fused"] == before[1]["fused"]
         assert gk.CUDA_KERNEL.launches == before[2]
         assert opt.param_groups[0]["lr"] == pytest.approx(want_lr)
         assert torch.isfinite(loss)
     moved = (state.params["position"].detach().cpu() != scene.position).any(dim=1)
     assert moved.tolist() == [i == 6 for i in range(9)]
+
+
+def test_shard_slab_replays_without_a_tape(dev):
+    """The sharding hook (``nee_grads_block_slab``, rows and samples at an
+    offset) launches the retracing replay: a replay, no taped one, and no
+    colour pass."""
+    scene, cam = cornell_box(), Camera.create()
+    ct = torch.rand(3, 16, 128, generator=torch.Generator().manual_seed(4)).to(dev)
+    before = (tk.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches))
+    block = nk.nee_grads_block_slab(scene, cam, CFG, 2, ct, row_offset=16, local_h=16, spp=2,
+                                    sample_offset=1, device=dev)
+    torch.cuda.synchronize()
+    assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 1
+    assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"]
+    assert tk.CUDA_KERNEL.launches == before[0]
+    assert torch.isfinite(block).all() and block.abs().max() > 0
+
+
+@pytest.mark.parametrize("size, spp, taped", [(256, 16, True), (512, 32, False)])
+def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped):
+    """``cross_grads`` tapes its two NEE colour passes where the two tapes fit
+    ``TAPE_BUDGET`` (256x256x16: 587 MB) and traces again above it
+    (512x512x32: 4.70 GB of tape, a few MB without one). With the budget
+    moved to the other side of the size, the other route gives the same
+    bits."""
+    cfg = RenderConfig(width=size, height=size, spp=spp, nee=True)
+    scene, cam = cornell_box(), Camera.create()
+    target = torch.full((size, size, 3), 0.25, device=dev)
+    tapes = 2 * nk.tape_bytes(cfg, size, spp)
+    assert (tapes <= nk.TAPE_BUDGET) == taped
+
+    def run():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = dict(nk.CUDA_KERNEL.launches)
+        out = gk.cross_grads(scene, cam, cfg, 3, target, device=dev)
+        torch.cuda.synchronize()
+        assert nk.CUDA_KERNEL.launches["replay"] == before["replay"] + 2
+        n_taped = nk.CUDA_KERNEL.launches["replay_taped"] - before["replay_taped"]
+        return out, n_taped, torch.cuda.max_memory_allocated(dev) - base
+
+    (loss, d), n_taped, peak = run()
+    assert n_taped == (2 if taped else 0)
+    assert peak >= tapes if taped else peak < 64 << 20
+    monkeypatch.setattr(nk, "TAPE_BUDGET", 0 if taped else tapes)
+    (other_loss, other), n_taped, _ = run()
+    assert n_taped == (0 if taped else 2)
+    assert torch.equal(loss, other_loss)
+    for name, g in d.items():
+        assert torch.equal(g, other[name]), name
 
 
 @pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
@@ -305,6 +391,12 @@ def test_resident_blocks_an_sm(dev):
         assert nk.CUDA_KERNEL.occupancy(mode, 16, 16)["shared_bytes"] == \
             nk.shared_bytes(16, 16)
     assert nk.CUDA_KERNEL.occupancy("replay", 8, 9, pad_shared=100000)["blocks_per_sm"] == 1
+    # The taped replay's ring of two bounces a thread keeps the blocks, and
+    # with no forward it keeps no tape on the stack.
+    taped = nk.CUDA_KERNEL.occupancy("replay", 8, 9, taped=True)
+    assert taped["shared_bytes"] == nk.shared_bytes(9, 8, taped=True)
+    assert taped["registers"] <= 128 and taped["local_bytes"] == 0
+    assert taped["blocks_per_sm"] >= nk.CUDA_KERNEL.occupancy("replay", 8, 9)["blocks_per_sm"]
     sb, cb, target = _inputs(dev)
     seed = tk.make_seed_block(CFG, 2)
     kw = dict(local_h=64, spp=4, device=dev)

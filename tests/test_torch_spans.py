@@ -174,17 +174,19 @@ def test_spans_lie_on_the_profiler_clock():
 @pytest.mark.parametrize("key", timing.LAUNCH_KEYS)
 def test_launch_counters_are_the_wrappers_counts(monkeypatch, key):
     """Each key reads its wrapper's own ``launches`` (K3's replay, not its
-    fused launches), which its module names when it is imported."""
-    kernel = {"k1": tk, "k3.replay": nk}[key].CUDA_KERNEL
+    fused launches; the taped replays among the replays), which its module
+    names when it is imported."""
+    kernel = (tk if key == "k1" else nk).CUDA_KERNEL
 
     def launched(n):
         if key == "k1":
             kernel.launches += n
         else:
-            kernel.launches["replay"] += n
+            kernel.launches[key[3:]] += n
             kernel.launches["fused"] += 5
 
-    monkeypatch.setattr(kernel, "launches", 7 if key == "k1" else {"fused": 7, "replay": 7})
+    monkeypatch.setattr(kernel, "launches", 7 if key == "k1" else
+                        {"fused": 7, "replay": 7, "replay_taped": 7})
     t0 = timing.launch_clock()
     timing.add_launch_ns(key, t0)  # not recording: nothing added
     timing.start_recording()
