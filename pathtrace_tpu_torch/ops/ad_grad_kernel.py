@@ -48,6 +48,7 @@ from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.grad_kernel import _per_pixel
 from pathtrace_tpu_torch.render import resolve_device
+from pathtrace_tpu_torch.utils import timing
 # The two kernels share their output layout and the rules that hold a
 # kernel against its plain version, by kind of entry.
 from pathtrace_tpu_torch.ops.nee_grad_kernel import (  # noqa: F401
@@ -138,6 +139,7 @@ class CudaAdGradKernel:
     def launch(self, scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *,
                local_h: int, spp: int, device: torch.device) -> torch.Tensor:
         """Launch on the current stream of ``device`` (asynchronous) -> sums."""
+        t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
                                                               device)
@@ -160,10 +162,12 @@ class CudaAdGradKernel:
         if err != 0:
             raise RuntimeError(f"AD grad kernel launch failed: cudaError {err}")
         self.launches += 1
+        timing.add_launch_ns("k4.replay", t0)
         return sums
 
 
 CUDA_KERNEL = CudaAdGradKernel()
+timing.launch_counter("k4.replay", lambda: CUDA_KERNEL.launches)
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotangent, dev):

@@ -54,6 +54,7 @@ from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
 from pathtrace_tpu_torch.render import resolve_device
 from pathtrace_tpu_torch.scene import Scene
+from pathtrace_tpu_torch.utils import timing
 from pathtrace_tpu_torch.utils.transfer import to_device
 
 SOURCE = CSRC / "grad_kernel.cu"
@@ -220,6 +221,7 @@ class CudaGradKernel:
         fused -> (sums, colour); dump -> (colour, accumulators); replay ->
         sums. ``pad_shared``, ``lanes``: as ``trace_kernel.CudaTraceKernel.
         launch``."""
+        t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
                                                               device)
@@ -253,12 +255,15 @@ class CudaGradKernel:
         if err != 0:
             raise RuntimeError(f"grad kernel ({mode}) launch failed: cudaError {err}")
         self.launches[mode] += 1
+        if mode == "dump":
+            timing.add_launch_ns("k2.dump", t0)
         if mode == "fused":
             return sums, color
         return (color, acc) if mode == "dump" else sums
 
 
 CUDA_KERNEL = CudaGradKernel()
+timing.launch_counter("k2.dump", lambda: CUDA_KERNEL.launches["dump"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels, dev, what):

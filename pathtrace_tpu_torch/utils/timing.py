@@ -14,13 +14,13 @@ throughput metric of the repo is
 Spans and launch counters: the entry points mark their phases with
 ``span(name)`` (a frame's render, denoise and display; an inverse step's
 gradients and Adam; a training step's upload, forward, backward and SGD),
-and the wrappers of K1 and K3's replay, the launches of an inverse step,
-time their host side with ``launch_clock`` and ``add_launch_ns`` and name
-their ``launches`` count with ``launch_counter``. Nothing is recorded
-unless a caller brackets a block with ``start_recording()`` and
-``stop_recording()``, which returns the spans closed in between and the
-launches made, in memory. Spans are stamped with
-``time.time_ns()``, the clock ``torch.profiler`` stamps its host events
+and the wrappers of the launches of an inverse step (K1, K3's replay, K4's
+replay, K2's dump mode) time their host side with ``launch_clock`` and
+``add_launch_ns`` and name their ``launches`` count with
+``launch_counter``. Nothing is recorded unless a caller brackets a block
+with ``start_recording()`` and ``stop_recording()``, which returns the
+spans closed in between and the launches made, in memory. Spans are stamped
+with ``time.time_ns()``, the clock ``torch.profiler`` stamps its host events
 with, so they lie on the same time line as a profiler's trace of the block.
 The recording is the process's, for one thread.
 """
@@ -106,10 +106,11 @@ def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: 
 # -- spans and launch counters ------------------------------------------------
 
 # the kernel wrappers' launches a recording counts and times: K1
-# (trace_kernel) and K3's replay (nee_grad_kernel), by ``launch_counter``;
-# "k3.replay_taped" counts the replays among them that read a path tape (no
-# time of its own: its launches are timed under "k3.replay")
-LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped")
+# (trace_kernel), K3's replay (nee_grad_kernel), K4's replay (ad_grad_kernel)
+# and K2's dump mode (grad_kernel), by ``launch_counter``; "k3.replay_taped"
+# counts the replays among K3's that read a path tape (no time of its own: its
+# launches are timed under "k3.replay")
+LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped", "k4.replay", "k2.dump")
 _COUNTERS = {}  # key -> the function that reads its wrapper's ``launches``
 
 

@@ -8,9 +8,10 @@
   root closed before it.
 - The spans lie on the clock of the profiler's host events: a span inside a
   ``record_function`` lies inside that event.
-- The launch counters (K1, K3's replay) are the kernel wrappers' own
-  counts since the recording started, with the host ns added only while
-  recording.
+- The launch counters (K1, K3's replay, K4's replay, K2's dump mode) are
+  the kernel wrappers' own counts since the recording started, with the host
+  ns added only while recording; each wrapper's module names its counters
+  when it is imported.
 - Each entry point records its spans and no others: a denoised progressive
   frame, an inverse step on either route, training steps through
   ``loop_epoch``.
@@ -30,6 +31,8 @@ import torch
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box, inverse, train
 from pathtrace_tpu_torch.interactive import FrameStepper
 from pathtrace_tpu_torch.models import init_model
+from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.utils import timing
@@ -171,22 +174,37 @@ def test_spans_lie_on_the_profiler_clock():
     assert event.start_ns() <= s <= e <= event.end_ns()
 
 
+# each key's wrapper, and its ``launches`` before a test: a count, or counts by mode
+WRAPPERS = {"k1": (tk, 7), "k3.replay": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
+            "k3.replay_taped": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
+            "k4.replay": (ak, 7), "k2.dump": (gk, {"fused": 7, "dump": 7, "replay": 7})}
+
+
+def test_every_launch_key_is_registered_by_its_wrapper():
+    assert set(WRAPPERS) == set(timing.LAUNCH_KEYS)
+    for key, (module, _) in WRAPPERS.items():
+        launches = module.CUDA_KERNEL.launches
+        want = launches if isinstance(launches, int) else launches[key.split(".")[1]]
+        assert timing._COUNTERS[key]() == want, key
+
+
 @pytest.mark.parametrize("key", timing.LAUNCH_KEYS)
 def test_launch_counters_are_the_wrappers_counts(monkeypatch, key):
     """Each key reads its wrapper's own ``launches`` (K3's replay, not its
-    fused launches; the taped replays among the replays), which its module
-    names when it is imported."""
-    kernel = (tk if key == "k1" else nk).CUDA_KERNEL
+    fused launches; the taped replays among the replays; K2's dump mode, not
+    its fused or replay launches), which its module names when it is
+    imported."""
+    module, before = WRAPPERS[key]
+    kernel = module.CUDA_KERNEL
 
     def launched(n):
-        if key == "k1":
+        if isinstance(before, int):
             kernel.launches += n
         else:
-            kernel.launches[key[3:]] += n
+            kernel.launches[key.split(".")[1]] += n
             kernel.launches["fused"] += 5
 
-    monkeypatch.setattr(kernel, "launches", 7 if key == "k1" else
-                        {"fused": 7, "replay": 7, "replay_taped": 7})
+    monkeypatch.setattr(kernel, "launches", before if isinstance(before, int) else dict(before))
     t0 = timing.launch_clock()
     timing.add_launch_ns(key, t0)  # not recording: nothing added
     timing.start_recording()

@@ -6,7 +6,9 @@
   after the span ends, whether the profiler records the device alone (as
   the benchmark's measured window does) or the host too.
 - A recorded NEE inverse step counts the launches the wrappers count, two
-  of K1 (colour sums) and two of K3 (replay), with host time in each.
+  of K1 (colour sums) and two of K3 (replay), with host time in each; a
+  glossy NEE step two of K1 and two of K4 (replay), an albedo step (diffuse,
+  no NEE) two of K2 (dump).
 - ``benchmark.spans.record_cell`` reads the inverse cell's spans and
   launch times with the window profiled or not (``--profile 0|1``), and
   the device's idle time by span only where it is profiled.
@@ -83,6 +85,27 @@ def test_a_recorded_inverse_step_counts_its_launches(dev):
     assert (tk.CUDA_KERNEL.launches - k1, nk.CUDA_KERNEL.launches["replay"] - k3) == (2, 2)
     assert rec.launch_ns["k1"] > 0 and rec.launch_ns["k3.replay"] > 0
     assert [name for name, *_ in rec.spans] == ["inverse.step", "inverse.grads", "inverse.adam"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,optimize,want", [
+    (dict(brdf="glossy", nee=True), ("position", "radius"), {"k1": 2, "k4.replay": 2}),
+    (dict(), ("color",), {"k2.dump": 2}),
+], ids=["glossy_nee_geometry", "albedo"])
+def test_a_recorded_step_counts_k4_and_k2(dev, case, optimize, want):
+    cfg = RenderConfig(width=64, height=64, spp=4, backend="cuda", **case)
+    state, step_fn, _ = inverse.make_inverse_step(
+        cornell_box(), Camera.create(), cfg, torch.zeros(64, 64, 3, device=dev),
+        optimize=optimize, device=dev)
+    state, _ = step_fn(state)
+    torch.cuda.synchronize()
+    timing.start_recording()
+    state, loss = step_fn(state)
+    torch.cuda.synchronize()
+    rec = timing.stop_recording()
+    assert bool(torch.isfinite(loss))
+    assert rec.launches == {**dict.fromkeys(timing.LAUNCH_KEYS, 0), **want}
+    assert all(rec.launch_ns[k] > 0 for k in want)
 
 
 @pytest.mark.cuda
