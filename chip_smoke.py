@@ -146,7 +146,13 @@ and exits non-zero.
    a small difference of products; 2.6e-3 was measured at step 1) and
    albedo gradients (rtol 2e-2 plus 2e-2 of the largest) equal to the
    autograd route's, every loss finite, and the mean albedo error lower at
-   the end than at the start.
+   the end than at the start; (d) ``grad_kernel.cross_grads`` at 512x512x32
+   NEE glossy, the glossy inverse step's gradients: two slabs of 256 rows
+   (``nee_grad_kernel.slab_rows``), four taped K1 colour passes and four K4
+   launches, all of them sweeping a path tape, against the step with
+   ``TAPE_BUDGET`` 0 (one slab, two K4 launches that trace again): the
+   same loss to the bit, each gradient field within 1e-6 of its largest
+   (the slabs' sums add in another order), the two timed in turns.
 15. Timing of K4 (median of 20 CUDA-event-timed runs, the plain version
    once) at 512x512x32 for glossy, NEE glossy and NEE diffuse (the NEE
    kernel's replay beside it) and at 256x256x8, each last output held
@@ -173,8 +179,14 @@ and exits non-zero.
    holds against its plain version at that size; the NEE replay at
    256x256x16 also taped (the sweep over a path tape that K1's taped colour
    pass wrote), timed and held to the retracing replay's bits, its line
-   after the kernels line bound by the tape's bytes; and the NEE and glossy
-   inverse steps' device time and idle share from phases 12 and 15.
+   after the kernels line bound by the tape's bytes; the glossy inverse
+   step's pair on a 256-row slab of 512x512x32 NEE glossy at row offset
+   256: K1's taped colour pass the untaped one's bits, K4's replay over
+   that tape the retracing replay's bits, launched twice (identical bits),
+   counted as two taped launches and held against the plain version, each
+   timed in turns with its untaped twin, their lines after the kernels line
+   bound by the tape's bytes stored and read; and the NEE and glossy inverse
+   steps' device time and idle share from phases 12 and 15.
 17. The bit gate of the forward kernel and the product-chain gradient
    kernel: ``kernel_digests`` (sha256 of the bytes K1 writes in its three
    modes under the four configurations at phase 3's case and in its colour
@@ -336,12 +348,13 @@ and exits non-zero.
    (``main_path_calls``: the CLI's frame, ``render_aovs``,
    ``render_color_sums``, the three routes of ``fused_loss_grads`` and
    ``loss_and_grads``, ``nee_loss_and_grads``, ``ad_loss_and_grads``,
-   ``cross_grads`` and the three inverse ``step_fn``s, at the bench's
-   512x512x32 and the inverse steps' 256x256 sizes), with scene and camera
+   ``cross_grads`` and the four inverse ``step_fn``s (NEE glossy the
+   fourth), at the bench's 512x512x32 and the inverse steps' 256x256 sizes,
+   and ``cross_grads`` at 512x512x32 NEE glossy in two slabs), with scene and camera
    on the host and on the card, runs under
    ``torch.cuda.set_sync_debug_mode("error")``, with the launch counts set to
-   0 before and read after (the kernels line adds them); every output must
-   be finite; (b) one launch of each kernel and mode (K1 in its three
+   0 before and read after (the kernels line adds them; K4's taped replays
+   must be among them); every output must be finite; (b) one launch of each kernel and mode (K1 in its three
    modes, K2 fused and dump, K5, K3 fused and replay, K4) is captured in a
    ``torch.cuda.CUDAGraph`` over static device blocks at 256x256x8; a
    changed scene (every albedo x0.9, sphere 6's radius x0.8) and the next
@@ -1299,10 +1312,10 @@ def ad_phase_13(dev, scene, cam, ak, nk, tk):
         cb = tk.camera_block(cam, cfg)
         seed = tk.make_seed_block(cfg, 3)
         kw = dict(local_h=64, spp=4, device=dev)
-        before = ak.CUDA_KERNEL.launches
+        before = ak.CUDA_KERNEL.launches["replay"]
         got = ak.replay(sb, cb, seed, cfg, colour, **kw)
         torch.cuda.synchronize()
-        if ak.CUDA_KERNEL.launches != before + 1:
+        if ak.CUDA_KERNEL.launches["replay"] != before + 1:
             raise RuntimeError("the K4 launch counter did not move")
         worst = max(worst, nee_compare(f"{name}/colour cotangent", got,
                                        ak.replay_plain(sb, cb, seed, cfg, colour, **kw), "sums"))
@@ -1382,18 +1395,18 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
 
     def zero_counts():
         tk.CUDA_KERNEL.launches = 0
-        ak.CUDA_KERNEL.launches = 0
-        for k in (gk, nk):
+        for k in (gk, nk, ak):
             for mode in k.CUDA_KERNEL.launches:
                 k.CUDA_KERNEL.launches[mode] = 0
 
     def counts():
-        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches,
+        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
                 sum(nk.CUDA_KERNEL.launches.values()) + sum(gk.CUDA_KERNEL.launches.values()))
 
     phase(14, f"glossy gradient paths at full width on cuda:0: (a) render_loss_grads 512x512x32 "
               f"glossy and NEE glossy; (b) ad_loss_and_grads beside the NEE kernel on NEE "
-              f"diffuse; (c) glossy albedo recovery 256x256, 8 spp, {GLOSSY_INVERSE_STEPS} steps")
+              f"diffuse; (c) glossy albedo recovery 256x256, 8 spp, {GLOSSY_INVERSE_STEPS} "
+              f"steps; (d) cross_grads 512x512x32 NEE glossy in two taped slabs")
     true_color = scene.color.numpy()
     bad = np.clip(true_color + np.random.default_rng(0).uniform(-0.35, 0.35, (9, 3)),
                   0.05, 0.95).astype(np.float32)
@@ -1517,7 +1530,74 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
     if not err_after.mean() < err_before.mean():
         raise RuntimeError(f"mean albedo error {err_after.mean():.4f} is not below its start "
                            f"{err_before.mean():.4f}")
+    launches += glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_counts)
     return launches, worst
+
+
+def glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_counts):
+    """Phase 14 (d): ``cross_grads`` at the glossy inverse step's 512x512x32
+    NEE glossy, taped in two slabs against the step that traces again in
+    one (``TAPE_BUDGET`` 0), held and timed in turns. -> its K4 launches."""
+    import dataclasses
+
+    import torch
+    from pathtrace_tpu_torch import RenderConfig, render_aovs
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    cfg = RenderConfig(width=512, height=512, spp=32, brdf="glossy", nee=True)
+    target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
+                         device=dev)["color"]
+    rows, budget = nk.slab_rows(cfg), nk.TAPE_BUDGET
+    if rows != 256:
+        raise RuntimeError(f"512x512x32 NEE glossy plans slabs of {rows} rows, not 256")
+
+    def step(budget_bytes):
+        nk.TAPE_BUDGET = budget_bytes
+        try:
+            zero_counts()
+            before = ak.CUDA_KERNEL.launches["replay_taped"]
+            out = gk.cross_grads(corrupted, cam, cfg, 5, target, device=dev)
+            torch.cuda.synchronize()
+            return out, (*counts()[:2], ak.CUDA_KERNEL.launches["replay_taped"] - before)
+        finally:
+            nk.TAPE_BUDGET = budget
+
+    (loss, d), seen = step(budget)
+    print(f"(d) taped, slabs of {rows} rows: launches: trace {seen[0]}, K4 {seen[1]}, of them "
+          f"taped {seen[2]}")
+    if seen != (4, 4, 4):
+        raise RuntimeError("cross_grads at 512x512x32 NEE glossy is not four taped K1 and four "
+                           "taped K4 launches")
+    launches = seen[1]
+    (loss_r, d_r), seen = step(0)
+    launches += seen[1]
+    print(f"(d) TAPE_BUDGET 0: launches: trace {seen[0]}, K4 {seen[1]}, of them taped {seen[2]}; "
+          f"loss {float(loss):.8f}, retraced {float(loss_r):.8f}")
+    if seen != (2, 2, 0):
+        raise RuntimeError("cross_grads with TAPE_BUDGET 0 is not two K1 and two retracing K4 "
+                           "launches")
+    if not torch.equal(loss, loss_r):
+        raise RuntimeError("(d) the two slabs' loss is not the one slab's to the bit")
+    for name, g in d.items():
+        g_r = d_r[name]
+        diff, top = float((g - g_r).abs().max()), float(g_r.abs().max())
+        print(f"(d) d {name}: max |two slabs - one| {diff:.3g} of largest {top:.3g}")
+        if not (torch.isfinite(g).all() and diff <= 1e-6 * top):
+            raise RuntimeError(f"(d) d {name}: the two slabs are not the one slab's within 1e-6")
+    ms = {"taped": [], "retraced": []}
+    for name in ("retraced", "taped", "taped", "retraced"):
+        nk.TAPE_BUDGET = budget if name == "taped" else 0
+        try:
+            t, _ = time_fn(lambda: gk.cross_grads(corrupted, cam, cfg, 5, target, device=dev),
+                           warmup=1, iters=TIMING_ITERS // 2, device=dev)
+        finally:
+            nk.TAPE_BUDGET = budget
+        ms[name].extend(t)
+    print(f"(d) cross_grads 512x512x32 NEE glossy by events, in turns: taped "
+          f"{statistics.median(ms['taped']):.4f} ms (runs {min(ms['taped']):.4f}.."
+          f"{max(ms['taped']):.4f}), retraced {statistics.median(ms['retraced']):.4f} ms (runs "
+          f"{min(ms['retraced']):.4f}..{max(ms['retraced']):.4f})")
+    return launches
 
 
 def ad_phase_15(dev, scene, cam, ak, nk, tk):
@@ -1740,12 +1820,68 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
           f"the retracing replay's bits: {same}")
     if not same:
         raise RuntimeError(f"{label}: the taped replay is not the retracing replay's bits")
+    del tape
+    out.update(glossy_taped_pair(dev, sb, cam, ak, nk, tk))
     print(f"the inverse steps (phases 12 and 15): NEE 256x256x16 {nee_times['step', 'kernel']:.4f} "
           f"ms a step, device {nee_times['step', 'device']:.4f} ms, idle "
           f"{nee_times['step', 'idle']:.3f}; glossy 256x256x8 {ad_times['step']:.4f} ms a step, "
           f"device {ad_times['step', 'device']:.4f} ms, idle {ad_times['step', 'idle']:.3f}")
     return out, worst, err_nee
 
+
+def glossy_taped_pair(dev, sb, cam, ak, nk, tk):
+    """Phase 16's glossy inverse step's pair: K1's taped NEE glossy colour
+    pass and K4's replay over its tape on the second 256-row slab of
+    512x512x32, as ``grad_kernel.cross_grads`` launches them, held to the
+    bits of their untaped twins, K4 also to the plain version, and each
+    timed in turns with its twin. -> {name: ms}."""
+    import torch
+    from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.utils.timing import time_fn
+
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
+    rows = nk.slab_rows(cfg)
+    cb = tk.camera_block(cam, cfg)
+    seed = tk.make_seed_block(cfg, 0, 0, rows)
+    kw = dict(local_h=rows, spp=32, device=dev)
+    ct = torch.full((ak.NUM_CT_COLOR, rows, 512), 1e-6, device=dev)
+    tape = nk.PathTape.empty(cfg, rows, 32, dev)
+    label = f"NEE glossy {rows}-row slab of 512x512x32 at row offset {rows}"
+    untaped = tk.trace(sb, cb, seed, cfg, mode="color", **kw)
+    taped = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
+    retraced = ak.replay(sb, cb, seed, cfg, ct, **kw)
+    before = ak.CUDA_KERNEL.launches["replay_taped"]
+    swept = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
+    again = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
+    torch.cuda.synchronize()
+    counted = ak.CUDA_KERNEL.launches["replay_taped"] - before
+    same = (bool(torch.equal(taped, untaped)), bool(torch.equal(swept, retraced)),
+            bool(torch.equal(again, swept)))
+    print(f"{label}: K1 taped == untaped colour sums: {same[0]}; K4 over the tape == the "
+          f"retracing replay: {same[1]}; launched twice: identical bits {same[2]}; taped K4 "
+          f"launches counted {counted}")
+    if not all(same) or counted != 2:
+        raise RuntimeError(f"{label}: the taped pair is not its untaped twins' bits, or K4's "
+                           f"taped launches were not counted")
+    nee_compare(f"K4 over the tape, {label}, vs the plain version", swept,
+                ak.replay_plain(sb, cb, seed, cfg, ct, **kw), "sums")
+    runs = {}
+    pairs = (("k1", lambda: tk.trace(sb, cb, seed, cfg, mode="color", **kw),
+              lambda: tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)),
+             ("k4", lambda: ak.replay(sb, cb, seed, cfg, ct, **kw),
+              lambda: ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)))
+    for kernel, plain_fn, taped_fn in pairs:
+        for taped_turn in (False, True, True, False):
+            t, _ = time_fn(taped_fn if taped_turn else plain_fn, warmup=2, iters=TIMING_ITERS,
+                           device=dev)
+            runs.setdefault((kernel, taped_turn), []).extend(t)
+    out = {}
+    for (kernel, taped_turn), t in runs.items():
+        out[f"{kernel}_nee_glossy_slab{'_taped' if taped_turn else ''}"] = statistics.median(t)
+        print(f"  {label}: {'K1 colour' if kernel == 'k1' else 'K4 replay'}, "
+              f"{'taped' if taped_turn else 'untaped' if kernel == 'k1' else 'retracing'}: "
+              f"{statistics.median(t):.4f} ms (runs {min(t):.4f}..{max(t):.4f})")
+    return out
 
 
 # ---- the denoised frame, progressive accumulation and the interactive loop (phase 18) --
@@ -3035,7 +3171,9 @@ def _tensors(x):
 
 def kernel_launch_counts(tk, gk, nk, ak) -> dict:
     """Every kernel's launch count, by its name in the kernels line."""
-    out = {"pathtrace_kernel": tk.CUDA_KERNEL.launches, "ad_grad_kernel": ak.CUDA_KERNEL.launches}
+    out = {"pathtrace_kernel": tk.CUDA_KERNEL.launches,
+           "ad_grad_kernel": ak.CUDA_KERNEL.launches["replay"],
+           "ad_grad_kernel[replay_taped]": ak.CUDA_KERNEL.launches["replay_taped"]}
     out.update({name: gk.CUDA_KERNEL.launches[mode] for mode, name, _ in GRAD_KERNELS})
     out.update({f"nee_grad_kernel[{m}]": n for m, n in nk.CUDA_KERNEL.launches.items()})
     return out
@@ -3043,7 +3181,7 @@ def kernel_launch_counts(tk, gk, nk, ak) -> dict:
 
 def reset_launch_counts(tk, gk, nk, ak):
     tk.CUDA_KERNEL.launches = 0
-    ak.CUDA_KERNEL.launches = 0
+    ak.CUDA_KERNEL.launches = dict.fromkeys(ak.CUDA_KERNEL.launches, 0)
     gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
     nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
 
@@ -3052,12 +3190,13 @@ def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
     """The entry points of the main paths, as (name, call) pairs; each call
     runs one on ``dev`` with ``scene`` and ``cam`` where they lie: the CLI's
     frame (``render_aovs`` at 4 spp, as ``cli.main`` calls it),
-    ``render_aovs`` and the three routes of ``fused_loss_grads`` and
-    ``loss_and_grads`` at size x size x spp (the bench's frame),
-    ``nee_loss_and_grads`` and ``ad_loss_and_grads`` (glossy) there too;
-    ``render_color_sums`` (NEE, 16 spp), ``cross_grads`` and SYNC_STEPS steps
-    of each inverse ``step_fn`` at the inverse steps' size (diffuse and
-    glossy 8 spp, NEE 16). Targets lie on the card and the inverse steps
+    ``render_aovs`` and the four routes (diffuse, NEE, glossy, NEE glossy)
+    of ``fused_loss_grads`` and ``loss_and_grads`` at size x size x spp (the
+    bench's frame), ``nee_loss_and_grads``, ``ad_loss_and_grads`` (glossy)
+    and ``cross_grads`` (NEE glossy) there too; ``render_color_sums`` (NEE,
+    16 spp), ``cross_grads`` and SYNC_STEPS steps of each inverse
+    ``step_fn`` at the inverse steps' size (diffuse and glossy 8 spp, NEE
+    and NEE glossy 16). Targets lie on the card and the inverse steps
     are made here: the calls are what a step or a loss costs."""
     import torch
 
@@ -3071,9 +3210,10 @@ def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
     gen = torch.Generator(device=dev).manual_seed(25)
     t_frame = torch.rand((size, size, 3), generator=gen, device=dev)
     t_step = torch.rand((step_size, step_size, 3), generator=gen, device=dev)
-    routes = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"}}
+    routes = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"},
+              "nee_glossy": {"nee": True, "brdf": "glossy"}}
     frame = {r: RenderConfig(width=size, height=size, spp=spp, **x) for r, x in routes.items()}
-    step = {r: RenderConfig(width=step_size, height=step_size, spp=16 if r == "nee" else 8, **x)
+    step = {r: RenderConfig(width=step_size, height=step_size, spp=16 if x.get("nee") else 8, **x)
             for r, x in routes.items()}
     p = functools.partial
     calls = [("CLI frame (render_aovs, 4 spp)",
@@ -3092,12 +3232,17 @@ def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
                                                frame["glossy"], 0, t_frame, dev))]
     calls += [(f"cross_grads [{r}]", p(gk.cross_grads, scene, cam, step[r], 3, t_step, dev))
               for r in routes]
+    # the glossy inverse step's size, which tapes in row slabs where a
+    # frame's two tapes exceed TAPE_BUDGET (two at 512x512x32)
+    calls.append(("cross_grads [nee_glossy, frame]",
+                  p(gk.cross_grads, scene, cam, frame["nee_glossy"], 3, t_frame, dev)))
     optimize = {"diffuse": ("color",), "nee": ("position", "radius"),
-                "glossy": ("color", "position")}
+                "glossy": ("color", "position"), "nee_glossy": ("position", "radius")}
     rates = {"diffuse": 2e-2,
              "nee": {"position": inverse.exponential_decay(0.5, 400, 0.02),
                      "radius": inverse.exponential_decay(0.1, 400, 0.02)},
              "glossy": {"color": 2e-2, "position": 0.5}}
+    rates["nee_glossy"] = rates["nee"]
     for r in routes:
         state, step_fn, _ = inverse.make_inverse_step(scene, cam, step[r], t_step, optimize[r],
                                                       rates[r], device=dev)
@@ -3192,6 +3337,8 @@ def launch_phase_25(dev, tk, gk, nk, ak):
 
     graph_replay_checks(dev, tk, gk, nk, ak)
     print(f"(c) launches on the main paths of (a): {json.dumps(launches)}")
+    if not launches["ad_grad_kernel[replay_taped]"]:
+        raise RuntimeError("(c) no K4 launch of the main paths swept a path tape")
     return launches
 
 
@@ -3538,6 +3685,17 @@ def main() -> int:
         / PUBLISHED_BYTES_PER_S
     print(f"  nee_grad_kernel[replay_taped] 256x256x16 {ms:8.4f} ms  bound {b:.4f} ms by the "
           f"path tape's bytes read  share of bound {b / ms:.3f}")
+    glossy = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
+    rows = nk.slab_rows(glossy)
+    b = 1e3 * nk.tape_bytes(glossy, rows, 32) / PUBLISHED_BYTES_PER_S
+    for name, what in (("ad_grad_kernel[replay_taped]", "read"),
+                       ("pathtrace_kernel[color, nee glossy, taped]", "stored")):
+        ms = sweep_times["k4_nee_glossy_slab_taped" if what == "read"
+                         else "k1_nee_glossy_slab_taped"]
+        print(f"  {name} {rows}-row slab of 512x512x32 {ms:8.4f} ms  bound {b:.4f} ms by the path "
+              f"tape's bytes {what}  share of bound {b / ms:.3f}")
+        if not b <= ms:
+            raise RuntimeError(f"{name}: a share of bound above 1")
     b = rf.bound_ms(seg["512x32 nee"], ops["nee_grad_two_pass"], PUBLISHED_F32_FLOPS)
     print(f"  nee_grad_kernel[fused] against the count of its own two loops "
           f"({ops['nee_grad_two_pass']} a segment; its bound above is the one-pass count, the "

@@ -117,9 +117,10 @@ nee_grad_kernel(const TraceParams p, const float* __restrict__ in_px,
   if constexpr (MODE == kReplayTaped) {
     // The paths K1 traced: every thread copies its words, inside or not
     // (the tape covers whole blocks), and sweeps them.
-    const PathTapeLayout lay(p, blockDim.x);
-    TapeRing ring(p, lay, path_tape, blockIdx.y * gridDim.x + blockIdx.x, tid, blk.ring(),
-                  inside);
+    constexpr int kWords = path_tape_words(false);
+    const PathTapeLayout<kWords> lay(p, blockDim.x);
+    TapeRing<kWords> ring(p, lay, path_tape, blockIdx.y * gridDim.x + blockIdx.x, tid,
+                          blk.ring(), inside);
     for (int s = 0; s < p.spp; ++s) {
       rng.sample = c_blocks.sample_offset + (uint32_t)s;
       reverse_sweep<false, true, false>(p, blk.sph, rng, rows, cols, ring, 0, inside, g,

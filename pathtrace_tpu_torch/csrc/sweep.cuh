@@ -47,11 +47,11 @@
 // kernel traces its paths again, and the warps an SM keeps resident to hide
 // their latency: measured, the time falls as 1 / blocks up to 4 resident
 // 64-thread blocks an SM and flattens from there (PERF.md). Where K1 has
-// traced the paths already (NEE diffuse, the inverse step), K3 sweeps the
-// path tape K1 wrote (PathTapeLayout, TapeRing) and runs the sweep's
-// quarter alone, 0.20 ms a 256x256x16 launch against 0.50 retracing; its
-// 56 bytes a segment come from device memory behind the sweep. What the
-// design does about that:
+// traced the paths already (the inverse step under NEE), K3 (diffuse) and
+// K4 (glossy) sweep the path tape K1 wrote (PathTapeLayout, TapeRing) and
+// run the sweep's quarter alone (K3: 0.20 ms a 256x256x16 launch against
+// 0.50 retracing); its 56 bytes a segment (68 under GLOSSY) come from
+// device memory behind the sweep. What the design does about that:
 //   * a block's dynamic shared memory holds only the sums (T threads, N
 //     spheres, G = ceil(T / kLanes) groups):
 //         geometry sums  [4N + 15][G] of 8 bytes  (GEOM only)
@@ -88,8 +88,11 @@
 //     again), stays a thread's local array where the kernel traces: with
 //     the sums halved L1 holds most of it, and a whole tape in shared memory
 //     cost an SM one resident block and ran slower. The path tape's ring
-//     holds two bounces a thread (7,168 bytes a 64-thread block), which
-//     keeps 8 blocks an SM;
+//     holds the first 14 words of two bounces a thread (7,168 bytes a
+//     64-thread block), which keeps K3 and K4 at 8 blocks an SM; K4's three
+//     glossy jitter words go to registers, loaded a bounce ahead too (in the
+//     ring, 8,704 bytes, they cost K4 a resident block and a fifth of its
+//     time);
 //   * the kernels are bounded for the block they are launched with
 //     (kSmallThreads threads, kSmallMinBlocks blocks an SM, or 256 and 1);
 //     bounding for 10 or 12 blocks costs more in registers than the warps
@@ -120,8 +123,12 @@ static_assert(kLanes >= 1 && 32 % kLanes == 0, "a group must lie in one warp");
 // sample and the glossy jitter.
 constexpr int kTapeM = 8, kTapeFrame = kTapeM + 3;
 __host__ __device__ constexpr int tape_words_of(bool geom) { return geom ? kTapeFrame + 6 : 4; }
-// Of an NEE diffuse bounce, which has no glossy jitter: the path tape's.
-constexpr int kPathTapeWords = kTapeFrame + 3;
+// Of an NEE bounce, the path tape's: 14 diffuse, which has no glossy jitter,
+// and 17 glossy. TapeRing's ring holds the first kRingWords of a bounce.
+__host__ __device__ constexpr int path_tape_words(bool glossy) {
+  return glossy ? tape_words_of(true) : kTapeFrame + 3;
+}
+constexpr int kRingWords = path_tape_words(false);
 
 // Where a block's arrays lie in its dynamic shared memory, in 4-byte words;
 // with `ring`, TapeRing's two bounces of each thread's path tape after them.
@@ -138,7 +145,7 @@ struct SweepLayout {
     loss_off = shade_off + n_shade * groups;
     sph_off = loss_off + threads;
     ring_off = sph_off + 10 * n;
-    words = ring_off + (ring ? 2 * kPathTapeWords * threads : 0);
+    words = ring_off + (ring ? 2 * kRingWords * threads : 0);
   }
   __host__ __device__ int bytes() const { return 4 * words; }
 };
@@ -157,13 +164,14 @@ struct Tape {
   __device__ __forceinline__ void finish(int, int) {}
 };
 
-// The path tape of an NEE diffuse slab in device memory: K1's taped colour
-// pass (trace_kernel.cu) writes it as it traces, and K3's taped replay
-// (nee_grad_kernel.cu) sweeps it instead of tracing every path again. A
-// bounce is tape_store's 14 words (flags, o, d, t, the throughput before the
-// bounce, the cosine sample). Word w of bounce b of sample s of the pixel
-// that thread q of the replay's block k takes lies at
-//     (((s * blocks + k) * bounces + b) * kPathTapeWords + w) * threads + q,
+// The path tape of an NEE slab in device memory: K1's taped colour pass
+// (trace_kernel.cu) writes it as it traces, and the taped replay of K3
+// (nee_grad_kernel.cu, diffuse) or K4 (ad_grad_kernel.cu, glossy) sweeps it
+// instead of tracing every path again. A bounce is tape_store's WORDS =
+// path_tape_words(GLOSSY) words (flags, o, d, t, the throughput before the
+// bounce, the cosine sample; under GLOSSY the jitter). Word w of bounce b of
+// sample s of the pixel that thread q of the replay's block k takes lies at
+//     (((s * blocks + k) * bounces + b) * WORDS + w) * threads + q,
 // threads = edge^2 of the replay's edge x edge blocks: a warp of either
 // kernel stores or reads a word of 8 or 32 neighbouring pixels as whole
 // 32-byte sectors, and a bounce of a block is one piece. Bounce bounces - 1
@@ -172,12 +180,13 @@ struct Tape {
 constexpr int kHitShift = 8;
 static_assert(kMaxBounces < (1 << 5), "the hit count takes bits 8-12 of a flags word");
 
+template <int WORDS>
 struct PathTapeLayout {
   int edge, threads, grid_x;
   size_t chunk, sample;  // floats of a (sample, block): its bounces; of a sample
   __host__ __device__ PathTapeLayout(const TraceParams& p, int edge_)
       : edge(edge_), threads(edge_ * edge_), grid_x((p.width + edge_ - 1) / edge_) {
-    chunk = (size_t)p.max_bounces * kPathTapeWords * threads;
+    chunk = (size_t)p.max_bounces * WORDS * threads;
     sample = chunk * grid_x * ((p.local_h + edge - 1) / edge);
   }
   // Word 0 of bounce 0 of sample 0 of local pixel (row, col).
@@ -189,12 +198,13 @@ struct PathTapeLayout {
 
 // K1's view of one sample's words in the path tape: forward stores each hit
 // bounce through it, then the hit count.
+template <int WORDS>
 struct TapeWriter {
   float* base;  // word 0 of bounce 0
   int stride;   // PathTapeLayout::threads: from one word to the next
   int last;     // the last bounce
   __device__ __forceinline__ float& at(int b, int w) {
-    return base[(b * kPathTapeWords + w) * stride];
+    return base[(b * WORDS + w) * stride];
   }
   __device__ __forceinline__ void finish(int last_flags, int n_hit) {
     if (last >= 0) at(last, 0) = __int_as_float((n_hit > last ? last_flags : 0) |
@@ -202,25 +212,34 @@ struct TapeWriter {
   }
 };
 
-// K3's view of the path tape: a ring of two bounces in the block's shared
-// memory that cp.async fills one bounce ahead of the sweep, so that a
-// bounce's words are on their way while the bounce before them is swept.
-// Each thread copies and reads its own words, so no barrier: a copy group a
-// bounce, and a wait for all but the newest. The sweep takes every bounce
-// from the last down, sample after sample (kFromTop), so the order of the
-// copies is fixed; the flags of the last bounce bring the sample's hit
-// count before any bounce is swept.
+// The taped replay's view of the path tape (K3's, K4's): a ring of two
+// bounces in the block's shared memory that cp.async fills one bounce ahead
+// of the sweep, so that a bounce's words are on their way while the bounce
+// before them is swept. The ring takes a bounce's first kRingWords words;
+// the kRest after them (K4's glossy jitter) are loaded into registers as
+// the ring's copy is queued and read from there a bounce later, so that K4's
+// block needs no more shared memory than K3's. Each thread copies and reads
+// its own words, so no barrier: a copy group a bounce, and a wait for all
+// but the newest. The sweep takes every bounce from the last down, sample
+// after sample (kFromTop), so the order of the copies is fixed; the flags
+// of the last bounce bring the sample's hit count before any bounce is
+// swept.
+template <int WORDS>
 struct TapeRing {
   static constexpr bool kFromTop = true;
+  static constexpr int kRest = WORDS - kRingWords;
+  static_assert(kRest >= 0, "the ring takes a bounce's first kRingWords words");
   const float* src;    // word 0 of bounce 0 of sample 0 of this thread's pixel
   size_t sample;       // floats from a sample's words to the next sample's
   float* ring;         // this thread's word 0 of slot 0; words at `stride`
   const float* cur;    // word 0 of the bounce being swept
+  float rest[kRest > 0 ? kRest : 1];       // its words after the ring's
+  float next_rest[kRest > 0 ? kRest : 1];  // the next bounce's, on their way
   int stride, bounces, spp;
   int next_s, next_b, slot;  // the next bounce to copy; the slot being swept
   bool inside;
 
-  __device__ __forceinline__ TapeRing(const TraceParams& p, const PathTapeLayout& lay,
+  __device__ __forceinline__ TapeRing(const TraceParams& p, const PathTapeLayout<WORDS>& lay,
                                       const float* tape, int block, int tid, float* ring_,
                                       bool inside_)
       : src(tape + block * lay.chunk + tid), sample(lay.sample), ring(ring_ + tid),
@@ -230,11 +249,13 @@ struct TapeRing {
   }
   __device__ __forceinline__ void copy(int to_slot) {
     if (next_s < spp) {
-      const float* from = src + next_s * sample + next_b * kPathTapeWords * stride;
-      float* to = ring + to_slot * kPathTapeWords * stride;
+      const float* from = src + next_s * sample + next_b * WORDS * stride;
+      float* to = ring + to_slot * kRingWords * stride;
 #pragma unroll
-      for (int w = 0; w < kPathTapeWords; ++w)
+      for (int w = 0; w < kRingWords; ++w)
         __pipeline_memcpy_async(to + w * stride, from + w * stride, sizeof(float));
+#pragma unroll
+      for (int k = 0; k < kRest; ++k) next_rest[k] = __ldg(from + (kRingWords + k) * stride);
     }
     __pipeline_commit();
     if (--next_b < 0) {
@@ -244,13 +265,17 @@ struct TapeRing {
   }
   // At the top of bounce b: queue the next bounce's words, wait for b's.
   __device__ __forceinline__ void enter(int b, int& n_hit) {
-    cur = ring + slot * kPathTapeWords * stride;
+    cur = ring + slot * kRingWords * stride;
+#pragma unroll
+    for (int k = 0; k < kRest; ++k) rest[k] = next_rest[k];
     copy(slot ^ 1);
     __pipeline_wait_prior(1);
     slot ^= 1;
     if (b == bounces - 1) n_hit = inside ? __float_as_int(cur[0]) >> kHitShift : 0;
   }
-  __device__ __forceinline__ const float& at(int, int w) const { return cur[w * stride]; }
+  __device__ __forceinline__ const float& at(int, int w) const {
+    return w < kRingWords ? cur[w * stride] : rest[w - kRingWords];
+  }
 };
 
 template <bool GEOM, bool GLOSSY, class TapeT>

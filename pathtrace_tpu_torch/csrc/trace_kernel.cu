@@ -56,15 +56,17 @@
 //   * Output mode, BRDF, NEE and one lane or several are template
 //     parameters, so each of the 12 variants (24 instances) compiles without
 //     the code it does not run.
-//   * The taped instance (NEE diffuse colour sums, one lane or several) is
-//     the inverse step's colour pass. It traces each sample with the
-//     reverse sweep's own taped forward (sweep.cuh), whose segment is the
-//     one the other instances run, so its sums are theirs bit for bit, and
-//     stores the 14 words of each bounce and the hit count into the path
-//     tape that K3's taped replay sweeps instead of tracing every path a
+//   * The taped instances (NEE colour sums, diffuse or glossy, one lane or
+//     several) are the inverse step's colour passes. Each traces a sample
+//     with the reverse sweep's own taped forward (sweep.cuh), whose segment
+//     is the one the other instances run, so its sums are theirs bit for
+//     bit, and stores the words of each bounce (14 diffuse, 17 glossy) and
+//     the hit count into the path tape that the taped replay of K3
+//     (diffuse) or K4 (glossy) sweeps instead of tracing every path a
 //     second time. What it adds is stores: 293.6 MB at 256x256x16 and 5
-//     bounces, 4 sectors of 32 bytes a warp-wide store (8 pixels x 4
-//     lanes), none of them read back here.
+//     bounces diffuse, 1.43 GB a 256-row slab of 512x512x32 glossy, 4
+//     sectors of 32 bytes a warp-wide store (8 pixels x 4 lanes), none of
+//     them read back here.
 //   * The first bounce (unnormalized primary ray, emission clamp, AOVs) is
 //     peeled at compile time; the later bounces are one loop, because the
 //     depth is a run-time flag.
@@ -97,7 +99,10 @@
 // (config.MAX_BLOCK on the Python side). The minimum of one block an SM
 // matters: without it ptxas held four variants to 64 registers and spilled
 // 16-24 bytes; with it, no spills: 44-80 registers at one lane, 48-87 with
-// lanes (the shuffled values and the round loop).
+// lanes (the shuffled values and the round loop). The taped NEE glossy
+// instance is bounded for 3 blocks of 256 threads an SM instead: 80
+// registers where it took 86-88 and kept 2, and 7-9% faster on a 256-row
+// slab of 512x512x32, with no more stack (PERF.md).
 
 #include "sweep.cuh"
 
@@ -152,15 +157,17 @@ struct Welford {
 // block: the block's edge in pixels; lane_bits: log2 of the sample lanes L.
 // LANED = false is the one-lane instance: L = 1 at compile time, so the
 // shuffles, the round loop and the owner tests fold away. TAPED (NEE
-// diffuse colour sums only): each sample is traced by the sweep's taped
-// forward, the same segment with the same bits, which stores its bounces
-// and hit count into path_tape (sweep.cuh::PathTapeLayout, for a replay in
-// blocks of tape_edge x tape_edge) for K3's taped replay.
+// colour sums only): each sample is traced by the sweep's taped forward,
+// the same segment with the same bits, which stores its bounces and hit
+// count into path_tape (sweep.cuh::PathTapeLayout, path_tape_words(GLOSSY)
+// words a bounce, for a replay in blocks of tape_edge x tape_edge) for the
+// taped replay of K3 (diffuse) or K4 (glossy).
 template <int NCH, bool GLOSSY, bool NEE, bool LANED, bool TAPED = false>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+__global__ void __launch_bounds__(kMaxThreads, TAPED && GLOSSY ? 3 : 1)
 pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __restrict__ out,
                  float* __restrict__ path_tape, int tape_edge) {
-  static_assert(!TAPED || (NCH == 3 && NEE && !GLOSSY), "a path tape is NEE diffuse colour's");
+  static_assert(!TAPED || (NCH == 3 && NEE), "a path tape is an NEE colour pass's");
+  constexpr int kTapeWords = path_tape_words(GLOSSY);
   const int tid = threadIdx.x;
   const unsigned mask = __activemask();  // the warp's threads, all of them here
   const int lane_bits = LANED ? lane_bits_arg : 0;
@@ -178,7 +185,7 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
   size_t tape_sample = 0;
   int tape_stride = 0;
   if constexpr (TAPED) {
-    const PathTapeLayout lay(p, tape_edge);
+    const PathTapeLayout<kTapeWords> lay(p, tape_edge);
     if (inside) tape_at = lay.pixel(row, col);
     tape_sample = lay.sample;
     tape_stride = lay.threads;
@@ -192,10 +199,10 @@ pathtrace_kernel(const TraceParams p, int block, int lane_bits_arg, float* __res
     if (inside && base + lane < p.spp) {
       rng.sample = c_blocks.sample_offset + (uint32_t)(base + lane);
       if constexpr (TAPED) {
-        TapeWriter w = {path_tape + tape_at + (base + lane) * tape_sample, tape_stride,
-                        p.max_bounces - 1};
+        TapeWriter<kTapeWords> w = {path_tape + tape_at + (base + lane) * tape_sample,
+                                    tape_stride, p.max_bounces - 1};
         int n_hit;
-        forward<false, true, true, true>(p, rng, rows, cols, o, w, n_hit);
+        forward<GLOSSY, true, true, true>(p, rng, rows, cols, o, w, n_hit);
       } else {
         o = trace_sample<GLOSSY, NEE>(p, rng, rows, cols);
       }
@@ -287,7 +294,8 @@ const void* instance(bool glossy, bool nee, bool laned) {
 const void* kernel_of(int n_channels, bool glossy, bool nee, int lane_bits, bool taped) {
   const bool laned = lane_bits > 0;
   if (taped) {
-    return n_channels == 3 && nee && !glossy ? instance<3, false, true, true>(laned) : nullptr;
+    if (n_channels != 3 || !nee) return nullptr;
+    return glossy ? instance<3, true, true, true>(laned) : instance<3, false, true, true>(laned);
   }
   switch (n_channels) {
     case 14: return instance<14>(glossy, nee, laned);
@@ -322,12 +330,13 @@ cudaError_t launch(const void* fn, TraceParams p, int block, int lane_bits, int 
 // bad arguments.
 // block is the edge of the square block in pixels, 1..kMaxBlock; lanes the
 // sample lanes a pixel, 1, 2 or 4 with block^2 x lanes <= kMaxThreads.
-// path_tape: nullptr, or for NEE diffuse colour sums (n_channels 3) a device
-// buffer of spp * ceil(W / tape_edge) * ceil(local_h / tape_edge) *
-// max_bounces * 14 * tape_edge^2 floats that the launch fills with the
-// paths it traces, laid out for pt_nee_grad_launch's REPLAY_TAPED in blocks
-// of tape_edge x tape_edge (sweep.cuh::PathTapeLayout); its colour sums are
-// the untaped launch's, bit for bit.
+// path_tape: nullptr, or for NEE colour sums (n_channels 3) a device buffer
+// of spp * ceil(W / tape_edge) * ceil(local_h / tape_edge) * max_bounces *
+// words * tape_edge^2 floats, words 14 diffuse and 17 glossy, that the
+// launch fills with the paths it traces, laid out for the taped replay of
+// pt_nee_grad_launch (diffuse) or pt_ad_grad_launch (glossy) in blocks of
+// tape_edge x tape_edge (sweep.cuh::PathTapeLayout); its colour sums are the
+// untaped launch's, bit for bit.
 //
 // pt_trace_launch_padded is the same launch asking for pad_shared dynamic
 // shared bytes it does not use, so that fewer blocks fit an SM: the

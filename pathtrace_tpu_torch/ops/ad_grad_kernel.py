@@ -26,7 +26,11 @@ shading chain alone and gives the full instance's shading sums bit for bit.
 ``replay`` is the wrapper. On the CPU it runs ``replay_plain``, the kernel's
 formulas in the kernel's order over [h, W] tensors on ``trace_kernel``'s
 plain trajectory (no autograd), summing over pixels in double as the kernel
-does; on a CUDA device it launches the kernel, or raises. Both give the
+does; on a CUDA device it launches the kernel, or raises. Under NEE glossy
+with a colour cotangent it takes a ``nee_grad_kernel.PathTape`` that K1's
+taped colour pass wrote for the same slab, whose paths the kernel sweeps
+instead of tracing them again (its REPLAY_TAPED instance, the same bits):
+the glossy inverse step's route (``grad_kernel.cross_grads``). Both give the
 flat sums [10N + 16] of ``nee_grad_kernel`` (0 in the loss slot), and
 ``block_from_sums`` / ``grads_from_block`` there turn them into the JAX
 package's gradient block and into (d_scene, d_camera).
@@ -92,13 +96,14 @@ def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, 
 # -- the CUDA kernel -----------------------------------------------------------
 
 class CudaAdGradKernel:
-    """ctypes binding of ``pt_ad_grad_launch``. ``launches`` counts the kernel
-    launches made through ``launch``."""
+    """ctypes binding of ``pt_ad_grad_launch``. ``launches["replay"]`` counts
+    the kernel launches made through ``launch``; ``launches["replay_taped"]``
+    those among them that read a path tape."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
         self._fn = None
-        self.launches = 0
+        self.launches = {"replay": 0, "replay_taped": 0}
 
     def _function(self):
         if self._fn is None:
@@ -108,17 +113,19 @@ class CudaAdGradKernel:
                 ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
             ])
         return self._fn
 
     def occupancy(self, glossy: bool, nee: bool, aov: bool, block: int,
-                  num_spheres: int) -> dict:
-        """What the card gives a ``block`` x ``block`` launch of the instance:
-        resident blocks an SM, registers a thread, dynamic shared bytes a
-        block, local bytes a thread."""
+                  num_spheres: int, taped: bool = False) -> dict:
+        """What the card gives a ``block`` x ``block`` launch of the instance
+        (taped: the NEE glossy colour one that reads a path tape): resident
+        blocks an SM, registers a thread, dynamic shared bytes a block, local
+        bytes a thread."""
         self._function()
         out = (ctypes.c_int * 4)()
-        err = self._lib.pt_ad_grad_occupancy(int(glossy), int(nee), int(aov), block,
+        err = self._lib.pt_ad_grad_occupancy(int(glossy), int(nee), int(aov), int(taped), block,
                                              num_spheres, out)
         if err != 0:
             raise RuntimeError(f"AD grad kernel occupancy query failed: cudaError {err}")
@@ -137,8 +144,9 @@ class CudaAdGradKernel:
         return out
 
     def launch(self, scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *,
-               local_h: int, spp: int, device: torch.device) -> torch.Tensor:
-        """Launch on the current stream of ``device`` (asynchronous) -> sums."""
+               local_h: int, spp: int, device: torch.device, tape=None) -> torch.Tensor:
+        """Launch on the current stream of ``device`` (asynchronous) -> sums.
+        ``tape``: the ``PathTape`` to sweep, checked by ``replay``."""
         t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = tk.launch_operands(scene_block, cam_block, seed,
@@ -157,17 +165,20 @@ class CudaAdGradKernel:
                 cfg.push_ray_origin, cfg.light_index if cfg.nee else -1,
                 int(cfg.brdf == "glossy"), cotangent.shape[0], block, cotangent.data_ptr(),
                 partial.data_ptr(),
-                sums.data_ptr(), stream,
+                sums.data_ptr(), stream, None if tape is None else tape.words.data_ptr(),
             )
         if err != 0:
             raise RuntimeError(f"AD grad kernel launch failed: cudaError {err}")
-        self.launches += 1
+        self.launches["replay"] += 1
+        if tape is not None:
+            self.launches["replay_taped"] += 1
         timing.add_launch_ns("k4.replay", t0)
         return sums
 
 
 CUDA_KERNEL = CudaAdGradKernel()
-timing.launch_counter("k4.replay", lambda: CUDA_KERNEL.launches)
+timing.launch_counter("k4.replay", lambda: CUDA_KERNEL.launches["replay"])
+timing.launch_counter("k4.replay_taped", lambda: CUDA_KERNEL.launches["replay_taped"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotangent, dev):
@@ -193,13 +204,23 @@ def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotang
 
 
 def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_h: int,
-           spp: int, device=None):
+           spp: int, device=None, tape=None):
     """The kernel wrapper -> sums [10N + 16] (0 in the loss slot) on ``device``
     (default: the blocks'). CPU: the plain version. CUDA: the kernel, or an
-    exception."""
+    exception. ``tape``: under NEE glossy with a colour cotangent, the
+    ``PathTape`` that K1's taped colour pass wrote with the same blocks, seed
+    and sizes, whose paths the kernel sweeps instead of tracing them again
+    (on the card only; the same bits)."""
     dev = tk.launch_device(scene_block, device)
     _check(scene_block, cam_block, seed, cfg, local_h, spp, cotangent, dev)
     kw = dict(local_h=local_h, spp=spp, device=dev)
+    if tape is not None:
+        if not (cfg.nee and cfg.brdf == "glossy" and cotangent.shape[0] == NUM_CT_COLOR):
+            raise ValueError(f"K4 reads a path tape under NEE glossy with a colour cotangent, "
+                             f"got nee={cfg.nee}, brdf={cfg.brdf!r}, "
+                             f"{cotangent.shape[0]} cotangent channels")
+        tape.check(cfg, local_h, spp, dev, written=True)
+        return CUDA_KERNEL.launch(scene_block, cam_block, seed, cfg, cotangent, tape=tape, **kw)
     if dev.type == "cpu":
         return replay_plain(scene_block, cam_block, seed, cfg, cotangent, **kw)
     return CUDA_KERNEL.launch(scene_block, cam_block, seed, cfg, cotangent, **kw)

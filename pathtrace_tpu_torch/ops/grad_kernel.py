@@ -461,15 +461,14 @@ def cross_contract(a, acc_a, b, acc_b, target):
     return torch.sum(ra * rb) / denom, {"emission": d_ea + d_eb, "color": d_ca + d_cb}
 
 
-def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None, tape=None):
+def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
     """Gradient block [N + 5, 11] of sum(cotangent * mean colour), all
     parameters, for a configuration off the product chain: one replay launch
-    of K3 (NEE diffuse; it sweeps ``tape``, the path tape of the frame's
-    colour pass, where one is given) or K4 (glossy)."""
+    of K3 (NEE diffuse) or K4 (glossy)."""
     if route(cfg) == "nee":
         from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 
-        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device, tape)
+        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device)
     from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 
     device = resolve_device(device)
@@ -490,32 +489,55 @@ def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     {"emission", "color"}. NEE diffuse and glossy: two colour-sum launches
     of the forward kernel, then two replays (K3 for NEE diffuse, K4 for
     glossy), each against the other render's residual -> also "position"
-    and "radius". NEE diffuse on the card: each colour pass writes its paths
-    into a path tape, which its replay sweeps instead of tracing them again,
-    with the same bits. Each tape takes 56 B a pixel, sample and bounce
-    (``nee_grad_kernel.tape_bytes``: 293.6 MB at 256x256x16 and 5 bounces);
-    where the two would take more than ``nee_grad_kernel.TAPE_BUDGET``
-    (4 GiB), the replays trace again, in a few MB."""
+    and "radius".
+
+    Under NEE on the card each colour pass writes its paths into a path
+    tape, which its replay (K3 or K4) sweeps instead of tracing them again,
+    with the same bits. A tape takes 56 B a pixel, sample and bounce, 68
+    under glossy (``nee_grad_kernel.tape_bytes``), so the step runs in the
+    fewest equal row slabs whose two tapes fit ``nee_grad_kernel.
+    TAPE_BUDGET`` (4 GiB; ``nee_grad_kernel.step_tapes``): one at 256x256x16
+    (2 x 293.6 MB), two of 256 rows at 512x512x32 (2 x 1.17 GB diffuse,
+    2 x 1.43 GB glossy). Each slab is the two colour passes, then the two
+    replays against the other pass's residual rows; the two tapes serve
+    every slab, and the slabs' gradient sums add up in slab order. The
+    residual is per pixel, so the loss is the whole frame's, as one slab
+    gives it. On the CPU, without NEE, and where even one row's tapes would
+    not fit, one slab and no tape: the replays trace again. The scene and
+    camera blocks are built once a step, for every launch."""
     if route(cfg) == "chain":
         a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
         b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
         target = _per_pixel(target, a.device)
         return cross_contract(a, acc_a, b, acc_b, target)
-    device = resolve_device(device)
-    tapes = (None, None)
-    if route(cfg) == "nee":
-        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 
-        tapes = nk.step_tapes(cfg, device)
-    a = tk.render_color_sums(scene, cam, cfg, 2 * step, device=device, tape=tapes[0]) / cfg.spp
-    b = (tk.render_color_sums(scene, cam, cfg, 2 * step + 1, device=device, tape=tapes[1])
-         / cfg.spp)
-    target = _per_pixel(target, a.device)
-    ra, rb = a - target, b - target
-    denom = a.numel()
-    d = _scene_grads(
-        _color_grads_block(scene, cam, cfg, 2 * step, rb / denom, device, tapes[0])
-        + _color_grads_block(scene, cam, cfg, 2 * step + 1, ra / denom, device, tapes[1]))
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
+    rows, tapes = nk.step_tapes(cfg, device)
+    target = _per_pixel(target, device)
+    denom = cfg.height * cfg.width * 3
+    sums, residuals = None, []
+    for r0 in range(0, cfg.height, rows):
+        kw = dict(local_h=min(rows, cfg.height - r0), spp=cfg.spp, device=device)
+        seeds = [tk.make_seed_block(cfg, f, 0, r0) for f in (2 * step, 2 * step + 1)]
+        slab = [None if t is None else t.slab(cfg, kw["local_h"], cfg.spp) for t in tapes]
+        a, b = (tk.trace(sb, cb, seed, cfg, mode="color", tape=t, **kw) / cfg.spp
+                for seed, t in zip(seeds, slab))
+        ra, rb = a - target[r0:r0 + kw["local_h"]], b - target[r0:r0 + kw["local_h"]]
+        slab_sums = None
+        for seed, residual, t in zip(seeds, (rb, ra), slab):
+            # a pass's replay against the other pass's residual, 1/spp folded in
+            if route(cfg) == "nee":
+                g = nk.replay(sb, cb, seed, cfg, residual / denom / cfg.spp, tape=t, **kw)
+            else:
+                ct = ak.pack_cotangents(cfg, residual / denom, **kw)
+                g = ak.replay(sb, cb, seed, cfg, ct, tape=t, **kw)
+            slab_sums = g if slab_sums is None else slab_sums + g
+        sums = slab_sums if sums is None else sums + slab_sums
+        residuals.append((ra, rb))
+    ra, rb = residuals[0] if len(residuals) == 1 else (torch.cat(x) for x in zip(*residuals))
+    d = _scene_grads(nk.block_from_sums(sums))
     return torch.sum(ra * rb) / denom, {"emission": d.emission, "color": d.color,
                                         "position": d.position, "radius": d.radius}
 

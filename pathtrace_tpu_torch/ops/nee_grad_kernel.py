@@ -13,9 +13,11 @@ and albedo, the eye and the four corner rays. Two modes:
   pixel's own cotangent.
 - ``"replay"``: gradients of ``sum(cotangent * colour sum)`` for a given
   per-pixel cotangent. Given a ``PathTape`` that K1's taped colour pass
-  filled for the same frame, the replay sweeps the paths stored there
+  filled for the same slab, the replay sweeps the paths stored there
   instead of tracing them again (the kernel's REPLAY_TAPED instance), with
-  the same bits: the inverse step's route (``grad_kernel.cross_grads``).
+  the same bits: the inverse step's route (``grad_kernel.cross_grads``,
+  which plans its slabs and tapes with ``step_tapes``; K4's NEE glossy
+  replay reads a tape the same way).
 
 ``fused`` and ``replay`` are the wrappers. On the CPU they run
 ``fused_plain`` and ``replay_plain``, a transcription of the kernel's own
@@ -81,7 +83,10 @@ def require_nee_diffuse(cfg: RenderConfig, what: str):
 
 
 LANES = 2  # csrc/sweep.cuh's kLanes: threads that share one set of sums
-TAPE_WORDS = 14  # csrc/sweep.cuh's kPathTapeWords: a bounce of the path tape
+# csrc/sweep.cuh's path_tape_words: the 4-byte words of a bounce of an NEE
+# path tape, by ``cfg.brdf`` (the glossy jitter takes three more)
+TAPE_WORDS = {"diffuse": 14, "glossy": 17}
+RING_WORDS = 14  # csrc/sweep.cuh's kRingWords: those of a bounce a taped replay's ring holds
 
 
 def n_slots(num_spheres: int, geom: bool = True) -> int:
@@ -94,52 +99,71 @@ def shared_bytes(num_spheres: int, block: int, geom: bool = True, taped: bool = 
     """Dynamic shared memory of a ``block`` x ``block`` launch
     (``csrc/sweep.cuh``'s ``SweepLayout``): the sums of every lane group, a
     loss float a thread and the sphere table; a taped replay's ring of two
-    bounces of path tape a thread after them."""
+    bounces of path tape a thread after them (``RING_WORDS`` of each: K4's
+    glossy jitter waits in registers)."""
     threads = block * block
     groups = -(-threads // LANES)
-    ring = 2 * TAPE_WORDS * threads if taped else 0
+    ring = 2 * RING_WORDS * threads if taped else 0
     return 4 * (n_slots(num_spheres, geom) * groups + threads + 10 * num_spheres + ring)
 
 
 # -- the path tape ----------------------------------------------------------------
 
 def tape_shape(cfg: RenderConfig, local_h: int, spp: int) -> tuple:
-    """[spp, blocks, max_bounces, TAPE_WORDS, block^2]: the float32 words of
-    the path tape of a ``local_h`` x W slab (``csrc/sweep.cuh``'s
+    """[spp, blocks, max_bounces, TAPE_WORDS[cfg.brdf], block^2]: the float32
+    words of the path tape of a ``local_h`` x W slab (``csrc/sweep.cuh``'s
     ``PathTapeLayout``), blocks being the replay's ``cfg.block`` x
     ``cfg.block`` blocks over the slab, and a block's threads last."""
     blocks = -(-cfg.width // cfg.block) * -(-local_h // cfg.block)
-    return (spp, blocks, cfg.max_bounces, TAPE_WORDS, cfg.block * cfg.block)
+    return (spp, blocks, cfg.max_bounces, TAPE_WORDS[cfg.brdf], cfg.block * cfg.block)
 
 
 def tape_bytes(cfg: RenderConfig, local_h: int, spp: int) -> int:
     return 4 * math.prod(tape_shape(cfg, local_h, spp))
 
 
-# The most device memory the two path tapes of an inverse step may take
-# (a twentieth of an H100's 80 GB). Above it the step's replays trace their
-# paths again, in a few MB: 256x256x16 and 512x512x16 at 5 bounces tape
-# (2 x 293.6 MB, 2 x 1.17 GB), 512x512x32 does not (2 x 2.35 GB).
+# The most device memory the two path tapes of an inverse step's slab may
+# take (a twentieth of an H100's 80 GB); the step runs in as many row slabs
+# as it needs to keep within it (``slab_rows``). At 5 bounces 256x256x16 and
+# 512x512x16 NEE diffuse tape in one slab (2 x 293.6 MB, 2 x 1.17 GB);
+# 512x512x32 takes two of 256 rows (2 x 1.17 GB diffuse, 2 x 1.43 GB glossy,
+# against 2 x 2.35 GB and 2 x 2.85 GB for the whole frame).
 TAPE_BUDGET = 4 << 30
 
 
+def slab_rows(cfg: RenderConfig) -> int | None:
+    """Rows a slab of the fewest equal row slabs of the frame (the last may
+    be shorter) whose two path tapes take at most ``TAPE_BUDGET`` bytes, or
+    None where even a slab of one row's would not. A tape grows by whole
+    rows of replay blocks, each ``tape_bytes(cfg, 1, spp)``."""
+    most = min(cfg.height, TAPE_BUDGET // (2 * tape_bytes(cfg, 1, cfg.spp)) * cfg.block)
+    if most < 1:
+        return None
+    return -(-cfg.height // -(-cfg.height // most))
+
+
 def step_tapes(cfg: RenderConfig, device: torch.device) -> tuple:
-    """The two empty path tapes of a whole-frame inverse step on ``device``
-    (``grad_kernel.cross_grads``), or (None, None) where its replays trace
-    their paths again: on the CPU, and where the two would take more than
-    ``TAPE_BUDGET`` bytes."""
-    if device.type != "cuda" or 2 * tape_bytes(cfg, cfg.height, cfg.spp) > TAPE_BUDGET:
-        return None, None
-    return tuple(PathTape.empty(cfg, cfg.height, cfg.spp, device) for _ in range(2))
+    """The plan of a whole-frame inverse step on ``device``
+    (``grad_kernel.cross_grads``) -> (rows, (tape, tape)): its colour passes
+    and replays go in slabs of ``rows`` rows (the last may be shorter), and
+    the two empty path tapes of a slab of ``rows`` rows serve every slab
+    (``PathTape.slab``). (cfg.height, (None, None)) where the replays trace
+    their paths again: on the CPU, without NEE, and where even one row's two
+    tapes would take more than ``TAPE_BUDGET`` bytes."""
+    rows = slab_rows(cfg) if device.type == "cuda" and cfg.nee else None
+    if rows is None:
+        return cfg.height, (None, None)
+    return rows, tuple(PathTape.empty(cfg, rows, cfg.spp, device) for _ in range(2))
 
 
 @dataclasses.dataclass(eq=False)
 class PathTape:
-    """The paths of an NEE diffuse slab as K1's taped colour pass traced them,
-    for K3's taped replay: ``words`` [``tape_shape``] float32 on the card,
-    made for ``sizes`` (local_h, width, spp, max_bounces, block). The colour
-    pass sets ``written``. The tape holds no scene, camera or seed: a replay
-    reads it with the blocks of the colour pass that wrote it."""
+    """The paths of an NEE slab as K1's taped colour pass traced them, for
+    the taped replay of K3 (diffuse) or K4 (glossy): ``words``
+    [``tape_shape``] float32 on the card, made for ``sizes`` (local_h,
+    width, spp, max_bounces, block, words a bounce). The colour pass sets
+    ``written``. The tape holds no scene, camera or seed: a replay reads it
+    with the blocks of the colour pass that wrote it."""
 
     words: torch.Tensor
     sizes: tuple
@@ -150,15 +174,28 @@ class PathTape:
         words = torch.empty(tape_shape(cfg, local_h, spp), dtype=torch.float32, device=device)
         return cls(words, _tape_sizes(cfg, local_h, spp))
 
+    def slab(self, cfg: RenderConfig, local_h: int, spp: int) -> "PathTape":
+        """An unwritten tape of a ``local_h``-row slab in the first words of
+        this one's memory, which must hold them: each slab of an inverse
+        step reuses the step's two tapes."""
+        shape = tape_shape(cfg, local_h, spp)
+        n = math.prod(shape)
+        if n > self.words.numel():
+            raise ValueError(f"a path tape of {self.words.numel()} words cannot hold a slab "
+                             f"of {n}")
+        return PathTape(self.words.view(-1)[:n].view(shape), _tape_sizes(cfg, local_h, spp))
+
     def check(self, cfg: RenderConfig, local_h: int, spp: int, device, written: bool):
         """Raise ValueError unless a launch of ``cfg`` over ``local_h`` rows and
         ``spp`` samples on ``device`` can write the tape (``written`` False:
-        K1) or read it (True: K3's replay, after a colour pass wrote it)."""
-        require_nee_diffuse(cfg, "a path tape")
+        K1) or read it (True: a replay, after a colour pass wrote it)."""
+        if not cfg.nee:
+            raise ValueError(f"a path tape needs nee=True, got nee={cfg.nee}, "
+                             f"brdf={cfg.brdf!r}")
         want = _tape_sizes(cfg, local_h, spp)
         if self.sizes != want:
-            raise ValueError(f"path tape made for (local_h, width, spp, max_bounces, block) "
-                             f"{self.sizes}, the launch is {want}")
+            raise ValueError(f"path tape made for (local_h, width, spp, max_bounces, block, "
+                             f"words) {self.sizes}, the launch is {want}")
         if written and not self.written:
             raise ValueError("no colour pass has written this path tape")
         w = self.words
@@ -178,7 +215,7 @@ class PathTape:
 
 
 def _tape_sizes(cfg: RenderConfig, local_h: int, spp: int) -> tuple:
-    return (local_h, cfg.width, spp, cfg.max_bounces, cfg.block)
+    return (local_h, cfg.width, spp, cfg.max_bounces, cfg.block, TAPE_WORDS[cfg.brdf])
 
 
 # -- the plain versions ----------------------------------------------------------
@@ -718,12 +755,11 @@ def nee_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_off
     return block_from_sums(sums)
 
 
-def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None, tape=None):
+def nee_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
     """Gradient block [N + 5, 11] of sum(cotangent * mean colour) for
-    ``cotangent`` [H, W, 3]: one replay launch, which sweeps ``tape`` where
-    ``render_color_sums`` of the same frame wrote one."""
+    ``cotangent`` [H, W, 3]: one replay launch."""
     sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     ct = _per_pixel(cotangent, device) / cfg.spp
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
-                  spp=cfg.spp, device=device, tape=tape)
+                  spp=cfg.spp, device=device)
     return block_from_sums(sums)

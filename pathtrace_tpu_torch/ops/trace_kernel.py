@@ -670,8 +670,9 @@ def trace(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
     """The kernel wrapper -> [local_h, W, C] float32 on ``device`` (default:
     the blocks' device). CPU: the plain version. CUDA: the kernel, or an
     exception. ``tape``: a ``nee_grad_kernel.PathTape`` made for this launch
-    (NEE diffuse ``"color"`` only, on the card), which the launch fills with
-    the paths it traces for K3's taped replay; the sums are the same bits."""
+    (NEE ``"color"`` only, diffuse or glossy, on the card), which the launch
+    fills with the paths it traces for the taped replay of K3 (diffuse) or
+    K4 (glossy); the sums are the same bits."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
     check_blocks(scene_block, cam_block, seed, cfg, local_h, spp)
@@ -767,14 +768,13 @@ def render_aovs(scene, cam, cfg: RenderConfig, frame=0, device=None) -> Dict[str
 
 
 def render_color_sums(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_h=None,
-                      spp=None, sample_offset=0, device=None, tape=None) -> torch.Tensor:
+                      spp=None, sample_offset=0, device=None) -> torch.Tensor:
     """RAW colour sums [local_h, W, 3] over samples [sample_offset,
-    sample_offset + spp) of rows [row_offset, row_offset + local_h).
-    ``tape``: see ``trace``."""
+    sample_offset + spp) of rows [row_offset, row_offset + local_h)."""
     sb, cb, device = device_blocks(scene, cam, cfg, device)
     return trace(sb, cb, make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
                  local_h=cfg.height if local_h is None else local_h,
-                 spp=cfg.spp if spp is None else spp, mode="color", device=device, tape=tape)
+                 spp=cfg.spp if spp is None else spp, mode="color", device=device)
 
 
 def partials_from_block(out: torch.Tensor):

@@ -156,7 +156,7 @@ def reset_launch_counts():
     tk.CUDA_KERNEL.launches = 0
     gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
     nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
-    ak.CUDA_KERNEL.launches = 0
+    ak.CUDA_KERNEL.launches = dict.fromkeys(ak.CUDA_KERNEL.launches, 0)
 
 
 def launch_counts() -> dict:
@@ -169,7 +169,7 @@ def launch_counts() -> dict:
 
     return dict(zip(KERNEL_COUNTERS, (tk.CUDA_KERNEL.launches, gk.CUDA_KERNEL.launches["dump"],
                                       nk.CUDA_KERNEL.launches["replay"],
-                                      ak.CUDA_KERNEL.launches)))
+                                      ak.CUDA_KERNEL.launches["replay"])))
 
 
 def _timed_fn(case: dict, device):

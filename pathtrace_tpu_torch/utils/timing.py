@@ -108,9 +108,10 @@ def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: 
 # the kernel wrappers' launches a recording counts and times: K1
 # (trace_kernel), K3's replay (nee_grad_kernel), K4's replay (ad_grad_kernel)
 # and K2's dump mode (grad_kernel), by ``launch_counter``; "k3.replay_taped"
-# counts the replays among K3's that read a path tape (no time of its own: its
-# launches are timed under "k3.replay")
-LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped", "k4.replay", "k2.dump")
+# and "k4.replay_taped" count the replays among K3's and K4's that read a
+# path tape (no time of their own: their launches are timed under
+# "k3.replay" and "k4.replay")
+LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped", "k4.replay", "k4.replay_taped", "k2.dump")
 _COUNTERS = {}  # key -> the function that reads its wrapper's ``launches``
 
 

@@ -173,12 +173,13 @@ def main() -> int:
                         key = f"K1 {mode} {brdf}{' nee' if nee else ''} {block}x{block}"
                         result["occupancy"][key] = occ
                         print(f"  {key:36s} " + "  ".join(f"{k} {v}" for k, v in occ.items()))
-            # the NEE diffuse colour pass that writes the path tape
-            occ = tk.CUDA_KERNEL.occupancy("color", RenderConfig(block=block, nee=True),
-                                           taped=True)
-            key = f"K1 color nee taped {block}x{block}"
-            result["occupancy"][key] = occ
-            print(f"  {key:36s} " + "  ".join(f"{k} {v}" for k, v in occ.items()))
+            # the NEE colour passes that write the path tape
+            for brdf in ("diffuse", "glossy"):
+                occ = tk.CUDA_KERNEL.occupancy(
+                    "color", RenderConfig(block=block, nee=True, brdf=brdf), taped=True)
+                key = f"K1 color{' glossy' if brdf == 'glossy' else ''} nee taped {block}x{block}"
+                result["occupancy"][key] = occ
+                print(f"  {key:36s} " + "  ".join(f"{k} {v}" for k, v in occ.items()))
             for mode in gk.MODES:
                 occ = gk.CUDA_KERNEL.occupancy(mode, RenderConfig(block=block), n)
                 key = f"K2 {mode} {block}x{block}"

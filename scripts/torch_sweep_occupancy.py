@@ -152,6 +152,9 @@ def main() -> int:
         # the replay that sweeps K1's path tape
         rows["K3 replay taped"] = nk.CUDA_KERNEL.occupancy("replay", block, n, taped=True)
         rows.update(ak.CUDA_KERNEL.instances(block, n))
+        # K4's replay that sweeps K1's NEE glossy path tape
+        rows["K4 nee_glossy colour taped"] = ak.CUDA_KERNEL.occupancy(True, True, False, block,
+                                                                      n, taped=True)
         for name, occ in rows.items():
             print(f"  {block:2d}x{block:<2d} {name:28s} " + "  ".join(f"{k} {v}" for k, v in
                                                                      occ.items()))

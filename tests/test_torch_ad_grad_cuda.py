@@ -71,9 +71,9 @@ def test_kernel_matches_plain(dev, brdf, nee, channels):
     ct = _cotangent(dev, channels)
     seed = tk.make_seed_block(cfg, 2)
     kw = dict(local_h=H, spp=SPP, device=dev)
-    before = ak.CUDA_KERNEL.launches
+    before = dict(ak.CUDA_KERNEL.launches)
     got = ak.replay(sb, cb, seed, cfg, ct, **kw)
-    assert ak.CUDA_KERNEL.launches == before + 1
+    assert ak.CUDA_KERNEL.launches == {**before, "replay": before["replay"] + 1}
     ref = ak.replay_plain(sb, cb, seed, cfg, ct, **kw)
     _assert_agree(got, ref)
     assert got.abs().max() > 0 and got[-1] == 0
@@ -148,14 +148,15 @@ def test_ragged_edges_and_block_sizes(dev, block):
 @pytest.mark.parametrize("nee", [False, True])
 def test_entry_points_launch_the_kernels(dev, nee):
     """``render_loss_grads`` for glossy: one colour-sum launch of the forward
-    kernel and one K4 launch; ``cross_grads``: two and two. Neither touches
-    the product-chain or the NEE kernel."""
+    kernel and one K4 launch; ``cross_grads``: two and two, its K4 replays
+    taped under NEE (one slab at this size) and retracing without. Neither
+    touches the product-chain or the NEE kernel."""
     cfg = RenderConfig(width=64, height=32, spp=2, brdf="glossy", nee=nee)
     scene, cam = cornell_box(), Camera.create()
     target = torch.rand(32, 64, 3, generator=torch.Generator().manual_seed(5)).to(dev)
 
     def counts():
-        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches,
+        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
                 dict(nk.CUDA_KERNEL.launches), dict(gk.CUDA_KERNEL.launches))
 
     before = counts()
@@ -179,9 +180,11 @@ def test_entry_points_launch_the_kernels(dev, nee):
     assert dc.position.device == dev
 
     before = counts()
+    taped = ak.CUDA_KERNEL.launches["replay_taped"]
     loss, d = gk.cross_grads(scene, cam, cfg, 0, target, device=dev)
     after = counts()
     assert after[0] == before[0] + 2 and after[1] == before[1] + 2
+    assert ak.CUDA_KERNEL.launches["replay_taped"] == taped + (2 if nee else 0)
     assert after[2:] == before[2:]
     assert set(d) == {"emission", "color", "position", "radius"}
     assert all(torch.isfinite(g).all() for g in d.values()) and torch.isfinite(loss)
@@ -262,6 +265,97 @@ def test_lane_groups_at_other_blocks_and_ragged_frames(dev, brdf, nee, channels,
     got = ak.replay(sb, cb, seed, cfg, ct, **kw)
     _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
     assert torch.equal(got, ak.replay(sb, cb, seed, cfg, ct, **kw))
+
+
+# -- the path tape: K1's taped NEE glossy colour pass writes it, K4's taped replay reads it
+
+def _assert_taped_is_untaped(sb, cb, seed, cfg, ct, *, local_h, spp, device):
+    """K1's taped NEE glossy colour sums and K4's taped replay give their
+    untaped launches' bits, one launch each, the replay counted as a replay
+    and as a taped one; a second taped replay of the same tape gives the
+    same bits again."""
+    kw = dict(local_h=local_h, spp=spp, device=device)
+    retraced = ak.replay(sb, cb, seed, cfg, ct, **kw)
+    tape = nk.PathTape.empty(cfg, local_h, spp, device)
+    before = (tk.CUDA_KERNEL.launches, dict(ak.CUDA_KERNEL.launches))
+    color = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
+    taped = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
+    torch.cuda.synchronize()
+    assert tape.written and tk.CUDA_KERNEL.launches == before[0] + 1
+    assert ak.CUDA_KERNEL.launches == {"replay": before[1]["replay"] + 1,
+                                       "replay_taped": before[1]["replay_taped"] + 1}
+    assert torch.equal(color, tk.trace(sb, cb, seed, cfg, mode="color", **kw))
+    assert torch.equal(taped, retraced)
+    assert torch.equal(ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw), taped)
+
+
+@pytest.mark.parametrize("row_offset, local_h", [(0, 37), (11, 19)], ids=["frame", "slab"])
+@pytest.mark.parametrize("block", [3, 5, 8, 16])
+def test_taped_glossy_replay_is_the_retracing_replay(dev, block, row_offset, local_h):
+    """On a ragged frame (45 x 37: blocks hang over both edges at 3, 5 and
+    16) and on a slab of 19 rows at row 11, the taped NEE glossy colour pass
+    and K4's taped replay give the untaped launches' bits."""
+    cfg = RenderConfig(width=45, height=37, spp=3, max_bounces=4, nee=True, brdf="glossy",
+                       block=block)
+    sb, cb = _blocks(cfg)
+    g = torch.Generator().manual_seed(block)
+    ct = torch.randn(ak.NUM_CT_COLOR, local_h, 45, generator=g).to(dev)
+    _assert_taped_is_untaped(sb, cb, tk.make_seed_block(cfg, 4, 0, row_offset), cfg, ct,
+                             local_h=local_h, spp=3, device=dev)
+
+
+def test_taped_glossy_replay_at_the_cell_size(dev):
+    """At the glossy cell's 512x512x32 and 5 bounces a step plans two slabs
+    of 256 rows; the second (1.43 GB of tape) gives the untaped bits in K1
+    and in K4."""
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
+    assert nk.slab_rows(cfg) == 256 and nk.tape_bytes(cfg, 256, 32) == 1_426_063_360
+    sb, cb = _blocks(cfg)
+    g = torch.Generator().manual_seed(9)
+    ct = (torch.randn(ak.NUM_CT_COLOR, 256, 512, generator=g) / (512 * 512 * 3 * 32)).to(dev)
+    _assert_taped_is_untaped(sb, cb, tk.make_seed_block(cfg, 7, 0, 256), cfg, ct, local_h=256,
+                             spp=32, device=dev)
+
+
+def test_glossy_step_at_the_cell_size_tapes_two_slabs(dev, monkeypatch):
+    """``cross_grads`` at the glossy cell's 512x512x32 runs two slabs of 256
+    rows, each two taped K1 colour passes and two taped K4 replays:
+    ``k4.replay_taped`` reads four, and no K4 launch of the step retraces.
+    With ``TAPE_BUDGET`` at 0 it retraces in one slab: the same loss to the
+    bit, each gradient within 1e-6 of its field's largest (the slabs' sums
+    add in another order)."""
+    from pathtrace_tpu_torch.utils import timing
+
+    cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
+    scene, cam = cornell_box(), Camera.create()
+    target = torch.full((512, 512, 3), 0.25, device=dev)
+
+    def run():
+        timing.start_recording()
+        out = gk.cross_grads(scene, cam, cfg, 1, target, device=dev)
+        torch.cuda.synchronize()
+        return out, timing.stop_recording().launches
+
+    (loss, d), n = run()
+    assert (n["k1"], n["k4.replay"], n["k4.replay_taped"]) == (4, 4, 4)
+    monkeypatch.setattr(nk, "TAPE_BUDGET", 0)
+    (re_loss, re_d), n = run()
+    assert (n["k1"], n["k4.replay"], n["k4.replay_taped"]) == (2, 2, 0)
+    assert torch.equal(loss, re_loss)
+    for name, g in d.items():
+        torch.testing.assert_close(g, re_d[name], rtol=1e-6,
+                                   atol=1e-6 * float(re_d[name].abs().max()), msg=name)
+
+
+def test_taped_replay_resident_blocks(dev):
+    """K4's taped NEE glossy instance keeps 8 blocks of 8 x 8 an SM: its ring
+    holds the 14 words of two bounces a thread that K3's does (27,752 bytes a
+    block at N = 9 with the sums), the glossy jitter waits in registers
+    (bounded at 128), and no tape lies on the stack."""
+    taped = ak.CUDA_KERNEL.occupancy(True, True, False, 8, 9, taped=True)
+    assert taped["shared_bytes"] == nk.shared_bytes(9, 8, taped=True) == 27_752
+    assert taped["local_bytes"] == 0 and taped["registers"] <= 128
+    assert taped["blocks_per_sm"] == 8
 
 
 def test_resident_blocks_an_sm(dev):

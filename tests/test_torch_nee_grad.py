@@ -41,6 +41,7 @@ from pathtrace_tpu.grad import l2_image_loss, render_color
 from pathtrace_tpu_torch import Camera, RenderConfig
 from pathtrace_tpu_torch import grad as port_grad
 from pathtrace_tpu_torch.convert import camera_from_numpy, grads_to_numpy, scene_from_numpy
+from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
 from pathtrace_tpu_torch.ops import trace_kernel as tk
@@ -376,7 +377,7 @@ def test_tape_size_and_the_taped_replay_shared_memory():
     whole replay blocks. The taped replay's ring of two bounces a thread
     keeps 8 blocks of 8 x 8 an SM within 228 KB, at 1 KB reserved a block."""
     cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
-    assert nk.tape_shape(cfg, 256, 16) == (16, 1024, 5, nk.TAPE_WORDS, 64)
+    assert nk.tape_shape(cfg, 256, 16) == (16, 1024, 5, nk.TAPE_WORDS["diffuse"], 64)
     assert nk.tape_bytes(cfg, 256, 16) == 293_601_280
     ragged = RenderConfig(width=45, height=37, spp=3, max_bounces=3, nee=True, block=7)
     assert nk.tape_shape(ragged, 37, 3) == (3, 42, 3, 14, 49)
@@ -386,7 +387,7 @@ def test_tape_size_and_the_taped_replay_shared_memory():
 
 
 _BAD_TAPES = ["device", "dtype", "shape", "contiguous", "unwritten", "height", "spp", "bounces",
-              "block", "plain", "glossy"]
+              "block", "plain", "glossy", "no_nee"]
 
 
 @pytest.mark.parametrize("entry, bad", [("replay", b) for b in _BAD_TAPES]
@@ -395,8 +396,10 @@ _BAD_TAPES = ["device", "dtype", "shape", "contiguous", "unwritten", "height", "
 def test_tape_wrappers_refuse_bad_tapes(state, entry, bad):
     """Both wrappers refuse a tape of the wrong device, dtype, shape or
     contiguity, or one made for another frame size, spp, bounce count or
-    block; the replay one no colour pass wrote; and a tape on the CPU,
-    where the plain versions trace every path."""
+    block; the replay one no colour pass wrote; a diffuse tape (14 words a
+    bounce) for a glossy launch (17), which K3's replay refuses for its
+    BRDF; a launch without NEE; and a tape on the CPU, where the plain
+    versions trace every path."""
     _, _, scene, cam, _ = state
     cfg = dataclasses.replace(CFG, width=8, height=8, spp=1)
     made = dict(cfg=cfg, local_h=8, spp=1)
@@ -415,11 +418,13 @@ def test_tape_wrappers_refuse_bad_tapes(state, entry, bad):
         tape.words = words[:, :, :, :-1]
     elif bad == "contiguous":
         tape.words = torch.empty(words.shape[::-1]).permute(4, 3, 2, 1, 0)
-    if bad == "glossy":
-        cfg = dataclasses.replace(cfg, brdf="glossy")
+    if bad in ("glossy", "no_nee"):
+        cfg = dataclasses.replace(cfg, **({"brdf": "glossy"} if bad == "glossy" else
+                                          {"nee": False}))
     match = {"device": "is on meta", "dtype": "must be float32", "shape": "must be float32",
              "contiguous": "contiguous", "unwritten": "no colour pass", "plain": "CUDA kernels'",
-             "glossy": "brdf='diffuse'", "mode": "'color' mode"}.get(bad, "made for")
+             "glossy": "brdf='diffuse'" if entry == "replay" else "made for",
+             "no_nee": "nee=True", "mode": "'color' mode"}.get(bad, "made for")
     args = (scene.packed(), tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg)
     with pytest.raises(ValueError, match=match):
         if entry == "replay":
@@ -434,9 +439,26 @@ def test_tape_wrappers_refuse_bad_tapes(state, entry, bad):
     (256, 16, 5, True), (512, 16, 5, True), (512, 32, 5, False), (1024, 64, 5, False),
     (256, 16, 16, True), (512, 16, 16, False)])
 def test_step_tapes_keep_within_the_budget(monkeypatch, size, spp, bounces, taped):
-    """An inverse step on the card takes its two path tapes where both fit
-    ``TAPE_BUDGET`` and none above it; on the CPU none at any size."""
+    """An inverse step on the card takes its two path tapes in the fewest
+    equal row slabs whose two tapes fit ``TAPE_BUDGET``: the whole frame
+    (``taped``) where it fits, else slabs of fewer rows; on the CPU none at
+    any size."""
     cfg = RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces, nee=True)
+    made = _record_tapes(monkeypatch)
+    cuda = torch.device("cuda", 0)
+    rows = nk.slab_rows(cfg)
+    assert (2 * nk.tape_bytes(cfg, size, spp) <= nk.TAPE_BUDGET) == taped == (rows == size)
+    assert 2 * nk.tape_bytes(cfg, rows, spp) <= nk.TAPE_BUDGET
+    slabs = -(-size // rows)
+    assert all(2 * nk.tape_bytes(cfg, -(-size // n), spp) > nk.TAPE_BUDGET
+               for n in range(1, slabs))
+    assert nk.step_tapes(cfg, cuda) == (rows, (1, 2))
+    assert made == [(cfg, rows, spp, cuda)] * 2
+    assert nk.step_tapes(cfg, torch.device("cpu")) == (size, (None, None))
+
+
+def _record_tapes(monkeypatch) -> list:
+    """Make ``PathTape.empty`` record its arguments and return a count."""
     made = []
 
     def empty(cfg_, local_h, spp_, device):
@@ -444,11 +466,78 @@ def test_step_tapes_keep_within_the_budget(monkeypatch, size, spp, bounces, tape
         return len(made)
 
     monkeypatch.setattr(nk.PathTape, "empty", empty)
-    cuda = torch.device("cuda", 0)
-    assert (2 * nk.tape_bytes(cfg, size, spp) <= nk.TAPE_BUDGET) == taped
-    assert nk.step_tapes(cfg, cuda) == ((1, 2) if taped else (None, None))
-    assert made == ([(cfg, size, spp, cuda)] * 2 if taped else [])
-    assert nk.step_tapes(cfg, torch.device("cpu")) == (None, None)
+    return made
+
+
+@pytest.mark.parametrize("brdf, size, spp, rows, words, tape", [
+    ("diffuse", 256, 16, 256, 14, 293_601_280), ("glossy", 256, 16, 256, 17, 356_515_840),
+    ("diffuse", 512, 32, 256, 14, 1_174_405_120), ("glossy", 512, 32, 256, 17, 1_426_063_360)])
+def test_step_plans_the_slabs_of_each_tape(monkeypatch, brdf, size, spp, rows, words, tape):
+    """The plan depends on the tape's bytes alone: at the NEE cell's
+    256x256x16 one slab, at the glossy cell's 512x512x32 two of 256 rows
+    (2 x 1.43 GB glossy, 17 words a bounce; 2 x 1.17 GB diffuse, 14), each
+    tape made for a slab of ``rows`` rows."""
+    cfg = RenderConfig(width=size, height=size, spp=spp, nee=True, brdf=brdf)
+    made = _record_tapes(monkeypatch)
+    assert nk.step_tapes(cfg, torch.device("cuda", 0)) == (rows, (1, 2))
+    assert [m[1] for m in made] == [rows, rows]
+    assert nk.tape_shape(cfg, rows, spp) == (spp, size // 8 * rows // 8, 5, words, 64)
+    assert nk.tape_bytes(cfg, rows, spp) == tape
+    assert 2 * nk.tape_bytes(cfg, size, spp) > nk.TAPE_BUDGET or rows == size
+
+
+@pytest.mark.parametrize("extra", [dict(nee=True, brdf="glossy", width=4096, height=8, spp=512,
+                                        max_bounces=16),
+                                   dict(nee=True, width=4096, height=8, spp=512, max_bounces=16),
+                                   dict(brdf="glossy", width=512, height=512, spp=32)])
+def test_step_retraces_where_no_slab_fits_and_without_nee(monkeypatch, extra):
+    """Where even one row's two tapes pass the budget (a 4096-wide row at
+    512 spp and 16 bounces: 15.0 GB diffuse, 18.3 GB glossy a tape), and
+    without NEE (K4's glossy albedo steps), the plan is one slab of the whole
+    frame and no tape: the replays trace again."""
+    cfg = RenderConfig(**extra)
+    made = _record_tapes(monkeypatch)
+    if cfg.nee:
+        assert nk.slab_rows(cfg) is None and nk.tape_bytes(cfg, 1, cfg.spp) > nk.TAPE_BUDGET
+    assert nk.step_tapes(cfg, torch.device("cuda", 0)) == (cfg.height, (None, None))
+    assert made == []
+
+
+def test_a_slab_tape_views_the_step_tape():
+    """A shorter slab's tape lies in the first words of the step's tape,
+    unwritten and sized for its rows; one of more rows than the tape holds
+    is refused."""
+    cfg = RenderConfig(width=16, height=13, spp=2, max_bounces=2, nee=True, brdf="glossy",
+                       block=4)
+    tape = nk.PathTape.empty(cfg, 7, 2, "cpu")
+    tape.written = True
+    short = tape.slab(cfg, 6, 2)
+    assert not short.written and short.sizes == (6, 16, 2, 2, 4, 17)
+    assert tuple(short.words.shape) == nk.tape_shape(cfg, 6, 2) == (2, 8, 2, 17, 16)
+    assert short.words.data_ptr() == tape.words.data_ptr() and short.words.is_contiguous()
+    assert tape.slab(cfg, 7, 2).sizes == tape.sizes
+    with pytest.raises(ValueError, match="cannot hold"):
+        tape.slab(cfg, 9, 2)
+
+
+@pytest.mark.parametrize("bad", ["plain", "words", "aov", "diffuse"])
+def test_k4_wrapper_refuses_bad_tapes(state, bad):
+    """K4's wrapper reads a path tape under NEE glossy with a colour
+    cotangent alone: it refuses a tape on the CPU (the plain version traces
+    every path), one of NEE diffuse's 14 words a bounce, and any tape with
+    the AOV cotangents or under a configuration that has no taped K4."""
+    _, _, scene, cam, _ = state
+    cfg = dataclasses.replace(CFG, width=8, height=8, spp=1, brdf="glossy")
+    tape = nk.PathTape.empty(dataclasses.replace(cfg, brdf="diffuse") if bad == "words" else cfg,
+                             8, 1, "cpu")
+    tape.written = True
+    if bad == "diffuse":
+        cfg = dataclasses.replace(cfg, brdf="diffuse")
+    ct = torch.zeros(ak.NUM_CT if bad == "aov" else ak.NUM_CT_COLOR, 8, 8)
+    match = {"plain": "CUDA kernels'", "words": "made for"}.get(bad, "K4 reads a path tape")
+    with pytest.raises(ValueError, match=match):
+        ak.replay(scene.packed(), tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg, ct,
+                  local_h=8, spp=1, tape=tape)
 
 
 def test_cross_grads_on_the_cpu_takes_no_tape(state, monkeypatch):
@@ -472,3 +561,20 @@ def test_cross_grads_on_the_cpu_takes_no_tape(state, monkeypatch):
     assert set(d) == {"emission", "color", "position", "radius"}
     for name, g in d.items():
         assert torch.equal(g, getattr(want, name)), name
+
+
+@pytest.mark.parametrize("brdf", ["diffuse", "glossy"])
+def test_cross_grads_in_row_slabs_is_the_whole_frame(state, monkeypatch, brdf):
+    """``cross_grads`` planned in slabs of 6 rows (6, 6 and 4 of the 16) gives
+    the whole frame's loss to the bit, the residual being per pixel, and its
+    gradients up to the order in which the slabs' sums add."""
+    _, _, scene, cam, target = state
+    cfg = dataclasses.replace(CFG, brdf=brdf)
+    t = torch.from_numpy(target)
+    loss, d = gk.cross_grads(scene, cam, cfg, 1, t, device="cpu")
+    monkeypatch.setattr(nk, "step_tapes", lambda cfg_, device: (6, (None, None)))
+    slab_loss, slab_d = gk.cross_grads(scene, cam, cfg, 1, t, device="cpu")
+    assert torch.equal(slab_loss, loss)
+    for name, g in d.items():
+        torch.testing.assert_close(slab_d[name], g, rtol=1e-6, atol=1e-6 * float(g.abs().max()),
+                                   msg=name)

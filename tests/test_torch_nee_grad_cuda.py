@@ -261,16 +261,21 @@ def test_shard_slab_replays_without_a_tape(dev):
 
 @pytest.mark.parametrize("size, spp, taped", [(256, 16, True), (512, 32, False)])
 def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped):
-    """``cross_grads`` tapes its two NEE colour passes where the two tapes fit
-    ``TAPE_BUDGET`` (256x256x16: 587 MB) and traces again above it
-    (512x512x32: 4.70 GB of tape, a few MB without one). With the budget
-    moved to the other side of the size, the other route gives the same
+    """``cross_grads`` tapes its two NEE colour passes in the fewest row slabs
+    whose two tapes fit ``TAPE_BUDGET``: the whole frame at 256x256x16 (587
+    MB; ``taped``), two slabs of 256 rows at 512x512x32 (2 x 1.17 GB where
+    the frame's would take 4.70 GB). With the budget at 0 the step traces
+    again in one slab, in a few MB: the same loss to the bit, and the same
+    gradients, to the bit from one slab, within 1e-6 of each field's largest
+    from two (the slabs' sums add in another order). With the budget at the
+    whole frame's two tapes, 512x512x32 tapes in one slab: the retrace's
     bits."""
     cfg = RenderConfig(width=size, height=size, spp=spp, nee=True)
     scene, cam = cornell_box(), Camera.create()
     target = torch.full((size, size, 3), 0.25, device=dev)
-    tapes = 2 * nk.tape_bytes(cfg, size, spp)
-    assert (tapes <= nk.TAPE_BUDGET) == taped
+    rows = nk.slab_rows(cfg)
+    slabs = size // rows
+    assert (rows == size) == taped and slabs == (1 if taped else 2)
 
     def run():
         torch.cuda.synchronize()
@@ -279,19 +284,67 @@ def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped)
         before = dict(nk.CUDA_KERNEL.launches)
         out = gk.cross_grads(scene, cam, cfg, 3, target, device=dev)
         torch.cuda.synchronize()
-        assert nk.CUDA_KERNEL.launches["replay"] == before["replay"] + 2
-        n_taped = nk.CUDA_KERNEL.launches["replay_taped"] - before["replay_taped"]
-        return out, n_taped, torch.cuda.max_memory_allocated(dev) - base
+        n = {k: nk.CUDA_KERNEL.launches[k] - before[k] for k in before}
+        return out, n, torch.cuda.max_memory_allocated(dev) - base
 
-    (loss, d), n_taped, peak = run()
-    assert n_taped == (2 if taped else 0)
-    assert peak >= tapes if taped else peak < 64 << 20
-    monkeypatch.setattr(nk, "TAPE_BUDGET", 0 if taped else tapes)
-    (other_loss, other), n_taped, _ = run()
-    assert n_taped == (0 if taped else 2)
+    (loss, d), n, peak = run()
+    assert (n["replay"], n["replay_taped"], n["fused"]) == (2 * slabs, 2 * slabs, 0)
+    assert peak >= 2 * nk.tape_bytes(cfg, rows, spp)
+    monkeypatch.setattr(nk, "TAPE_BUDGET", 0)
+    (other_loss, other), n, peak = run()
+    assert (n["replay"], n["replay_taped"]) == (2, 0) and peak < 64 << 20
     assert torch.equal(loss, other_loss)
     for name, g in d.items():
-        assert torch.equal(g, other[name]), name
+        if taped:
+            assert torch.equal(g, other[name]), name
+        else:
+            torch.testing.assert_close(g, other[name], rtol=1e-6,
+                                       atol=1e-6 * float(other[name].abs().max()), msg=name)
+    if not taped:
+        monkeypatch.setattr(nk, "TAPE_BUDGET", 2 * nk.tape_bytes(cfg, size, spp))
+        (whole_loss, whole), n, _ = run()
+        assert (n["replay"], n["replay_taped"]) == (2, 2)
+        assert torch.equal(whole_loss, other_loss)
+        for name, g in whole.items():
+            assert torch.equal(g, other[name]), name
+
+
+@pytest.mark.parametrize("brdf", ["diffuse", "glossy"])
+def test_cross_grads_in_two_slabs_matches_one(dev, monkeypatch, brdf):
+    """With ``TAPE_BUDGET`` moved so that a 64x64x4 NEE step takes two slabs
+    of 32 rows, ``cross_grads`` gives the one slab's loss to the bit and
+    each gradient field within 1e-6 of its largest (the slabs' sums add in
+    another order). Each slab tapes both colour passes and sweeps both
+    tapes: the taped replay's counter (``k3.replay_taped`` under diffuse,
+    ``k4.replay_taped`` under glossy) reads two a slab, and none where a
+    budget of 0 makes the step retrace, with the one taped slab's bits."""
+    from pathtrace_tpu_torch.utils import timing
+
+    cfg = RenderConfig(width=64, height=64, spp=4, nee=True, brdf=brdf)
+    scene, cam = cornell_box(), Camera.create()
+    target = torch.rand(64, 64, 3, generator=torch.Generator().manual_seed(6)).to(dev)
+    key = "k4" if brdf == "glossy" else "k3"
+    whole = 2 * nk.tape_bytes(cfg, 64, 4)
+
+    def run(budget):
+        monkeypatch.setattr(nk, "TAPE_BUDGET", budget)
+        timing.start_recording()
+        out = gk.cross_grads(scene, cam, cfg, 2, target, device=dev)
+        torch.cuda.synchronize()
+        n = timing.stop_recording().launches
+        return out, (n["k1"], n[f"{key}.replay"], n[f"{key}.replay_taped"])
+
+    (loss, d), n = run(whole)
+    assert n == (2, 2, 2)
+    (slab_loss, slab_d), n = run(whole // 2)
+    assert nk.slab_rows(cfg) == 32 and n == (4, 4, 4)
+    (re_loss, re_d), n = run(0)
+    assert n == (2, 2, 0)
+    assert torch.equal(slab_loss, loss) and torch.equal(re_loss, loss)
+    for name, g in d.items():
+        assert torch.equal(re_d[name], g), name
+        torch.testing.assert_close(slab_d[name], g, rtol=1e-6,
+                                   atol=1e-6 * float(g.abs().max()), msg=name)
 
 
 @pytest.mark.parametrize("extra", [{"nee": True, "brdf": "glossy"}, {"brdf": "glossy"}])
@@ -306,11 +359,11 @@ def test_glossy_still_raises_naming_its_kernel(dev, extra):
     target = torch.rand(16, 16, 3, generator=torch.Generator().manual_seed(1)).to(dev)
     state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target,
                                                   ("color", "position"), device=dev)
-    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches),
-              dict(gk.CUDA_KERNEL.launches))
+    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
+              dict(nk.CUDA_KERNEL.launches), dict(gk.CUDA_KERNEL.launches))
     state, loss = step_fn(state)
     assert tk.CUDA_KERNEL.launches == before[0] + 2
-    assert ak.CUDA_KERNEL.launches == before[1] + 2
+    assert ak.CUDA_KERNEL.launches["replay"] == before[1] + 2
     assert nk.CUDA_KERNEL.launches == before[2] and gk.CUDA_KERNEL.launches == before[3]
     assert torch.isfinite(loss)
     assert (state.params["color"].detach().cpu() != scene.color).any()

@@ -177,7 +177,9 @@ def test_spans_lie_on_the_profiler_clock():
 # each key's wrapper, and its ``launches`` before a test: a count, or counts by mode
 WRAPPERS = {"k1": (tk, 7), "k3.replay": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
             "k3.replay_taped": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
-            "k4.replay": (ak, 7), "k2.dump": (gk, {"fused": 7, "dump": 7, "replay": 7})}
+            "k4.replay": (ak, {"replay": 7, "replay_taped": 7}),
+            "k4.replay_taped": (ak, {"replay": 7, "replay_taped": 7}),
+            "k2.dump": (gk, {"fused": 7, "dump": 7, "replay": 7})}
 
 
 def test_every_launch_key_is_registered_by_its_wrapper():
@@ -186,6 +188,15 @@ def test_every_launch_key_is_registered_by_its_wrapper():
         launches = module.CUDA_KERNEL.launches
         want = launches if isinstance(launches, int) else launches[key.split(".")[1]]
         assert timing._COUNTERS[key]() == want, key
+
+
+def test_taped_replays_of_k3_and_k4_have_launch_keys():
+    """Each taped replay kernel has its engagement counter, read from its
+    wrapper's ``launches["replay_taped"]``, beside its replay's."""
+    keys = timing.LAUNCH_KEYS
+    assert keys.index("k3.replay_taped") == keys.index("k3.replay") + 1
+    assert keys.index("k4.replay_taped") == keys.index("k4.replay") + 1
+    assert timing._COUNTERS["k4.replay_taped"]() == ak.CUDA_KERNEL.launches["replay_taped"]
 
 
 @pytest.mark.parametrize("key", timing.LAUNCH_KEYS)
@@ -202,7 +213,8 @@ def test_launch_counters_are_the_wrappers_counts(monkeypatch, key):
             kernel.launches += n
         else:
             kernel.launches[key.split(".")[1]] += n
-            kernel.launches["fused"] += 5
+            if "fused" in kernel.launches:
+                kernel.launches["fused"] += 5
 
     monkeypatch.setattr(kernel, "launches", before if isinstance(before, int) else dict(before))
     t0 = timing.launch_clock()

@@ -89,7 +89,8 @@ def test_a_recorded_inverse_step_counts_its_launches(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,optimize,want", [
-    (dict(brdf="glossy", nee=True), ("position", "radius"), {"k1": 2, "k4.replay": 2}),
+    (dict(brdf="glossy", nee=True), ("position", "radius"),
+     {"k1": 2, "k4.replay": 2, "k4.replay_taped": 2}),
     (dict(), ("color",), {"k2.dump": 2}),
 ], ids=["glossy_nee_geometry", "albedo"])
 def test_a_recorded_step_counts_k4_and_k2(dev, case, optimize, want):
@@ -105,7 +106,8 @@ def test_a_recorded_step_counts_k4_and_k2(dev, case, optimize, want):
     rec = timing.stop_recording()
     assert bool(torch.isfinite(loss))
     assert rec.launches == {**dict.fromkeys(timing.LAUNCH_KEYS, 0), **want}
-    assert all(rec.launch_ns[k] > 0 for k in want)
+    # a taped replay's host time is its replay's
+    assert all(rec.launch_ns[k] > 0 for k in want if not k.endswith("_taped"))
 
 
 @pytest.mark.cuda
