@@ -64,7 +64,7 @@ and exits non-zero.
    The kernels line's max_abs_err is the largest of phases 6 and 8.
 9. The NEE grad kernel against its plain versions on the card at 128x64 and
    4 spp, also at row offset 16 and sample offset 5, under
-   ``nee_grad_kernel.agreement``: every gradient sum within rtol 1e-4 plus
+   ``sweep.agreement``: every gradient sum within rtol 1e-4 plus
    1e-6 of the largest of its kind, colour under the colour rule. Then:
    the replay against the MSE cotangent equals fused (rtol 1e-4 plus 1e-4
    of the largest of the kind: another order of operations on sums that
@@ -122,7 +122,7 @@ and exits non-zero.
    steps.
 
 13. The all-parameter backward kernel (K4) against its plain version on the
-   card at 128x64 and 4 spp, under ``nee_grad_kernel.agreement`` (every sum
+   card at 128x64 and 4 spp, under ``sweep.agreement`` (every sum
    within rtol 1e-4 plus 1e-6 of the largest of its kind): diffuse and
    glossy, with and without NEE, against a colour cotangent, against
    cotangents in all ten channels (normal, albedo and depth included), and
@@ -148,7 +148,7 @@ and exits non-zero.
    autograd route's, every loss finite, and the mean albedo error lower at
    the end than at the start; (d) ``grad_kernel.cross_grads`` at 512x512x32
    NEE glossy, the glossy inverse step's gradients: two slabs of 256 rows
-   (``nee_grad_kernel.slab_rows``), four taped K1 colour passes and four K4
+   (``sweep.slab_rows``), four taped K1 colour passes and four K4
    launches, all of them sweeping a path tape, against the step with
    ``TAPE_BUDGET`` 0 (one slab, two K4 launches that trace again): the
    same loss to the bit, each gradient field within 1e-6 of its largest
@@ -165,7 +165,7 @@ and exits non-zero.
    memory than its tape); the shading-only instances (a colour-only
    cotangent [3, h, W] without NEE) at 128x64 and 4 spp against the full
    ones with seven planes of zeros (all sums bit-equal, geometry and camera
-   sums exactly 0), against the plain version (``nee_grad_kernel.agreement``)
+   sums exactly 0), against the plain version (``sweep.agreement``)
    and launched twice (identical bits); the colour-only cotangent under NEE
    against the zero planes, and K4 on NEE diffuse against the NEE kernel's
    replay, bit for bit; a frame with an odd width, a ragged last block and
@@ -604,6 +604,7 @@ def grad_phase_6(dev, scene, cam, gk, tk):
     """The grad kernel's modes against their plain versions and each other."""
     import torch
     from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.utils.timing import launch_counts
 
     phase(6, "grad kernel vs plain on the card (128x64, 4 spp; the dump also at row "
              "offset 16, sample offset 5)")
@@ -616,10 +617,10 @@ def grad_phase_6(dev, scene, cam, gk, tk):
         np.random.default_rng(0).uniform(size=(64, 128, 3)).astype(np.float32)).to(dev)
     err = {}
 
-    before = gk.CUDA_KERNEL.launches["fused"]
+    before = launch_counts()["k2.fused"]
     sums_f, color_f = gk.fused(sb, cb, seed, cfg, target, **kw)
     torch.cuda.synchronize()
-    if gk.CUDA_KERNEL.launches["fused"] != before + 1:
+    if launch_counts()["k2.fused"] != before + 1:
         raise RuntimeError("the fused launch counter did not move")
     ref_sums, ref_color = gk.fused_plain(sb, cb, seed, cfg, target, **kw)
     err["fused"] = max(grad_compare("fused/sums", sums_f, ref_sums, "sums"),
@@ -661,11 +662,7 @@ def grad_phase_7(dev, scene, cam, gk, tk):
     import torch
     from pathtrace_tpu_torch import RenderConfig, grad, inverse, render_aovs
     from pathtrace_tpu_torch.scene import Scene
-
-    def zero_counts():
-        tk.CUDA_KERNEL.launches = 0
-        for mode in gk.MODES:
-            gk.CUDA_KERNEL.launches[mode] = 0
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts
 
     phase(7, f"gradient paths at full size on cuda:0: (a) albedo recovery 256x256, 8 spp, "
              f"{INVERSE_STEPS} Adam steps; (b) fused loss+grads and (c) replay at 512x512x32")
@@ -676,7 +673,7 @@ def grad_phase_7(dev, scene, cam, gk, tk):
     launches = {}
 
     cfg = RenderConfig(width=256, height=256, spp=8)
-    zero_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
@@ -688,21 +685,21 @@ def grad_phase_7(dev, scene, cam, gk, tk):
     t2 = time.perf_counter()
     losses, step_ms = [], []
     for i in range(INVERSE_STEPS):
-        before = gk.CUDA_KERNEL.launches["dump"]
+        before = launch_counts()["k2.dump"]
         t_step = time.perf_counter()
         state, loss = step_fn(state)
         losses.append(float(loss))  # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t_step))
-        if gk.CUDA_KERNEL.launches["dump"] != before + 2:
+        if launch_counts()["k2.dump"] != before + 2:
             raise RuntimeError(f"inverse step {i} launched the dump kernel "
-                               f"{gk.CUDA_KERNEL.launches['dump'] - before} times, not 2")
+                               f"{launch_counts()['k2.dump'] - before} times, not 2")
     recovered = inverse.apply_params(corrupted.to(dev), state.params).color.detach().cpu()
     wall = time.perf_counter() - t0
-    launches["dump"] = gk.CUDA_KERNEL.launches["dump"]
+    launches["dump"] = launch_counts()["k2.dump"]
     err_before = float(np.abs(bad - true_color).mean())
     err_after = float(np.abs(recovered.numpy() - true_color).mean())
-    print(f"(a) launches: dump {launches['dump']}, trace {tk.CUDA_KERNEL.launches}, "
-          f"fused {gk.CUDA_KERNEL.launches['fused']}, replay {gk.CUDA_KERNEL.launches['replay']}")
+    print(f"(a) launches: dump {launches['dump']}, trace {launch_counts()['k1']}, "
+          f"fused {launch_counts()['k2.fused']}, replay {launch_counts()['k2.replay']}")
     print(f"(a) loss {losses[0]:.6f} (step 1) -> {losses[-1]:.6f} (step {INVERSE_STEPS}); "
           f"mean |albedo error| {err_before:.4f} -> {err_after:.4f}")
     print(f"(a) wall {wall:.2f} s: target render {1e3 * (t1 - t0):.1f} ms, make_inverse_step "
@@ -717,12 +714,12 @@ def grad_phase_7(dev, scene, cam, gk, tk):
     cfg = RenderConfig(width=512, height=512, spp=32)
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
-    zero_counts()
+    reset_launch_counts()
     loss, (d_scene, d_cam) = grad.render_loss_grads(corrupted, cam, cfg, 0, target, device=dev)
     torch.cuda.synchronize()
-    launches["fused"] = gk.CUDA_KERNEL.launches["fused"]
-    print(f"(b) launches: fused {launches['fused']}, dump {gk.CUDA_KERNEL.launches['dump']}, "
-          f"replay {gk.CUDA_KERNEL.launches['replay']}, trace {tk.CUDA_KERNEL.launches}")
+    launches["fused"] = launch_counts()["k2.fused"]
+    print(f"(b) launches: fused {launches['fused']}, dump {launch_counts()['k2.dump']}, "
+          f"replay {launch_counts()['k2.replay']}, trace {launch_counts()['k1']}")
     color = tk.render_color_sums(corrupted, cam, cfg, 0, device=dev) / cfg.spp
     mse = torch.mean((color - target) ** 2)
     print(f"(b) loss {float(loss):.8f}, MSE of the trace kernel's colour {float(mse):.8f}")
@@ -735,14 +732,14 @@ def grad_phase_7(dev, scene, cam, gk, tk):
     if abs(float(loss) - float(mse)) > 1e-4 * abs(float(mse)):
         raise RuntimeError("the fused loss is not the MSE of the rendered colour")
 
-    zero_counts()
+    reset_launch_counts()
     denom = cfg.height * cfg.width * 3
     d_e, d_c = gk.render_color_grads(corrupted, cam, cfg, 0, 2.0 * (color - target) / denom,
                                      device=dev)
     torch.cuda.synchronize()
-    launches["replay"] = gk.CUDA_KERNEL.launches["replay"]
-    print(f"(c) launches: replay {launches['replay']}, fused {gk.CUDA_KERNEL.launches['fused']}, "
-          f"dump {gk.CUDA_KERNEL.launches['dump']}")
+    launches["replay"] = launch_counts()["k2.replay"]
+    print(f"(c) launches: replay {launches['replay']}, fused {launch_counts()['k2.fused']}, "
+          f"dump {launch_counts()['k2.dump']}")
     grad_compare("(c) replay vs (b) fused", flat_grads(d_e, d_c), grads, "sums")
     for mode, n in launches.items():
         if n < 1:
@@ -855,12 +852,13 @@ NEE_INVERSE_STEPS = 400
 
 
 def nee_compare(label, got, ref, kind, cross=False):
-    """Hold ``got`` against ``ref`` under ``nee_grad_kernel.agreement`` (its
+    """Hold ``got`` against ``ref`` under ``sweep.agreement`` (its
     looser ``CROSS_ATOL`` where two orders of operations meet), print one
     line per check and raise on a breach. -> max |diff|."""
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import sweep
 
-    checks, max_err = nk.agreement(got, ref, kind, nk.CROSS_ATOL if cross else nk.SUMS_ATOL)
+    atol = sweep.CROSS_ATOL if cross else sweep.SUMS_ATOL
+    checks, max_err = sweep.agreement(got, ref, kind, atol)
     line = ", ".join(f"{name} {share:.4f}" for name, share, _, _ in checks)
     print(f"  {label}: shares out of tolerance: {line}; max |diff| {max_err:.6g}")
     failed = [name for name, _, _, ok in checks if not ok]
@@ -874,6 +872,7 @@ def nee_phase_9(dev, scene, cam, nk, tk):
     each other. -> {mode: max |kernel - plain|}."""
     import torch
     from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.utils.timing import launch_counts
 
     phase(9, "NEE grad kernel vs plain on the card (128x64, 4 spp; also at row offset 16, "
              "sample offset 5; replay at 32 spp to the bit)")
@@ -887,10 +886,10 @@ def nee_phase_9(dev, scene, cam, nk, tk):
         seed = tk.make_seed_block(cfg, *seed_args)
         kw = dict(local_h=64, spp=4, device=dev)
         tag = "" if height == 64 else " @offsets"
-        before = nk.CUDA_KERNEL.launches["fused"]
+        before = launch_counts()["k3.fused"]
         fused_sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
         torch.cuda.synchronize()
-        if nk.CUDA_KERNEL.launches["fused"] != before + 1:
+        if launch_counts()["k3.fused"] != before + 1:
             raise RuntimeError("the NEE fused launch counter did not move")
         ref, ref_color = nk.fused_plain(sb, cb, seed, cfg, target, **kw)
         err["fused"] = max(err["fused"],
@@ -937,12 +936,7 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
     import torch
     from pathtrace_tpu_torch import RenderConfig, grad, inverse, render_aovs
     from pathtrace_tpu_torch.scene import Scene
-
-    def zero_counts():
-        tk.CUDA_KERNEL.launches = 0
-        for k in (gk, nk):
-            for mode in k.CUDA_KERNEL.launches:
-                k.CUDA_KERNEL.launches[mode] = 0
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts
 
     phase(10, f"NEE gradient path at full size on cuda:0: (a) fused loss+grads 512x512x32; "
               f"(b) geometry recovery 256x256, 16 spp, {NEE_INVERSE_STEPS} Adam steps")
@@ -956,15 +950,13 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
-    zero_counts()
+    reset_launch_counts()
     loss, (d_scene, d_cam) = grad.render_loss_grads(corrupted, cam, cfg, 0, target, device=dev)
     torch.cuda.synchronize()
-    launches["fused"] = nk.CUDA_KERNEL.launches["fused"]
-    print(f"(a) launches: NEE fused {launches['fused']}, NEE replay "
-          f"{nk.CUDA_KERNEL.launches['replay']}, trace {tk.CUDA_KERNEL.launches}, "
-          f"product-chain {sum(gk.CUDA_KERNEL.launches.values())}")
-    if (launches["fused"], nk.CUDA_KERNEL.launches["replay"], tk.CUDA_KERNEL.launches,
-            sum(gk.CUDA_KERNEL.launches.values())) != (1, 0, 0, 0):
+    seen = {k: n for k, n in launch_counts().items() if n}
+    launches["fused"] = seen.get("k3.fused", 0)
+    print(f"(a) launches: {seen}")
+    if seen != {"k3.fused": 1}:
         raise RuntimeError("render_loss_grads under NEE is not exactly one fused launch")
     color = tk.render_color_sums(corrupted, cam, cfg, 0, device=dev) / cfg.spp
     mse = torch.mean((color - target) ** 2)
@@ -979,11 +971,11 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
             raise RuntimeError(f"{name} is not finite and non-zero on {dev}")
 
     cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
-    zero_counts()
+    reset_launch_counts()
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
     torch.cuda.synchronize()
-    tk.CUDA_KERNEL.launches = 0
+    reset_launch_counts()
     pos_mask = torch.zeros(9, 1)
     pos_mask[6] = 1.0
     rad_mask = torch.zeros(9)
@@ -995,26 +987,19 @@ def nee_phase_10(dev, scene, cam, gk, nk, tk):
         grad_mask={"position": pos_mask, "radius": rad_mask}, device=dev)
     losses, step_ms = [], []
     for i in range(NEE_INVERSE_STEPS):
-        before = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"],
-                  nk.CUDA_KERNEL.launches["replay_taped"])
+        before = launch_counts()
         t_step = time.perf_counter()
         state, loss = step_fn(state)
         losses.append(float(loss))  # waits for the step
         step_ms.append(1e3 * (time.perf_counter() - t_step))
-        after = (tk.CUDA_KERNEL.launches, nk.CUDA_KERNEL.launches["replay"],
-                 nk.CUDA_KERNEL.launches["replay_taped"])
-        if tuple(a - b for a, b in zip(after, before)) != (2, 2, 2):
-            raise RuntimeError(f"NEE inverse step {i} launched trace {after[0] - before[0]}, "
-                               f"replay {after[1] - before[1]} and taped replay "
-                               f"{after[2] - before[2]} times, not 2, 2 and 2")
-    launches["replay"] = nk.CUDA_KERNEL.launches["replay"]
-    launches["trace"] = tk.CUDA_KERNEL.launches
-    others = nk.CUDA_KERNEL.launches["fused"] + sum(gk.CUDA_KERNEL.launches.values())
-    print(f"(b) launches: trace {launches['trace']}, NEE replay {launches['replay']} (sweeping "
-          f"the colour passes' path tapes: {nk.CUDA_KERNEL.launches['replay_taped']}), "
-          f"others {others}")
-    if others:
-        raise RuntimeError("the NEE inverse step launched another gradient kernel")
+        moved = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        if moved != {"k1": 2, "k3.replay": 2, "k3.replay_taped": 2}:
+            raise RuntimeError(f"NEE inverse step {i} launched {moved}, not 2 of K1 and 2 "
+                               f"taped K3 replays")
+    seen = launch_counts()
+    launches["replay"], launches["trace"] = seen["k3.replay"], seen["k1"]
+    print(f"(b) launches: { {k: n for k, n in seen.items() if n} } (the NEE replays sweep "
+          f"the colour passes' path tapes)")
     rec = inverse.apply_params(corrupted.to(dev), state.params)
     pos_rec, rad_rec = rec.position.detach().cpu().numpy(), rec.radius.detach().cpu().numpy()
     off_start, off_end = bad_pos[6] - pos_true[6], pos_rec[6] - pos_true[6]
@@ -1295,6 +1280,8 @@ def ad_phase_13(dev, scene, cam, ak, nk, tk):
     """K4 against its plain version on the card. -> max |kernel - plain|."""
     import torch
     from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.ops import sweep
+    from pathtrace_tpu_torch.utils.timing import launch_counts
 
     phase(13, "all-parameter backward (K4) vs plain on the card (128x64, 4 spp; also at row "
               "offset 16, sample offset 2; one 32-spp launch)")
@@ -1312,16 +1299,16 @@ def ad_phase_13(dev, scene, cam, ak, nk, tk):
         cb = tk.camera_block(cam, cfg)
         seed = tk.make_seed_block(cfg, 3)
         kw = dict(local_h=64, spp=4, device=dev)
-        before = ak.CUDA_KERNEL.launches["replay"]
+        before = launch_counts()["k4.replay"]
         got = ak.replay(sb, cb, seed, cfg, colour, **kw)
         torch.cuda.synchronize()
-        if ak.CUDA_KERNEL.launches["replay"] != before + 1:
+        if launch_counts()["k4.replay"] != before + 1:
             raise RuntimeError("the K4 launch counter did not move")
         worst = max(worst, nee_compare(f"{name}/colour cotangent", got,
                                        ak.replay_plain(sb, cb, seed, cfg, colour, **kw), "sums"))
         if not torch.equal(ak.replay(sb, cb, seed, cfg, colour, **kw), got):
             raise RuntimeError(f"two K4 launches gave different bits ({name})")
-        block = ak.block_from_sums(got)
+        block = sweep.block_from_sums(got)
         n = scene.num_objects
         geometry = max(float(block[:n, :4].abs().max()), float(block[n:, :3].abs().max()))
         print(f"  {name}: launched twice: identical bits; largest |geometry or camera sum| "
@@ -1391,17 +1378,14 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
 
     import torch
     from pathtrace_tpu_torch import RenderConfig, grad, inverse, render_aovs
+    from pathtrace_tpu_torch.ops import sweep
     from pathtrace_tpu_torch.scene import Scene
-
-    def zero_counts():
-        tk.CUDA_KERNEL.launches = 0
-        for k in (gk, nk, ak):
-            for mode in k.CUDA_KERNEL.launches:
-                k.CUDA_KERNEL.launches[mode] = 0
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts
 
     def counts():
-        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
-                sum(nk.CUDA_KERNEL.launches.values()) + sum(gk.CUDA_KERNEL.launches.values()))
+        n = launch_counts()
+        return (n["k1"], n["k4.replay"],
+                sum(v for k, v in n.items() if k.startswith(("k2.", "k3."))))
 
     phase(14, f"glossy gradient paths at full width on cuda:0: (a) render_loss_grads 512x512x32 "
               f"glossy and NEE glossy; (b) ad_loss_and_grads beside the NEE kernel on NEE "
@@ -1419,7 +1403,7 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
         cfg = RenderConfig(width=512, height=512, spp=32, brdf="glossy", nee=nee)
         target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                              device=dev)["color"]
-        zero_counts()
+        reset_launch_counts()
         loss, (d_scene, d_cam) = grad.render_loss_grads(corrupted, cam, cfg, 0, target,
                                                         device=dev)
         torch.cuda.synchronize()
@@ -1437,8 +1421,8 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
         diff = tk.trace_plain(sb, cb, seed, cfg, mode="color", **kw) / cfg.spp - target
         denom = diff.numel()
         ct = ak.pack_cotangents(cfg, 2.0 * diff / denom, device=dev)
-        ref_block = ak.block_from_sums(ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
-        ref_scene, ref_cam = ak.grads_from_block(corrupted, cam, cfg, ref_block)
+        ref_block = sweep.block_from_sums(ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+        ref_scene, ref_cam = sweep.grads_from_block(corrupted, cam, cfg, ref_block)
         ref_loss = torch.sum(diff * diff) / denom
         print(f"(a) {name}: loss {float(loss):.8f}, plain route {float(ref_loss):.8f}")
         if abs(float(loss) - float(ref_loss)) > 1e-4 * abs(float(ref_loss)):
@@ -1461,7 +1445,7 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True)
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
-    zero_counts()
+    reset_launch_counts()
     loss, (d_scene, d_cam) = ak.ad_loss_and_grads(corrupted, cam, cfg, 0, target, device=dev)
     torch.cuda.synchronize()
     seen = counts()
@@ -1489,7 +1473,7 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
     for _ in range(3):
         state_t, loss_t = step_t(state_t)
         want.append((float(loss_t), state_t.params["color"].grad.detach().clone()))
-    zero_counts()
+    reset_launch_counts()
     state, step_fn, _ = inverse.make_inverse_step(corrupted, cam, cfg, target, ("color",), 2e-2,
                                                   device=dev)
     losses, step_ms = [], []
@@ -1530,11 +1514,11 @@ def ad_phase_14(dev, scene, cam, gk, nk, ak, tk):
     if not err_after.mean() < err_before.mean():
         raise RuntimeError(f"mean albedo error {err_after.mean():.4f} is not below its start "
                            f"{err_before.mean():.4f}")
-    launches += glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_counts)
+    launches += glossy_step_grads(dev, scene, cam, corrupted, gk)
     return launches, worst
 
 
-def glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_counts):
+def glossy_step_grads(dev, scene, cam, corrupted, gk):
     """Phase 14 (d): ``cross_grads`` at the glossy inverse step's 512x512x32
     NEE glossy, taped in two slabs against the step that traces again in
     one (``TAPE_BUDGET`` 0), held and timed in turns. -> its K4 launches."""
@@ -1542,25 +1526,26 @@ def glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_c
 
     import torch
     from pathtrace_tpu_torch import RenderConfig, render_aovs
-    from pathtrace_tpu_torch.utils.timing import time_fn
+    from pathtrace_tpu_torch.ops import sweep
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts, time_fn
 
     cfg = RenderConfig(width=512, height=512, spp=32, brdf="glossy", nee=True)
     target = render_aovs(scene, cam, dataclasses.replace(cfg, spp=64), frame=987654,
                          device=dev)["color"]
-    rows, budget = nk.slab_rows(cfg), nk.TAPE_BUDGET
+    rows, budget = sweep.slab_rows(cfg), sweep.TAPE_BUDGET
     if rows != 256:
         raise RuntimeError(f"512x512x32 NEE glossy plans slabs of {rows} rows, not 256")
 
     def step(budget_bytes):
-        nk.TAPE_BUDGET = budget_bytes
+        sweep.TAPE_BUDGET = budget_bytes
         try:
-            zero_counts()
-            before = ak.CUDA_KERNEL.launches["replay_taped"]
+            reset_launch_counts()
             out = gk.cross_grads(corrupted, cam, cfg, 5, target, device=dev)
             torch.cuda.synchronize()
-            return out, (*counts()[:2], ak.CUDA_KERNEL.launches["replay_taped"] - before)
+            n = launch_counts()
+            return out, (n["k1"], n["k4.replay"], n["k4.replay_taped"])
         finally:
-            nk.TAPE_BUDGET = budget
+            sweep.TAPE_BUDGET = budget
 
     (loss, d), seen = step(budget)
     print(f"(d) taped, slabs of {rows} rows: launches: trace {seen[0]}, K4 {seen[1]}, of them "
@@ -1586,12 +1571,12 @@ def glossy_step_grads(dev, scene, cam, corrupted, gk, nk, ak, tk, counts, zero_c
             raise RuntimeError(f"(d) d {name}: the two slabs are not the one slab's within 1e-6")
     ms = {"taped": [], "retraced": []}
     for name in ("retraced", "taped", "taped", "retraced"):
-        nk.TAPE_BUDGET = budget if name == "taped" else 0
+        sweep.TAPE_BUDGET = budget if name == "taped" else 0
         try:
             t, _ = time_fn(lambda: gk.cross_grads(corrupted, cam, cfg, 5, target, device=dev),
                            warmup=1, iters=TIMING_ITERS // 2, device=dev)
         finally:
-            nk.TAPE_BUDGET = budget
+            sweep.TAPE_BUDGET = budget
         ms[name].extend(t)
     print(f"(d) cross_grads 512x512x32 NEE glossy by events, in turns: taped "
           f"{statistics.median(ms['taped']):.4f} ms (runs {min(ms['taped']):.4f}.."
@@ -1676,12 +1661,13 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
     phase 14, and all four at 128x64x4 here."""
     import torch
     from pathtrace_tpu_torch import RenderConfig
+    from pathtrace_tpu_torch.ops import sweep
     from pathtrace_tpu_torch.utils.timing import time_fn
 
     phase(16, "the shared reverse sweep: resident blocks, the shading-only instances, the "
               "occupancy curve, the colour-only instances timed")
     sb, n = scene.packed(), scene.num_objects
-    tape_bytes = 4 * 17 * nk.MAX_BOUNCES + 32  # the tape's local array and the forward's frame
+    tape_bytes = 4 * 17 * sweep.MAX_BOUNCES + 32  # the tape's local array and the forward's frame
     for block in (8, 16):
         rows = {f"K3 {mode}": nk.CUDA_KERNEL.occupancy(mode, block, n) for mode in nk.MODES}
         rows.update(ak.CUDA_KERNEL.instances(block, n))
@@ -1690,7 +1676,7 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
                   f"{occ['blocks_per_sm']:2d}  registers {occ['registers']:3d}  shared bytes "
                   f"{occ['shared_bytes']:6d}  local bytes {occ['local_bytes']}")
             geom = "shading only" not in name
-            if occ["shared_bytes"] != nk.shared_bytes(n, block, geom):
+            if occ["shared_bytes"] != sweep.shared_bytes(n, block, geom):
                 raise RuntimeError(f"{name}: the kernel's shared bytes are not the wrapper's")
             if occ["local_bytes"] > tape_bytes:
                 raise RuntimeError(f"{name}: {occ['local_bytes']} local bytes a thread: spills?")
@@ -1716,7 +1702,7 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
             raise RuntimeError(f"two colour-only K4 launches gave different bits ({name})")
         if not torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw)):
             raise RuntimeError(f"{name}: [3, h, W] is not [10, h, W] with zero planes to the bit")
-        block = ak.block_from_sums(got)
+        block = sweep.block_from_sums(got)
         geometry = max(float(block[:n, :4].abs().max()), float(block[n:, :3].abs().max()))
         print(f"  {name}: {'shading-only' if not nee else 'colour-only'} instance == the full "
               f"one with zero AOV planes: identical bits; launched twice: identical bits; "
@@ -1809,13 +1795,13 @@ def sweep_phase_16(dev, scene, cam, ak, nk, tk, nee_times, ad_times):
     out["nee_replay", 256, "kernel"], out["nee_replay", 256, "plain"] = med["kernel"], med["plain"]
     # The inverse step's replay: the sweep alone, over the path tape that
     # K1's taped colour pass wrote for the same blocks.
-    tape = nk.PathTape.empty(cfg, 256, 16, dev)
+    tape = sweep.PathTape.empty(cfg, 256, 16, dev)
     tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw_t)
     ms, taped = time_fn(lambda: nk.replay(sb, cb, seed, cfg, ct, tape=tape, **kw_t), warmup=2,
                         iters=2 * TIMING_ITERS, device=dev)
     out["nee_replay_taped", 256, "kernel"] = statistics.median(ms)
     same = bool(torch.equal(taped, got))
-    print(f"{label}, taped (the path tape, {nk.tape_bytes(cfg, 256, 16)} B): kernel "
+    print(f"{label}, taped (the path tape, {sweep.tape_bytes(cfg, 256, 16)} B): kernel "
           f"{out['nee_replay_taped', 256, 'kernel']:.4f} ms (runs {min(ms):.4f}..{max(ms):.4f}); "
           f"the retracing replay's bits: {same}")
     if not same:
@@ -1837,24 +1823,25 @@ def glossy_taped_pair(dev, sb, cam, ak, nk, tk):
     timed in turns with its twin. -> {name: ms}."""
     import torch
     from pathtrace_tpu_torch import RenderConfig
-    from pathtrace_tpu_torch.utils.timing import time_fn
+    from pathtrace_tpu_torch.ops import sweep
+    from pathtrace_tpu_torch.utils.timing import launch_counts, time_fn
 
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
-    rows = nk.slab_rows(cfg)
+    rows = sweep.slab_rows(cfg)
     cb = tk.camera_block(cam, cfg)
     seed = tk.make_seed_block(cfg, 0, 0, rows)
     kw = dict(local_h=rows, spp=32, device=dev)
     ct = torch.full((ak.NUM_CT_COLOR, rows, 512), 1e-6, device=dev)
-    tape = nk.PathTape.empty(cfg, rows, 32, dev)
+    tape = sweep.PathTape.empty(cfg, rows, 32, dev)
     label = f"NEE glossy {rows}-row slab of 512x512x32 at row offset {rows}"
     untaped = tk.trace(sb, cb, seed, cfg, mode="color", **kw)
     taped = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
     retraced = ak.replay(sb, cb, seed, cfg, ct, **kw)
-    before = ak.CUDA_KERNEL.launches["replay_taped"]
+    before = launch_counts()["k4.replay_taped"]
     swept = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
     again = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
     torch.cuda.synchronize()
-    counted = ak.CUDA_KERNEL.launches["replay_taped"] - before
+    counted = launch_counts()["k4.replay_taped"] - before
     same = (bool(torch.equal(taped, untaped)), bool(torch.equal(swept, retraced)),
             bool(torch.equal(again, swept)))
     print(f"{label}: K1 taped == untaped colour sums: {same[0]}; K4 over the tape == the "
@@ -1937,7 +1924,7 @@ def denoise_phase_18(dev, tk, smi):
     from pathtrace_tpu_torch.render import (finalize_aovs, render_aovs, render_channels,
                                             unpack_channels)
     from pathtrace_tpu_torch.train import save_checkpoint
-    from pathtrace_tpu_torch.utils.timing import time_fn
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts, time_fn
 
     phase(18, "the denoised frame (CLI -d), progressive accumulation, FrameStepper and the "
               "interactive loop at 512x512 on cuda:0; weights from init_model(seed 0)")
@@ -1950,10 +1937,10 @@ def denoise_phase_18(dev, tk, smi):
 
         # (a) The CLI's denoised frame, held to the CPU forward on the same buffer.
         prefix = os.path.join(tmp, "frame")
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         rc = cli.main(["-d", "--checkpoint", ckpt, "--size", "512", "-s", "4", "--device", "0",
                        "--nobitmap", "-o", prefix])
-        launches = tk.CUDA_KERNEL.launches
+        launches = launch_counts()["k1"]
         if rc != 0 or launches < 1:
             raise RuntimeError(f"CLI -d exited {rc} after {launches} trace kernel launches")
         got = load_aovs_exr(prefix + ".exr")
@@ -1974,12 +1961,12 @@ def denoise_phase_18(dev, tk, smi):
         # (b) Progressive batches on the default device: kernel route = the
         # plain partials of the same batches to the bit; = one 32-spp render
         # to the 1e-3 rule.
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         prog = ProgressiveRenderer(scene, cam, cfg)
         for spp in PROGRESSIVE_BATCHES:
             prog.accumulate(spp)
         got = prog.aovs()
-        launches = tk.CUDA_KERNEL.launches
+        launches = launch_counts()["k1"]
         if launches != len(PROGRESSIVE_BATCHES) or prog.device.type != "cuda":
             raise RuntimeError(f"progressive: {launches} launches on {prog.device}")
         sb, cb = scene.packed(), tk.camera_block(cam, cfg)
@@ -2005,7 +1992,7 @@ def denoise_phase_18(dev, tk, smi):
             raise RuntimeError(f"progressive batches differ from one render: {worst}")
 
         # (c) The viewer's stepper: progressive, denoised, one move.
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         stepper = FrameStepper(scene, cam, cfg, denoising=True, checkpoint=ckpt,
                                progressive=True)
         seen = []
@@ -2018,19 +2005,19 @@ def denoise_phase_18(dev, tk, smi):
             if not all(torch.isfinite(v).all() for v in stepper._prog.aovs().values()):
                 raise RuntimeError(f"stepper frame {i}: non-finite AOVs")
             seen.append(stepper.spp_accumulated)
-        launches = tk.CUDA_KERNEL.launches
+        launches = launch_counts()["k1"]
         print(f"(c) FrameStepper(progressive, denoising) 512x512x4, a move after step 4: spp "
               f"{seen}, {launches} trace kernel launches, frames uint8 [512, 512, 3]")
         if seen != STEPPER_SPP or launches != len(STEPPER_SPP):
             raise RuntimeError(f"stepper spp {seen} (want {STEPPER_SPP}), {launches} launches")
 
         # (d) The interactive loop through the CLI.
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         out = os.path.join(tmp, "run", "out")
         rc = cli.main(["-i", "--frames", "3", "-d", "--checkpoint", ckpt, "--size", "512",
                        "--device", "0", "-o", out, "--metrics", os.path.join(tmp, "m.jsonl")])
         frames = sorted(os.listdir(os.path.join(tmp, "run", "frames")))
-        launches = tk.CUDA_KERNEL.launches
+        launches = launch_counts()["k1"]
         print(f"(d) CLI -i --frames 3 -d: exit {rc}, {frames}, {launches} trace kernel launches")
         if rc != 0 or len(frames) != 3 or launches != 3:
             raise RuntimeError("the interactive loop did not write 3 frames")
@@ -2184,7 +2171,7 @@ def train_phase_19(dev, tk, smi):
     from pathtrace_tpu_torch.io.exr import load_aovs_exr, read_exr, write_exr
     from pathtrace_tpu_torch.models import init_model
     from pathtrace_tpu_torch.models.simple_cnn import create_simple_state, simple_train_step
-    from pathtrace_tpu_torch.utils.timing import time_fn
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts, time_fn
 
     phase(19, f"the training path at the JAX CLI's defaults on cuda:0: {TRAIN_POSES} poses at "
               f"{TRAIN_SIZE}x{TRAIN_SIZE}, {TRAIN_SPP}/{TRAIN_SPP_GT} spp, {TRAIN_PER_IMAGE} "
@@ -2210,7 +2197,7 @@ def train_phase_19(dev, tk, smi):
               f"{GT_ROW_OFFSET + GT_ROWS} of pose 0 ({tk.MODES[mode]} channels) vs plain:")
         gt_err = max(gt_err, compare(f"gt{TRAIN_SPP_GT}/{mode}", got, ref, mode, TRAIN_SPP_GT))
 
-    tk.CUDA_KERNEL.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     inputs, targets = train.build_dataset(
@@ -2220,7 +2207,7 @@ def train_phase_19(dev, tk, smi):
     vnoisy, vgt = render_pair(scene, train.DEFAULT_POSE, cfg, TRAIN_SPP, TRAIN_SPP_GT,
                               frame=train.VALIDATION_FRAME, device=dev)
     dataset_s = time.perf_counter() - t0
-    launches = tk.CUDA_KERNEL.launches
+    launches = launch_counts()["k1"]
     n = TRAIN_POSES * TRAIN_PER_IMAGE
     print(f"(a) build_dataset + the validation pair: {dataset_s:.2f} s, {launches} trace kernel "
           f"launches (want {2 * TRAIN_POSES + 2}); inputs {inputs.shape} "
@@ -2300,14 +2287,14 @@ def train_phase_19(dev, tk, smi):
                  str(TRAIN_PATCH), "--patches-per-image", str(TRAIN_PER_IMAGE), "--spp-train",
                  str(TRAIN_SPP), "--spp-gt", str(TRAIN_SPP_GT), "--batch", str(TRAIN_BATCH),
                  "--ckpt-every", "2", "--plateau-patience", "1", "--device", device_flag]
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         rc = train.main(flags + ["--epochs", "4", "--name", "smoke"])
         main_s = time.perf_counter() - t0
         runs = glob.glob(os.path.join(tmp, "results", "*_smoke"))
         print(f"(c) train.main --epochs 4 --ckpt-every 2 --plateau-patience 1: exit {rc} in "
-              f"{main_s:.2f} s, {tk.CUDA_KERNEL.launches} trace kernel launches")
-        if rc != 0 or len(runs) != 1 or tk.CUDA_KERNEL.launches != 2 * TRAIN_POSES + 2:
+              f"{main_s:.2f} s, {launch_counts()['k1']} trace kernel launches")
+        if rc != 0 or len(runs) != 1 or launch_counts()["k1"] != 2 * TRAIN_POSES + 2:
             raise RuntimeError(f"train.main: exit {rc}, runs {runs}")
         run = runs[0]
         records = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
@@ -2402,12 +2389,12 @@ def train_phase_19(dev, tk, smi):
             raise RuntimeError("the card's training step is not deterministic run to run")
 
         prefix = os.path.join(tmp, "den")
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         rc = cli.main(["-d", "--checkpoint", run, "--size", "512", "-s", "4", "--device",
                        device_flag, "--nobitmap", "-o", prefix])
         den = load_aovs_exr(prefix + ".exr")["color"]
         print(f"(c) CLI -d --checkpoint (the trained weights) 512x512x4: exit {rc}, "
-              f"{tk.CUDA_KERNEL.launches} trace kernel launches, colour {den.shape}, finite "
+              f"{launch_counts()['k1']} trace kernel launches, colour {den.shape}, finite "
               f"{bool(np.isfinite(den).all())}, mean {float(den.mean()):.4f}")
         if rc != 0 or den.shape != (512, 512, 3) or not np.isfinite(den).all():
             raise RuntimeError("CLI -d with the trained checkpoint failed")
@@ -2564,12 +2551,17 @@ def grid_grad_errors(label, got, want):
 
 def sums_of_block(block, n):
     """A gradient block [N + 5, 11] -> the flat sums [10N + 16] it was made
-    of (``nee_grad_kernel.block_from_sums`` undone)."""
+    of (``sweep.block_from_sums`` undone)."""
     import torch
-    from pathtrace_tpu_torch.ops.nee_grad_kernel import LOSS_COL
+    from pathtrace_tpu_torch.ops.sweep import LOSS_COL
 
     return torch.cat([block[:n, :10].reshape(-1), block[n, 0:3],
                       block[n + 1: n + 5, 0:3].reshape(-1), block[n, LOSS_COL:LOSS_COL + 1]])
+
+
+# the kernels of the grid's main path (K1, then the backward kernel of the
+# "chain", "nee" and "ad" routes), by their launch-count keys
+GRID_KERNELS = ("k1", "k2.dump", "k3.replay", "k4.replay")
 
 
 def grid_grad_slab_checks(dev, scene, cam, grad_cfgs, world):
@@ -2587,8 +2579,7 @@ def grid_grad_slab_checks(dev, scene, cam, grad_cfgs, world):
 
     n = scene.num_objects
     sb = scene.packed().to(dev)
-    names = {"chain": "grad_kernel[dump]", "nee": "nee_grad_kernel[replay]",
-             "ad": "ad_grad_kernel"}
+    names = dict(zip(("chain", "nee", "ad"), GRID_KERNELS[1:]))
     errs = {}
     for j, route in enumerate(grad_cfgs):
         cfg = grad_cfgs[route]
@@ -2608,12 +2599,14 @@ def grid_grad_slab_checks(dev, scene, cam, grad_cfgs, world):
                 bits.append(bool(torch.equal(got["color"], color.cpu())
                                  and torch.equal(got["acc"], acc.cpu())))
                 continue
-            ct = got["ct"].to(dev)
+            # the cotangent of the mean colour the replay was given, in its kernel's layout
+            ct = 2.0 * got["diff"].to(dev) / (cfg.height * cfg.width * 3)
             if got["route"] == "nee":
-                sums = nk.replay_plain(sb, cb, seed, cfg, ct.permute(1, 2, 0).contiguous(),
-                                       **kw)
+                sums = nk.replay_plain(sb, cb, seed, cfg, ct / cfg.spp, **kw)
             else:
-                sums = ak.replay_plain(sb, cb, seed, cfg, ct.contiguous(), **kw)
+                sums = ak.replay_plain(sb, cb, seed, cfg,
+                                       ak.pack_cotangents(cfg, ct, local_h=got["local_h"],
+                                                          device=dev), **kw)
             flat = sums_of_block(got["block"], n)
             worst = max(worst, nee_compare(f"{label} block", flat, sums.cpu(), "sums"))
             bits.append(bool(torch.equal(flat, sums.cpu())))
@@ -2642,7 +2635,7 @@ def grid_phase_20(dev, tk, smi):
     from pathtrace_tpu_torch.parallel import scaling
     from pathtrace_tpu_torch.parallel.dryrun import dryrun_multichip
     from pathtrace_tpu_torch.parallel.launch import launch
-    from pathtrace_tpu_torch.parallel.selfcheck import KERNEL_COUNTERS, build_model, card_world
+    from pathtrace_tpu_torch.parallel.selfcheck import build_model, card_world
     from pathtrace_tpu_torch.render import render_channels
 
     phase(20, "the (tiles, samples) grid: 4 ranks (gloo) sharing cuda:0 render 512x512x32 on "
@@ -2812,12 +2805,13 @@ def grid_phase_20(dev, tk, smi):
           f"sharing one card (rank 0): {statistics.median(fpn_ms):.4f} ms ({min(fpn_ms):.4f}.."
           f"{max(fpn_ms):.4f})")
 
-    launches = {k: sum(r["launches"][k] for r in world4) + world1["launches"][k]
-                for k in KERNEL_COUNTERS}
-    print(f"launches on the grid's main path, summed over the ranks: {launches}")
-    for name, n in launches.items():
-        if n < 1:
-            raise RuntimeError(f"the grid's main path did not launch {name}")
+    launches = {k: sum(r["launches"][k] for r in world4) + n
+                for k, n in world1["launches"].items()}
+    print(f"launches on the grid's main path, summed over the ranks: "
+          f"{ {k: n for k, n in launches.items() if n} }")
+    for key in GRID_KERNELS:
+        if launches[key] < 1:
+            raise RuntimeError(f"the grid's main path did not launch {key}")
     return launches, errs
 
 
@@ -2845,6 +2839,7 @@ def dp_phase_21(dev, tk, smi):
     from pathtrace_tpu_torch.models import init_model
     from pathtrace_tpu_torch.parallel.launch import launch
     from pathtrace_tpu_torch.parallel.selfcheck import dp_world
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts
 
     phase(21, f"batch data parallelism: a dataset of {DP_POSES} poses at {DP_SIZE}x{DP_SIZE} "
               f"through K1; {DP_RANKS} gloo ranks sharing cuda:0 train the full-width CNN on "
@@ -2853,7 +2848,7 @@ def dp_phase_21(dev, tk, smi):
     t_phase = time.perf_counter()
     # (a) The dataset, the launch count set to 0 just before and read after.
     cfg = RenderConfig(width=DP_SIZE, height=DP_SIZE, spp=2, backend="auto")
-    tk.CUDA_KERNEL.launches = 0
+    reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     inputs, targets = train.build_dataset(cornell_box(), cfg, n_poses=DP_POSES,
@@ -2861,7 +2856,7 @@ def dp_phase_21(dev, tk, smi):
                                           spp_train=TRAIN_SPP, spp_gt=DP_SPP_GT, seed=0,
                                           device=dev)
     dataset_s = time.perf_counter() - t0
-    launches = tk.CUDA_KERNEL.launches
+    launches = launch_counts()["k1"]
     print(f"(a) build_dataset: {launches} trace kernel launches (want {2 * DP_POSES}), "
           f"{dataset_s:.2f} s; inputs {inputs.shape}, targets {targets.shape}")
     if launches != 2 * DP_POSES or inputs.shape != (DP_POSES * DP_PER_IMAGE, TRAIN_PATCH,
@@ -3169,23 +3164,6 @@ def _tensors(x):
     return [getattr(x, k) for k in fields]
 
 
-def kernel_launch_counts(tk, gk, nk, ak) -> dict:
-    """Every kernel's launch count, by its name in the kernels line."""
-    out = {"pathtrace_kernel": tk.CUDA_KERNEL.launches,
-           "ad_grad_kernel": ak.CUDA_KERNEL.launches["replay"],
-           "ad_grad_kernel[replay_taped]": ak.CUDA_KERNEL.launches["replay_taped"]}
-    out.update({name: gk.CUDA_KERNEL.launches[mode] for mode, name, _ in GRAD_KERNELS})
-    out.update({f"nee_grad_kernel[{m}]": n for m, n in nk.CUDA_KERNEL.launches.items()})
-    return out
-
-
-def reset_launch_counts(tk, gk, nk, ak):
-    tk.CUDA_KERNEL.launches = 0
-    ak.CUDA_KERNEL.launches = dict.fromkeys(ak.CUDA_KERNEL.launches, 0)
-    gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
-    nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
-
-
 def main_path_calls(dev, scene, cam, size=512, spp=32, step_size=256):
     """The entry points of the main paths, as (name, call) pairs; each call
     runs one on ``dev`` with ``scene`` and ``cam`` where they lie: the CLI's
@@ -3294,10 +3272,11 @@ def launch_phase_25(dev, tk, gk, nk, ak):
     static device blocks; a changed scene (every albedo, sphere 6's radius)
     and the next frame's seed are copied into those blocks, and the replay
     must equal an eager launch on the new blocks to the bit (and differ from
-    the old blocks' output). -> launches of (a), by kernel name."""
+    the old blocks' output). -> launches of (a), by launch-count key."""
     import torch
 
     from pathtrace_tpu_torch import Camera, cornell_box
+    from pathtrace_tpu_torch.utils.timing import launch_counts, reset_launch_counts
 
     phase(25, "launches that never wait for the card: (a) the main paths' entry points under "
               "torch.cuda.set_sync_debug_mode('error'); (b) each kernel captured in a CUDA graph "
@@ -3308,7 +3287,7 @@ def launch_phase_25(dev, tk, gk, nk, ak):
     for where, (scene, cam) in places.items():
         calls = main_path_calls(dev, scene, cam)
         torch.cuda.synchronize()
-        reset_launch_counts(tk, gk, nk, ak)
+        reset_launch_counts()
         outs = {}
         ts = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
@@ -3322,7 +3301,7 @@ def launch_phase_25(dev, tk, gk, nk, ak):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         host_s = time.perf_counter() - ts
-        counts = kernel_launch_counts(tk, gk, nk, ak)
+        counts = launch_counts()
         torch.cuda.synchronize()
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -3337,7 +3316,7 @@ def launch_phase_25(dev, tk, gk, nk, ak):
 
     graph_replay_checks(dev, tk, gk, nk, ak)
     print(f"(c) launches on the main paths of (a): {json.dumps(launches)}")
-    if not launches["ad_grad_kernel[replay_taped]"]:
+    if not launches["k4.replay_taped"]:
         raise RuntimeError("(c) no K4 launch of the main paths swept a path tape")
     return launches
 
@@ -3399,10 +3378,12 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import build
     from pathtrace_tpu_torch.ops import grad_kernel as gk
     from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import sweep
     from pathtrace_tpu_torch.ops import trace_kernel as tk
     from pathtrace_tpu_torch.render import pack_channels
     from pathtrace_tpu_torch.utils import roofline as rf
-    from pathtrace_tpu_torch.utils.timing import mrays_per_sec, time_fn
+    from pathtrace_tpu_torch.utils.timing import (launch_counts, mrays_per_sec,
+                                                  reset_launch_counts, time_fn)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3445,10 +3426,10 @@ def main() -> int:
         seed = tk.make_seed_block(cfg, 0, 5, 16)
         for mode in MODES:
             kw = dict(local_h=64, spp=4, mode=mode, device=dev)
-            before = tk.CUDA_KERNEL.launches
+            before = launch_counts()["k1"]
             got = tk.trace(sb, cb, seed, cfg, **kw)
             torch.cuda.synchronize()
-            if tk.CUDA_KERNEL.launches != before + 1:
+            if launch_counts()["k1"] != before + 1:
                 raise RuntimeError("the launch counter did not move")
             ref = tk.trace_plain(sb, cb, seed, cfg, **kw)
             print(f"{case} {mode} ({tk.MODES[mode]} channels):")
@@ -3458,9 +3439,9 @@ def main() -> int:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         prefix = os.path.join(out_dir, "frame")
-        tk.CUDA_KERNEL.launches = 0
+        reset_launch_counts()
         rc = cli.main(["--size", "512", "-s", "4", "--device", "0", "-o", prefix])
-        launches = tk.CUDA_KERNEL.launches
+        launches = launch_counts()["k1"]
         if rc != 0:
             raise RuntimeError(f"CLI exited {rc}")
         print(f"kernel launches on the main path: {launches}")
@@ -3562,44 +3543,45 @@ def main() -> int:
         print(f"traced segments, {name}: {n_seg}")
     ops = rf.OPS_PER_SEGMENT
     px512, px256 = 512 * 512, 256 * 256
-    # (name, source, replaces, launches, max err, ms, plain ms, segments,
-    #  operations a segment, bytes in + out)
+    # (name, launch-count key, source, replaces, launches, max err, ms, plain ms,
+    #  segments, operations a segment, bytes in + out)
     rows = [
-        ("pathtrace_kernel", "trace_kernel.cu", "pathtrace_tpu/ops/pallas_trace.py:361",
+        ("pathtrace_kernel", "k1", "trace_kernel.cu", "pathtrace_tpu/ops/pallas_trace.py:361",
          launches, worst_err, statistics.median(times["kernel", 4]),
          statistics.median(times["plain", 4]), seg["512x4"], ops["forward_diffuse"],
          px512 * 14 * 4),
     ]
     grad_bytes = {"fused": px512 * 6 * 4, "dump": px256 * (3 + 54) * 4, "replay": px512 * 3 * 4}
     for mode, name, replaces in GRAD_KERNELS:
-        rows.append((name, "grad_kernel.cu", replaces, grad_launches[mode],
+        rows.append((name, f"k2.{mode}", "grad_kernel.cu", replaces, grad_launches[mode],
                      max(grad_err[mode], grad_err_8[mode]), grad_times[mode, "kernel"],
                      grad_times[mode, "plain"], seg["256x8" if mode == "dump" else "512x32"],
                      ops["grad_replay" if mode == "replay" else "grad_fused"], grad_bytes[mode]))
     rows += [
-        ("nee_grad_kernel[fused]", "nee_grad_kernel.cu",
+        ("nee_grad_kernel[fused]", "k3.fused", "nee_grad_kernel.cu",
          "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["fused"],
          max(nee_err["fused"], nee_err_12["fused"]), nee_times["fused", "kernel"],
          nee_times["fused", "plain"], seg["512x32 nee"], ops["nee_grad_fused"],
          px512 * 6 * 4),
-        ("nee_grad_kernel[replay]", "nee_grad_kernel.cu",
+        ("nee_grad_kernel[replay]", "k3.replay", "nee_grad_kernel.cu",
          "pathtrace_tpu/ops/pallas_nee_grad.py:98", nee_launches["replay"],
          max(nee_err["replay"], nee_err_12["replay"], nee_err_16),
          nee_times["replay", "kernel"], nee_times["replay", "plain"], seg["512x32 nee"],
          ops["ad_nee_color"], px512 * 3 * 4),
         # the instance of K4's main path: glossy against a colour-only cotangent
-        ("ad_grad_kernel", "ad_grad_kernel.cu", "pathtrace_tpu/ops/pallas_ad.py:64",
+        ("ad_grad_kernel", "k4.replay", "ad_grad_kernel.cu", "pathtrace_tpu/ops/pallas_ad.py:64",
          ad_launches, max(ad_err_13, ad_err_14, ad_err_15, ad_err_16),
          sweep_times["glossy", 512, "kernel"], sweep_times["glossy", 512, "plain"],
          seg["512x32 glossy"], ops["ad_glossy_color"], px512 * 3 * 4),
     ]
     kernels = []
-    for (name, source, replaces, n_launch, max_err, ms, plain_ms, n_seg, ops_seg,
+    for (name, key, source, replaces, n_launch, max_err, ms, plain_ms, n_seg, ops_seg,
          n_bytes) in rows:
         ops_ms = rf.bound_ms(n_seg, ops_seg, PUBLISHED_F32_FLOPS)
         bytes_ms = 1e3 * n_bytes / PUBLISHED_BYTES_PER_S
         kernels.append({
-            "name": name, "route": "cuda", "source": f"pathtrace_tpu_torch/csrc/{source}",
+            "name": name, "launch_key": key, "route": "cuda",
+            "source": f"pathtrace_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": n_launch, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
@@ -3611,7 +3593,8 @@ def main() -> int:
         entry = {
             "name": f"probe_kernel[{probe}]", "route": "cuda",
             "source": "pathtrace_tpu_torch/csrc/probe_kernel.cu", "replaces": replaces,
-            "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+            "launches": r["launches"] + fma_launches[probe], "max_abs_err": r["err"],
+            "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": max(r["ops_ms"], r["bytes_ms"]),
             "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
             "library_ms": None, "bound_ms_unfused_measured": None,
@@ -3626,17 +3609,15 @@ def main() -> int:
                          fma_dependent_cycles=FMA_DEPENDENT_CYCLES,
                          fma_dependent_cycles_measured=fma_cycles)
         kernels.append(entry)
-    # The ranks' launches of phase 20 add to the main paths' of the kernels
-    # that the grid runs, phase 21's dataset to K1's, and phase 24's to the
-    # probes'.
-    grid_launches["pathtrace_kernel"] += dp_launches
-    for name, n in sync_launches.items():
-        grid_launches[name] = grid_launches.get(name, 0) + n
-    for probe, n in fma_launches.items():
-        grid_launches[f"probe_kernel[{probe}]"] = n
+    # The ranks' launches of phase 20 and phase 25's add to the main paths'
+    # of each kernel, phase 21's dataset to K1's (phase 24's were added to
+    # the probes').
+    extra = {key: n + sync_launches[key] for key, n in grid_launches.items()}
+    extra["k1"] += dp_launches
     for k in kernels:
-        k["launches"] += grid_launches.get(k["name"], 0)
-        k["max_abs_err"] = max(k["max_abs_err"], grid_errs.get(k["name"], 0.0))
+        if "launch_key" in k:
+            k["launches"] += extra[k["launch_key"]]
+            k["max_abs_err"] = max(k["max_abs_err"], grid_errs.get(k["launch_key"], 0.0))
     print(f"card: {smi}; bound = segments x operations a segment / the published "
           f"{PUBLISHED_F32_FLOPS / 1e12:.0f} TFLOP/s (measured here: FMA "
           f"{peaks['peak_fma_flops'] / 1e12:.3f} TFLOP/s); unfused = the same over the measured "
@@ -3681,13 +3662,13 @@ def main() -> int:
           f"share of bound {b / ms:.3f}  (plain "
           f"{sweep_times['nee_replay', 256, 'plain']:.1f} ms)")
     ms = sweep_times["nee_replay_taped", 256, "kernel"]
-    b = 1e3 * nk.tape_bytes(RenderConfig(width=256, height=256, spp=16, nee=True), 256, 16) \
+    b = 1e3 * sweep.tape_bytes(RenderConfig(width=256, height=256, spp=16, nee=True), 256, 16) \
         / PUBLISHED_BYTES_PER_S
     print(f"  nee_grad_kernel[replay_taped] 256x256x16 {ms:8.4f} ms  bound {b:.4f} ms by the "
           f"path tape's bytes read  share of bound {b / ms:.3f}")
     glossy = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
-    rows = nk.slab_rows(glossy)
-    b = 1e3 * nk.tape_bytes(glossy, rows, 32) / PUBLISHED_BYTES_PER_S
+    rows = sweep.slab_rows(glossy)
+    b = 1e3 * sweep.tape_bytes(glossy, rows, 32) / PUBLISHED_BYTES_PER_S
     for name, what in (("ad_grad_kernel[replay_taped]", "read"),
                        ("pathtrace_kernel[color, nee glossy, taped]", "stored")):
         ms = sweep_times["k4_nee_glossy_slab_taped" if what == "read"

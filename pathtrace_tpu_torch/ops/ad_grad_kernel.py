@@ -6,10 +6,11 @@ ad_grad_kernel.cu`` replaces its TPU kernel ``_ad_grad_kernel`` (K4), which
 is ``jax.vjp`` of the forward trajectory inside the kernel body. CUDA has no
 in-kernel AD, so the CUDA kernel is that vjp derived by hand: the reverse
 sweep of ``csrc/sweep.cuh`` (shared with the NEE diffuse kernel,
-``ops/nee_grad_kernel.py``), instantiated for diffuse and glossy, with and
-without NEE. For a slab of rows and a range of samples it gives the
-gradient, with respect to every sphere's radius, position, emission and
-albedo, the eye and the four corner rays, of
+``ops/nee_grad_kernel.py``; its Python side is ``ops/sweep.py``),
+instantiated for diffuse and glossy, with and without NEE. For a slab of
+rows and a range of samples it gives the gradient, with respect to every
+sphere's radius, position, emission and albedo, the eye and the four corner
+rays, of
 
     sum over pixels and samples of
         ct[0:3] . colour + ct[3:6] . normal0 + ct[6:9] . albedo0 + ct[9] * depth0
@@ -27,13 +28,15 @@ shading chain alone and gives the full instance's shading sums bit for bit.
 formulas in the kernel's order over [h, W] tensors on ``trace_kernel``'s
 plain trajectory (no autograd), summing over pixels in double as the kernel
 does; on a CUDA device it launches the kernel, or raises. Under NEE glossy
-with a colour cotangent it takes a ``nee_grad_kernel.PathTape`` that K1's
-taped colour pass wrote for the same slab, whose paths the kernel sweeps
-instead of tracing them again (its REPLAY_TAPED instance, the same bits):
-the glossy inverse step's route (``grad_kernel.cross_grads``). Both give the
-flat sums [10N + 16] of ``nee_grad_kernel`` (0 in the loss slot), and
-``block_from_sums`` / ``grads_from_block`` there turn them into the JAX
-package's gradient block and into (d_scene, d_camera).
+with a colour cotangent it takes a ``sweep.PathTape`` that K1's taped colour
+pass wrote for the same slab, whose paths the kernel sweeps instead of
+tracing them again (its REPLAY_TAPED instance, the same bits): the glossy
+inverse step's route (``grad_kernel.cross_grads``). Both give the flat sums
+[10N + 16] of ``ops/sweep.py`` (0 in the loss slot), and ``block_from_sums``
+/ ``grads_from_block`` there turn them into the JAX package's gradient
+block and into (d_scene, d_camera). ``replay_color`` takes the cotangent of
+the spp-mean colour [h, W, 3] and lays it out as the kernel's
+(``pack_cotangents``): ``grad_kernel``'s replay of glossy configurations.
 
 Entry points (the JAX package's names, plus ``device=``):
 ``pack_cotangents``, ``ad_grads_block_slab`` (rows and samples at an offset:
@@ -47,16 +50,11 @@ import ctypes
 import torch
 
 from pathtrace_tpu_torch.config import RenderConfig
-from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
-from pathtrace_tpu_torch.ops.grad_kernel import _per_pixel
 from pathtrace_tpu_torch.render import resolve_device
 from pathtrace_tpu_torch.utils import timing
-# The two kernels share their output layout and the rules that hold a
-# kernel against its plain version, by kind of entry.
-from pathtrace_tpu_torch.ops.nee_grad_kernel import (  # noqa: F401
-    CROSS_ATOL, MAX_BOUNCES, agreement, block_from_sums, entry_kinds, grads_from_block)
 
 SOURCE = CSRC / "ad_grad_kernel.cu"
 NUM_CT = 10  # cotangent channels: colour 3, normal 3, albedo 3, depth 1
@@ -89,21 +87,20 @@ def replay_plain(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, 
     [3, local_h, W] against its colour."""
     lat = tk.PlainLattice(scene_block, cam_block, seed, cfg, local_h, device)
     planes = list(cotangent.unbind(0))
-    shade, geom = nk._sweep_plain(lat, cfg, spp, planes[:3], planes[3:] or None)
-    return nk._flat_sums(len(lat.sc), shade, geom, torch.zeros_like(lat.rows))
+    shade, geom = sweep._sweep_plain(lat, cfg, spp, planes[:3], planes[3:] or None)
+    return sweep._flat_sums(len(lat.sc), shade, geom, torch.zeros_like(lat.rows))
 
 
 # -- the CUDA kernel -----------------------------------------------------------
 
 class CudaAdGradKernel:
-    """ctypes binding of ``pt_ad_grad_launch``. ``launches["replay"]`` counts
-    the kernel launches made through ``launch``; ``launches["replay_taped"]``
-    those among them that read a path tape."""
+    """ctypes binding of ``pt_ad_grad_launch``; each ``launch`` counts as
+    ``"k4.replay"`` in ``timing``'s launch counts, one that reads a path tape
+    also as ``"k4.replay_taped"``."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
         self._fn = None
-        self.launches = {"replay": 0, "replay_taped": 0}
 
     def _function(self):
         if self._fn is None:
@@ -169,16 +166,11 @@ class CudaAdGradKernel:
             )
         if err != 0:
             raise RuntimeError(f"AD grad kernel launch failed: cudaError {err}")
-        self.launches["replay"] += 1
-        if tape is not None:
-            self.launches["replay_taped"] += 1
-        timing.add_launch_ns("k4.replay", t0)
+        timing.count_launch("k4.replay", t0, taped=tape is not None)
         return sums
 
 
 CUDA_KERNEL = CudaAdGradKernel()
-timing.launch_counter("k4.replay", lambda: CUDA_KERNEL.launches["replay"])
-timing.launch_counter("k4.replay_taped", lambda: CUDA_KERNEL.launches["replay_taped"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotangent, dev):
@@ -186,8 +178,8 @@ def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, cotang
     n = scene_block.shape[0]
     if n > MAX_SPHERES:
         raise ValueError(f"the AD gradient kernel takes at most {MAX_SPHERES} spheres, got {n}")
-    if cfg.max_bounces > MAX_BOUNCES:
-        raise ValueError(f"the AD gradient kernel takes at most {MAX_BOUNCES} bounces, "
+    if cfg.max_bounces > sweep.MAX_BOUNCES:
+        raise ValueError(f"the AD gradient kernel takes at most {sweep.MAX_BOUNCES} bounces, "
                          f"got {cfg.max_bounces}")
     shape = (NUM_CT, local_h, cfg.width)
     if cotangent.dtype != torch.float32 or tuple(cotangent.shape) not in (
@@ -226,6 +218,17 @@ def replay(scene_block, cam_block, seed, cfg: RenderConfig, cotangent, *, local_
     return CUDA_KERNEL.launch(scene_block, cam_block, seed, cfg, cotangent, **kw)
 
 
+def replay_color(scene_block, cam_block, seed, cfg: RenderConfig, ct, *, local_h: int,
+                 spp: int, device=None, tape=None):
+    """``replay`` against ``ct`` [local_h, W, 3], the cotangent of the
+    cfg.spp-sample MEAN colour, laid out as the kernel's colour-only
+    per-sample block [3, local_h, W] (``pack_cotangents``) -> sums
+    [10N + 16]."""
+    return replay(scene_block, cam_block, seed, cfg,
+                  pack_cotangents(cfg, ct, local_h=local_h, device=device),
+                  local_h=local_h, spp=spp, device=device, tape=tape)
+
+
 # -- entry points (the JAX package's signatures, plus a device) -------------------
 
 def pack_cotangents(cfg: RenderConfig, ct_color=None, ct_normal=None, ct_albedo=None,
@@ -239,13 +242,13 @@ def pack_cotangents(cfg: RenderConfig, ct_color=None, ct_normal=None, ct_albedo=
     if ct_normal is None and ct_albedo is None and ct_depth is None:
         if ct_color is None:
             return torch.zeros((NUM_CT_COLOR, h, cfg.width), dtype=torch.float32, device=device)
-        return (_per_pixel(ct_color, device).permute(2, 0, 1) / spp).contiguous()
+        return (tk._per_pixel(ct_color, device).permute(2, 0, 1) / spp).contiguous()
     block = torch.zeros((NUM_CT, h, cfg.width), dtype=torch.float32, device=device)
     for first, x in ((0, ct_color), (3, ct_normal), (6, ct_albedo)):
         if x is not None:
-            block[first: first + 3] = _per_pixel(x, device).permute(2, 0, 1)
+            block[first: first + 3] = tk._per_pixel(x, device).permute(2, 0, 1)
     if ct_depth is not None:
-        block[9] = _per_pixel(ct_depth, device)
+        block[9] = tk._per_pixel(ct_depth, device)
     return block / spp
 
 
@@ -258,10 +261,10 @@ def ad_grads_block_slab(scene, cam, cfg: RenderConfig, frame, ct_block, row_offs
     different slabs and sample ranges add up to the frame's."""
     sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
     sums = replay(sb, cb, tk.make_seed_block(cfg, frame, sample_offset, row_offset), cfg,
-                  _per_pixel(ct_block, device),
+                  tk._per_pixel(ct_block, device),
                   local_h=cfg.height if local_h is None else local_h,
                   spp=cfg.spp if spp is None else spp, device=device)
-    return block_from_sums(sums)
+    return sweep.block_from_sums(sums)
 
 
 def ad_aov_grads(scene, cam, cfg: RenderConfig, frame, ct_color=None, ct_normal=None,
@@ -272,16 +275,17 @@ def ad_aov_grads(scene, cam, cfg: RenderConfig, frame, ct_color=None, ct_normal=
     device = resolve_device(device)
     ct = pack_cotangents(cfg, ct_color, ct_normal, ct_albedo, ct_depth, device=device)
     block = ad_grads_block_slab(scene, cam, cfg, frame, ct, device=device)
-    return grads_from_block(scene, cam, cfg, block)
+    return sweep.grads_from_block(scene, cam, cfg, block)
 
 
 def ad_loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     """(loss, (d_scene, d_camera)) of the mean-squared pixel colour loss for
     any configuration: one colour-sum launch of the forward kernel, then one
-    replay launch against the loss's cotangent."""
-    color = tk.render_color_sums(scene, cam, cfg, frame, device=device) / cfg.spp
-    diff = color - _per_pixel(target, color.device)
-    denom = cfg.height * cfg.width * 3
-    grads = ad_aov_grads(scene, cam, cfg, frame, ct_color=2.0 * diff / denom,
-                         device=color.device)
-    return torch.sum(diff * diff) / denom, grads
+    replay launch against the loss's cotangent (``sweep.color_loss_replay``)."""
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
+    _, diff, sums = sweep.color_loss_replay(
+        sb, cb, tk.make_seed_block(cfg, frame), cfg, tk._per_pixel(target, device),
+        replay_color, local_h=cfg.height, spp=cfg.spp, device=device)
+    block = sweep.block_from_sums(sums)
+    loss = torch.sum(diff * diff) / (cfg.height * cfg.width * 3)
+    return loss, sweep.grads_from_block(scene, cam, cfg, block)

@@ -28,16 +28,26 @@ its gradient with respect to positions, radii and the camera is exactly
 zero. NEE diffuse has its own kernel, ``ops/nee_grad_kernel.py`` (K3: all
 parameters, geometry and camera included), and glossy, with or without
 NEE, goes to the all-parameter backward of ``ops/ad_grad_kernel.py`` (K4).
-The entry points below that take any configuration dispatch to them as
-``pallas_grad.py`` does; none raises for a configuration.
+This module is the one seam between a configuration and those kernels
+(``route``), as ``pallas_grad.py`` dispatches; none of its entry points
+raises for a configuration. Two choices are made here, each in one
+function:
+
+- the replay against a colour cotangent, ``_replay_sums``: K3's replay for
+  NEE diffuse, K4's for glossy, each through its wrapper's ``replay_color``,
+  which takes the cotangent of the spp-mean colour [h, W, 3] and puts it in
+  its kernel's layout;
+- the loss and its gradients, ``_loss_grads``: one K2 fused launch
+  (diffuse), one K3 fused launch (NEE diffuse), or K1's colour pass and
+  the replay (glossy, ``sweep.color_loss_replay``).
 
 Entry points (the JAX package's names, plus ``device=``): ``grad_acc_slab``
 and ``render_grad_acc`` (diffuse without NEE only: the accumulators exist
 for the product chain alone); ``fused_loss_grads``, ``render_color_grads``,
 ``cross_grads`` (with ``cross_contract``, its arithmetic after two dumps),
 ``loss_and_grads`` and ``render_color``, a differentiable colour render,
-which dispatch: diffuse to the modes above, NEE diffuse to K3, glossy to
-the forward kernel's colour sums and K4's replay.
+each with one branch between the product chain (``on_chain``) and the
+replay.
 """
 
 from __future__ import annotations
@@ -49,13 +59,15 @@ import torch
 
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.config import RenderConfig
+from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.ops.build import CSRC, load_function
 from pathtrace_tpu_torch.ops.sampling import clip01_grad
 from pathtrace_tpu_torch.render import resolve_device
 from pathtrace_tpu_torch.scene import Scene
 from pathtrace_tpu_torch.utils import timing
-from pathtrace_tpu_torch.utils.transfer import to_device
 
 SOURCE = CSRC / "grad_kernel.cu"
 MODES = ("fused", "dump", "replay")
@@ -80,6 +92,12 @@ def route(cfg: RenderConfig) -> str:
     if cfg.brdf != "diffuse":
         return "ad"
     return "nee" if cfg.nee else "chain"
+
+
+def on_chain(cfg: RenderConfig) -> bool:
+    """Whether the product-chain modes of this module serve ``cfg``'s
+    gradients (diffuse without NEE); else a replay of K3 or K4 does."""
+    return route(cfg) == "chain"
 
 
 # -- the plain versions ----------------------------------------------------------
@@ -177,13 +195,12 @@ def dump_store_plan(width: int, local_h: int, block: int, num_spheres: int, lane
 # -- the CUDA kernel -------------------------------------------------------------
 
 class CudaGradKernel:
-    """ctypes binding of ``pt_grad_launch_padded``. ``launches[mode]`` counts the
-    kernel launches made through ``launch`` in each mode."""
+    """ctypes binding of ``pt_grad_launch_padded``; each ``launch`` counts as
+    ``"k2.<mode>"`` in ``timing``'s launch counts."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
         self._fn = None
-        self.launches = {m: 0 for m in MODES}
 
     def _function(self):
         if self._fn is None:
@@ -254,16 +271,13 @@ class CudaGradKernel:
             )
         if err != 0:
             raise RuntimeError(f"grad kernel ({mode}) launch failed: cudaError {err}")
-        self.launches[mode] += 1
-        if mode == "dump":
-            timing.add_launch_ns("k2.dump", t0)
+        timing.count_launch(f"k2.{mode}", t0)
         if mode == "fused":
             return sums, color
         return (color, acc) if mode == "dump" else sums
 
 
 CUDA_KERNEL = CudaGradKernel()
-timing.launch_counter("k2.dump", lambda: CUDA_KERNEL.launches["dump"])
 
 
 def _check(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp, pixels, dev, what):
@@ -373,10 +387,39 @@ def _split(sums: torch.Tensor, n: int, denom=1):
     return g[:, 0:3], g[:, 3:6]
 
 
-def _per_pixel(x, device) -> torch.Tensor:
-    """``x`` as a contiguous float32 tensor on ``device``, moved from the host
-    without a wait for the card."""
-    return to_device(torch.as_tensor(x, dtype=torch.float32), device).contiguous()
+def _replay_sums(scene_block, cam_block, seed, cfg: RenderConfig, ct, *, local_h: int,
+                 spp: int, device, tape=None):
+    """The replay of a configuration off the product chain against ``ct``
+    [local_h, W, 3], the cotangent of the cfg.spp-sample mean colour: K3's
+    (NEE diffuse) or K4's (glossy) ``replay_color`` over ``local_h`` rows and
+    ``spp`` samples at ``seed``, sweeping ``tape`` if given -> flat sums
+    [10N + 16] (``sweep.block_from_sums`` lays them out as the gradient
+    block)."""
+    kernel = nk if route(cfg) == "nee" else ak
+    return kernel.replay_color(scene_block, cam_block, seed, cfg, ct, local_h=local_h, spp=spp,
+                               device=device, tape=tape)
+
+
+def _loss_grads(scene, cam, cfg: RenderConfig, frame, target, device):
+    """(loss, gradients, mean colour [H, W, 3]) of the mean-squared pixel loss
+    against ``target`` [H, W, 3] (``pallas_loss_and_grads``' dispatch).
+    Diffuse: one K2 fused launch; gradients (d_emission, d_albedo) [N, 3].
+    NEE diffuse: one K3 fused launch; glossy: one colour-sum launch of K1
+    and one replay; gradients: the block [N + 5, 11]."""
+    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
+    seed = tk.make_seed_block(cfg, frame)
+    kw = dict(local_h=cfg.height, spp=cfg.spp, device=device)
+    target = tk._per_pixel(target, device)
+    denom = cfg.height * cfg.width * 3
+    kind = route(cfg)
+    if kind == "chain":
+        sums, color = fused(sb, cb, seed, cfg, target, **kw)
+        return sums[-1] / denom, _split(sums, sb.shape[0], denom), color
+    if kind == "nee":
+        sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
+        return sums[-1] / denom, sweep.block_from_sums(sums) / denom, color
+    color, diff, sums = sweep.color_loss_replay(sb, cb, seed, cfg, target, _replay_sums, **kw)
+    return torch.sum(diff * diff) / denom, sweep.block_from_sums(sums), color
 
 
 def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
@@ -384,29 +427,11 @@ def fused_loss_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     mean-squared pixel loss against ``target`` [H, W, 3]. Diffuse: one fused
     launch. NEE diffuse: one fused launch of the NEE kernel. Glossy: one
     colour-sum launch of the forward kernel and one K4 replay."""
-    kind = route(cfg)
-    denom = cfg.height * cfg.width * 3
-    if kind == "nee":
-        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
-        sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
-        sums, color = nk.fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
-                               _per_pixel(target, device), local_h=cfg.height, spp=cfg.spp,
-                               device=device)
-        d = _scene_grads(nk.block_from_sums(sums) / denom)
-        return sums[-1] / denom, d.emission, d.color, color
-    if kind == "ad":
-        color = tk.render_color_sums(scene, cam, cfg, frame, device=device) / cfg.spp
-        diff = color - _per_pixel(target, color.device)
-        d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, 2.0 * diff / denom,
-                                            color.device))
-        return torch.sum(diff * diff) / denom, d.emission, d.color, color
-    sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
-    sums, color = fused(sb, cb, tk.make_seed_block(cfg, frame), cfg,
-                        _per_pixel(target, device), local_h=cfg.height,
-                        spp=cfg.spp, device=device)
-    d_e, d_c = _split(sums, sb.shape[0], denom)
-    return sums[-1] / denom, d_e, d_c, color
+    loss, grads, color = _loss_grads(scene, cam, cfg, frame, target, device)
+    if on_chain(cfg):
+        return loss, *grads, color
+    d = sweep.scene_grads_from_block(grads)
+    return loss, d.emission, d.color, color
 
 
 def grad_acc_slab(scene, cam, cfg: RenderConfig, frame, row_offset=0, local_h=None, spp=None,
@@ -440,13 +465,14 @@ def render_color_grads(scene, cam, cfg: RenderConfig, frame, cotangent, device=N
     ``cotangent`` [H, W, 3]: one replay launch of the configuration's kernel
     (under NEE or glossy it also computes the geometry and camera gradients,
     which this signature drops)."""
-    if route(cfg) != "chain":
-        d = _scene_grads(_color_grads_block(scene, cam, cfg, frame, cotangent, device))
-        return d.emission, d.color
     sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
-    ct = _per_pixel(cotangent, device) / cfg.spp
-    sums = replay(sb, cb, tk.make_seed_block(cfg, frame), cfg, ct, local_h=cfg.height,
-                  spp=cfg.spp, device=device)
+    seed = tk.make_seed_block(cfg, frame)
+    kw = dict(local_h=cfg.height, spp=cfg.spp, device=device)
+    if not on_chain(cfg):
+        sums = _replay_sums(sb, cb, seed, cfg, cotangent, **kw)
+        d = sweep.scene_grads_from_block(sweep.block_from_sums(sums))
+        return d.emission, d.color
+    sums = replay(sb, cb, seed, cfg, tk._per_pixel(cotangent, device) / cfg.spp, **kw)
     return _split(sums, sb.shape[0])
 
 
@@ -461,27 +487,6 @@ def cross_contract(a, acc_a, b, acc_b, target):
     return torch.sum(ra * rb) / denom, {"emission": d_ea + d_eb, "color": d_ca + d_cb}
 
 
-def _color_grads_block(scene, cam, cfg: RenderConfig, frame, cotangent, device=None):
-    """Gradient block [N + 5, 11] of sum(cotangent * mean colour), all
-    parameters, for a configuration off the product chain: one replay launch
-    of K3 (NEE diffuse) or K4 (glossy)."""
-    if route(cfg) == "nee":
-        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
-        return nk.nee_color_grads(scene, cam, cfg, frame, cotangent, device)
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-
-    device = resolve_device(device)
-    ct = ak.pack_cotangents(cfg, cotangent, device=device)
-    return ak.ad_grads_block_slab(scene, cam, cfg, frame, ct, device=device)
-
-
-def _scene_grads(block):
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
-    return nk.scene_grads_from_block(block)
-
-
 def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     """(loss, gradients by field) of the cross-estimator over two independent
     renders, frames 2 step and 2 step + 1: the inverse step's gradient on
@@ -494,28 +499,24 @@ def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
     Under NEE on the card each colour pass writes its paths into a path
     tape, which its replay (K3 or K4) sweeps instead of tracing them again,
     with the same bits. A tape takes 56 B a pixel, sample and bounce, 68
-    under glossy (``nee_grad_kernel.tape_bytes``), so the step runs in the
-    fewest equal row slabs whose two tapes fit ``nee_grad_kernel.
-    TAPE_BUDGET`` (4 GiB; ``nee_grad_kernel.step_tapes``): one at 256x256x16
-    (2 x 293.6 MB), two of 256 rows at 512x512x32 (2 x 1.17 GB diffuse,
-    2 x 1.43 GB glossy). Each slab is the two colour passes, then the two
+    under glossy (``sweep.tape_bytes``), so the step runs in the fewest
+    equal row slabs whose two tapes fit ``sweep.TAPE_BUDGET`` (4 GiB;
+    ``sweep.step_tapes``): one at 256x256x16 (2 x 293.6 MB), two of 256 rows
+    at 512x512x32 (2 x 1.17 GB diffuse, 2 x 1.43 GB glossy). Each slab is the two colour passes, then the two
     replays against the other pass's residual rows; the two tapes serve
     every slab, and the slabs' gradient sums add up in slab order. The
     residual is per pixel, so the loss is the whole frame's, as one slab
     gives it. On the CPU, without NEE, and where even one row's tapes would
     not fit, one slab and no tape: the replays trace again. The scene and
     camera blocks are built once a step, for every launch."""
-    if route(cfg) == "chain":
+    if on_chain(cfg):
         a, acc_a = render_grad_acc(scene, cam, cfg, 2 * step, device)
         b, acc_b = render_grad_acc(scene, cam, cfg, 2 * step + 1, device)
-        target = _per_pixel(target, a.device)
+        target = tk._per_pixel(target, a.device)
         return cross_contract(a, acc_a, b, acc_b, target)
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
     sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
-    rows, tapes = nk.step_tapes(cfg, device)
-    target = _per_pixel(target, device)
+    rows, tapes = sweep.step_tapes(cfg, device)
+    target = tk._per_pixel(target, device)
     denom = cfg.height * cfg.width * 3
     sums, residuals = None, []
     for r0 in range(0, cfg.height, rows):
@@ -525,19 +526,13 @@ def cross_grads(scene, cam, cfg: RenderConfig, step, target, device=None):
         a, b = (tk.trace(sb, cb, seed, cfg, mode="color", tape=t, **kw) / cfg.spp
                 for seed, t in zip(seeds, slab))
         ra, rb = a - target[r0:r0 + kw["local_h"]], b - target[r0:r0 + kw["local_h"]]
-        slab_sums = None
-        for seed, residual, t in zip(seeds, (rb, ra), slab):
-            # a pass's replay against the other pass's residual, 1/spp folded in
-            if route(cfg) == "nee":
-                g = nk.replay(sb, cb, seed, cfg, residual / denom / cfg.spp, tape=t, **kw)
-            else:
-                ct = ak.pack_cotangents(cfg, residual / denom, **kw)
-                g = ak.replay(sb, cb, seed, cfg, ct, tape=t, **kw)
-            slab_sums = g if slab_sums is None else slab_sums + g
-        sums = slab_sums if sums is None else sums + slab_sums
+        # each pass's replay against the other pass's residual
+        ga, gb = (_replay_sums(sb, cb, seed, cfg, residual / denom, tape=t, **kw)
+                  for seed, residual, t in zip(seeds, (rb, ra), slab))
+        sums = ga + gb if sums is None else sums + (ga + gb)
         residuals.append((ra, rb))
     ra, rb = residuals[0] if len(residuals) == 1 else (torch.cat(x) for x in zip(*residuals))
-    d = _scene_grads(nk.block_from_sums(sums))
+    d = sweep.scene_grads_from_block(sweep.block_from_sums(sums))
     return torch.sum(ra * rb) / denom, {"emission": d.emission, "color": d.color,
                                         "position": d.position, "radius": d.radius}
 
@@ -550,21 +545,14 @@ def loss_and_grads(scene, cam, cfg: RenderConfig, frame, target, device=None):
     parameters. Diffuse: one fused launch of the product-chain kernel;
     geometry and camera get exact zeros, since that estimator does not
     depend on them."""
-    kind = route(cfg)
-    if kind == "nee":
-        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
-        return nk.nee_loss_and_grads(scene, cam, cfg, frame, target, device)
-    if kind == "ad":
-        from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-
-        return ak.ad_loss_and_grads(scene, cam, cfg, frame, target, device)
-    loss, d_e, d_c, _ = fused_loss_grads(scene, cam, cfg, frame, target, device)
+    loss, grads, _ = _loss_grads(scene, cam, cfg, frame, target, device)
+    if not on_chain(cfg):
+        return loss, sweep.grads_from_block(scene, cam, cfg, grads)
 
     def zeros(x):  # x's shape and dtype on the loss's device: nothing is copied
         return torch.zeros(x.shape, dtype=x.dtype, device=loss.device)
 
-    d_scene = Scene(zeros(scene.radius), zeros(scene.position), d_e, d_c)
+    d_scene = Scene(zeros(scene.radius), zeros(scene.position), *grads)
     d_cam = Camera(zeros(cam.position), zeros(cam.yaw), zeros(cam.pitch))
     return loss, (d_scene, d_cam)
 
@@ -617,13 +605,13 @@ class _ReplayColor(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_color):
-        from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-
         cfg, frame, device = ctx.render
         leaves = ctx.saved_tensors
         scene, cam = Scene(*leaves[:4]), Camera(*leaves[4:])
-        block = _color_grads_block(scene, cam, cfg, frame, grad_color, device)
-        d_scene, d_cam = nk.grads_from_block(scene, cam, cfg, block)
+        sb, cb, device = tk.device_blocks(scene, cam, cfg, device)
+        sums = _replay_sums(sb, cb, tk.make_seed_block(cfg, frame), cfg, grad_color,
+                            local_h=cfg.height, spp=cfg.spp, device=device)
+        d_scene, d_cam = sweep.grads_from_block(scene, cam, cfg, sweep.block_from_sums(sums))
         grads = [d_scene.radius, d_scene.position, d_scene.emission, d_scene.color,
                  d_cam.position, d_cam.yaw, d_cam.pitch]
         return (None, None, None,
@@ -638,6 +626,6 @@ def render_color(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.T
     diffuse and glossy: the forward kernel's colour sums forward, one replay
     launch backward (K3, K4); gradients reach all seven leaves."""
     device = resolve_device(device)
-    fn = _DumpColor if route(cfg) == "chain" else _ReplayColor
+    fn = _DumpColor if on_chain(cfg) else _ReplayColor
     return fn.apply(cfg, frame, device, scene.radius, scene.position, scene.emission,
                     scene.color, cam.position, cam.yaw, cam.pitch)

@@ -550,15 +550,14 @@ def stage_blocks(blocks, device) -> tuple:
 
 
 class CudaTraceKernel:
-    """ctypes binding of ``pt_trace_launch_padded``. ``launches`` counts the
-    kernel launches made through ``launch``. ``lanes`` of ``launch`` and
+    """ctypes binding of ``pt_trace_launch_padded``; each ``launch`` counts
+    as ``"k1"`` in ``timing``'s launch counts. ``lanes`` of ``launch`` and
     ``occupancy`` defaults to ``sample_lanes`` for the launch and the card;
     only measurements pass another."""
 
     def __init__(self):
         self._lib = None  # keeps the library loaded while _fn is in use
         self._fn = None
-        self.launches = 0
 
     def _function(self):
         if self._fn is None:
@@ -598,9 +597,9 @@ class CudaTraceKernel:
         float32 (asynchronous, like any CUDA op). ``pad_shared``: dynamic
         shared bytes to ask for beyond the block's own, so that fewer blocks
         fit an SM; only the occupancy curve of ``scripts/
-        torch_kernel_occupancy.py`` passes it. ``tape``: a ``nee_grad_kernel.
-        PathTape`` that the launch fills with the paths it traces (the taped
-        instance), checked by ``trace``."""
+        torch_kernel_occupancy.py`` passes it. ``tape``: a ``sweep.PathTape``
+        that the launch fills with the paths it traces (the taped instance),
+        checked by ``trace``."""
         t0 = timing.launch_clock()
         fn = self._function()
         held, scene_at, cam_at, seed_at = launch_operands(scene_block, cam_block, seed, device)
@@ -623,13 +622,11 @@ class CudaTraceKernel:
             raise RuntimeError(f"trace kernel launch failed: cudaError {err}")
         if tape is not None:
             tape.written = True
-        self.launches += 1
-        timing.add_launch_ns("k1", t0)
+        timing.count_launch("k1", t0)
         return out
 
 
 CUDA_KERNEL = CudaTraceKernel()
-timing.launch_counter("k1", lambda: CUDA_KERNEL.launches)
 
 
 def check_blocks(scene_block, cam_block, seed, cfg: RenderConfig, local_h, spp):
@@ -669,7 +666,7 @@ def trace(scene_block: torch.Tensor, cam_block: torch.Tensor, seed: SeedBlock,
           device=None, tape=None) -> torch.Tensor:
     """The kernel wrapper -> [local_h, W, C] float32 on ``device`` (default:
     the blocks' device). CPU: the plain version. CUDA: the kernel, or an
-    exception. ``tape``: a ``nee_grad_kernel.PathTape`` made for this launch
+    exception. ``tape``: a ``sweep.PathTape`` made for this launch
     (NEE ``"color"`` only, diffuse or glossy, on the card), which the launch
     fills with the paths it traces for the taped replay of K3 (diffuse) or
     K4 (glossy); the sums are the same bits."""
@@ -754,6 +751,12 @@ def device_blocks(scene, cam, cfg, device):
         return sb, cb, device
     sb, cb = stage_blocks((sb, cb), device)
     return sb, cb, device
+
+
+def _per_pixel(x, device) -> torch.Tensor:
+    """``x`` as a contiguous float32 tensor on ``device``, moved from the host
+    without a wait for the card."""
+    return to_device(torch.as_tensor(x, dtype=torch.float32), device).contiguous()
 
 
 def render_channels(scene, cam, cfg: RenderConfig, frame=0, device=None) -> torch.Tensor:

@@ -9,9 +9,9 @@ case is a dict with ``kind`` and ``grid`` (tiles, samples):
 - ``"grads"`` (scene, cam, cfg, target): loss and the seven gradients;
 - ``"grad_slab"`` (the same): this rank's launch of the route's backward
   kernel as ``sharded_loss_grads`` makes it (``shard.kernel_slab_launch``:
-  the K2 dump's "color" and "acc" and their "scale", or the per-sample
-  colour cotangent "ct" given to the K3 or K4 replay and its "block"), with
-  the launch's "seed" block, "local_h" and "spp";
+  the K2 dump's "color" and "acc" and their "scale", or the K3 or K4
+  replay's "block" against the cotangent 2 "diff" / (H W 3) of the mean
+  colour), with the launch's "seed" block, "local_h" and "spp";
 - ``"simple"`` (model, channels [H, W, 14]): ``denoise_spatially_sharded``
   of the rank's rows, joined [H, W, 3];
 - ``"oneshot"`` (the same, and ``halo``): the whole ``SimpleDenoiseCNN``
@@ -29,9 +29,9 @@ case is a dict with ``kind`` and ``grid`` (tiles, samples):
 A model is a spec of ``build_model``.
 
 ``card_world`` is the chip smoke's rank function: the cases with every
-kernel's launch count set to 0 before and read after, then each rank's
-slab launches of the forward and backward kernels beside what their plain
-versions need, then the timings.
+launch count of ``utils/timing.py`` set to 0 before and read after, then
+each rank's slab launches of the forward and backward kernels beside what
+their plain versions need, then the timings.
 
 ``dp_world`` is the data-parallel trainer's rank function, for the tests
 and the chip smoke alike (``dp_world``'s docstring).
@@ -47,9 +47,7 @@ import torch.distributed as dist
 from pathtrace_tpu_torch.convert import grads_to_numpy
 from pathtrace_tpu_torch.parallel import shard
 from pathtrace_tpu_torch.parallel.mesh import make_mesh
-
-KERNEL_COUNTERS = ("pathtrace_kernel", "grad_kernel[dump]", "nee_grad_kernel[replay]",
-                   "ad_grad_kernel")
+from pathtrace_tpu_torch.utils import timing
 
 
 def build_model(spec: dict, device="cpu"):
@@ -135,7 +133,6 @@ def _case(case: dict, device):
         out = shard.kernel_slab_launch(case["scene"], case["cam"], case["cfg"], mesh,
                                        case["target"])
         ext = out.pop("ext")
-        del out["diff"]
         out["seed"] = tk.make_seed_block(case["cfg"], 0, ext["sample_offset"],
                                          ext["row_offset"])
         return dict(out, local_h=ext["local_h"], spp=ext["spp"])
@@ -145,31 +142,6 @@ def _case(case: dict, device):
 def run_cases(cases, device=None) -> list:
     """Every case on this rank, in order -> one result a case."""
     return [_case(case, device) for case in cases]
-
-
-def reset_launch_counts():
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-    from pathtrace_tpu_torch.ops import grad_kernel as gk
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-    from pathtrace_tpu_torch.ops import trace_kernel as tk
-
-    tk.CUDA_KERNEL.launches = 0
-    gk.CUDA_KERNEL.launches = {m: 0 for m in gk.MODES}
-    nk.CUDA_KERNEL.launches = dict.fromkeys(nk.CUDA_KERNEL.launches, 0)
-    ak.CUDA_KERNEL.launches = dict.fromkeys(ak.CUDA_KERNEL.launches, 0)
-
-
-def launch_counts() -> dict:
-    """This process's launches of the kernels on the grid's path, by the
-    names of the chip smoke's kernels line."""
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-    from pathtrace_tpu_torch.ops import grad_kernel as gk
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-    from pathtrace_tpu_torch.ops import trace_kernel as tk
-
-    return dict(zip(KERNEL_COUNTERS, (tk.CUDA_KERNEL.launches, gk.CUDA_KERNEL.launches["dump"],
-                                      nk.CUDA_KERNEL.launches["replay"],
-                                      ak.CUDA_KERNEL.launches["replay"])))
 
 
 def _timed_fn(case: dict, device):
@@ -228,9 +200,9 @@ def card_world(cases, slab_checks=(), grad_checks=(), timings=(), scaling=None,
     from pathtrace_tpu_torch.ops import trace_kernel as tk
     from pathtrace_tpu_torch.parallel.scaling import measure_scaling
 
-    reset_launch_counts()
+    timing.reset_launch_counts()
     results = run_cases(cases, device)
-    launches = launch_counts()
+    launches = timing.launch_counts()
     slabs = []
     for scene, cam, cfg, grid in slab_checks:
         mesh = make_mesh(*grid, device=device)

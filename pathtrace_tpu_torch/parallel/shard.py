@@ -183,41 +183,35 @@ def _zero_geometry(scene, cam, emission, color, device):
 
 
 def _kernel_slab(scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame, ext) -> dict:
-    """This rank's launch of the route's backward kernel on its slab
+    """This rank's launch of the configuration's backward kernel on its slab
     (``pallas_grad.pallas_loss_and_grads``'s dispatch, ``shard_fn_pallas``):
-    diffuse without NEE, one K2 dump; NEE diffuse, a K1 colour pass and one
-    K3 replay; glossy, a K1 colour pass and one K4 replay. -> dict of
-    "route" (``grad_kernel.route``), "diff" (this rank's rows of the global
-    colour less the target) and the launch's outputs: "color" and "acc" of
-    the dump (means over the rank's samples) and "scale" (local_spp / spp);
-    or the per-sample colour cotangent "ct" [3, local_h, W] the replay was
-    given and its gradient block "block" [N + 5, 11], this rank's share."""
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
+    on the product chain (``grad_kernel.on_chain``) one K2 dump; else a K1
+    colour pass and one replay of K3 or K4 (``grad_kernel._replay_sums``).
+    -> dict of "route" (``grad_kernel.route``), "diff" (this rank's rows of
+    the global colour less the target) and the launch's outputs: "color"
+    and "acc" of the dump (means over the rank's samples) and "scale"
+    (local_spp / spp); or the replay's gradient block "block" [N + 5, 11],
+    this rank's share, against the cotangent 2 diff / (H W 3) of the mean
+    colour."""
     from pathtrace_tpu_torch.ops import grad_kernel as gk
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import sweep
     from pathtrace_tpu_torch.ops import trace_kernel as tk
 
     dev = mesh.device
-    denom = cfg.height * cfg.width * 3
-    kind = gk.route(cfg)
-    if kind == "chain":
+    if gk.on_chain(cfg):
         local_color, acc = gk.grad_acc_slab(scene, cam, cfg, frame, device=dev, **ext)
         # local_color and acc are means over the rank's samples: rescaled to
         # the global spp average before the "samples" sum.
         scale = ext["spp"] / cfg.spp
         color = all_reduce(local_color * scale, mesh, ("samples",))
-        return dict(route=kind, diff=color - target, color=local_color, acc=acc, scale=scale)
-    sums = tk.render_color_sums(scene, cam, cfg, frame, device=dev, **ext)
-    color = all_reduce(sums, mesh, ("samples",)) / cfg.spp  # [local_h, W, 3]
-    diff = color - target
-    if kind == "nee":
-        ct = (2.0 * diff / denom / cfg.spp).permute(2, 0, 1)
-        block = nk.nee_grads_block_slab(scene, cam, cfg, frame, ct, device=dev, **ext)
-    else:
-        ct = ak.pack_cotangents(cfg, ct_color=2.0 * diff / denom, local_h=ext["local_h"],
-                                device=dev)
-        block = ak.ad_grads_block_slab(scene, cam, cfg, frame, ct, device=dev, **ext)
-    return dict(route=kind, diff=diff, ct=ct, block=block)
+        return dict(route=gk.route(cfg), diff=color - target, color=local_color, acc=acc,
+                    scale=scale)
+    sb, cb, dev = tk.device_blocks(scene, cam, cfg, dev)
+    seed = tk.make_seed_block(cfg, frame, ext["sample_offset"], ext["row_offset"])
+    _, diff, sums = sweep.color_loss_replay(
+        sb, cb, seed, cfg, target, gk._replay_sums, local_h=ext["local_h"], spp=ext["spp"],
+        device=dev, reduce=lambda x: all_reduce(x, mesh, ("samples",)))
+    return dict(route=gk.route(cfg), diff=diff, block=sweep.block_from_sums(sums))
 
 
 def kernel_slab_launch(scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame=0) -> dict:
@@ -235,18 +229,18 @@ def _kernel_loss_grads(scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame,
     """The kernels' route: this rank's slab launch (``_kernel_slab``), the
     loss summed over "tiles", the gradients over the grid."""
     from pathtrace_tpu_torch.ops import grad_kernel as gk
-    from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+    from pathtrace_tpu_torch.ops import sweep
 
     out = _kernel_slab(scene, cam, cfg, mesh, target, frame, ext)
     denom = cfg.height * cfg.width * 3
     diff = out["diff"]
     loss = all_reduce(torch.sum(diff * diff), mesh, ("tiles",)) / denom
-    if out["route"] == "chain":
-        d_e, d_c = gk.contract(2.0 * diff / denom * out["scale"], out["acc"])
-        g = all_reduce(torch.cat([d_e, d_c], dim=1), mesh, AXES)
-        return loss, _zero_geometry(scene, cam, g[:, 0:3], g[:, 3:6], mesh.device)
-    block = all_reduce(out["block"], mesh, AXES)
-    return loss, nk.grads_from_block(scene, cam, cfg, block)
+    if "block" in out:
+        block = all_reduce(out["block"], mesh, AXES)
+        return loss, sweep.grads_from_block(scene, cam, cfg, block)
+    d_e, d_c = gk.contract(2.0 * diff / denom * out["scale"], out["acc"])
+    g = all_reduce(torch.cat([d_e, d_c], dim=1), mesh, AXES)
+    return loss, _zero_geometry(scene, cam, g[:, 0:3], g[:, 3:6], mesh.device)
 
 
 def _autograd_loss_grads(scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame, ext):

@@ -11,13 +11,14 @@ throughput metric of the repo is
 
 (path segments per second).
 
-Spans and launch counters: the entry points mark their phases with
+Spans and launch counts: the entry points mark their phases with
 ``span(name)`` (a frame's render, denoise and display; an inverse step's
 gradients and Adam; a training step's upload, forward, backward and SGD),
-and the wrappers of the launches of an inverse step (K1, K3's replay, K4's
-replay, K2's dump mode) time their host side with ``launch_clock`` and
-``add_launch_ns`` and name their ``launches`` count with
-``launch_counter``. Nothing is recorded unless a caller brackets a block
+and each kernel wrapper's ``launch`` counts itself into the one table of
+launch counts with ``count_launch``, which also adds the launch's host
+time since ``launch_clock`` while recording. ``reset_launch_counts`` sets
+every count to 0 and ``launch_counts`` reads them all. Nothing of spans or
+host time is recorded unless a caller brackets a block
 with ``start_recording()`` and ``stop_recording()``, which returns the
 spans closed in between and the launches made, in memory. Spans are stamped
 with ``time.time_ns()``, the clock ``torch.profiler`` stamps its host events
@@ -103,16 +104,17 @@ def mrays_per_sec(width: int, height: int, spp: int, max_bounces: int, seconds: 
     return width * height * spp * max_bounces / seconds / 1e6
 
 
-# -- spans and launch counters ------------------------------------------------
+# -- spans and launch counts --------------------------------------------------
 
-# the kernel wrappers' launches a recording counts and times: K1
-# (trace_kernel), K3's replay (nee_grad_kernel), K4's replay (ad_grad_kernel)
-# and K2's dump mode (grad_kernel), by ``launch_counter``; "k3.replay_taped"
-# and "k4.replay_taped" count the replays among K3's and K4's that read a
-# path tape (no time of their own: their launches are timed under
-# "k3.replay" and "k4.replay")
+# The kernel wrappers' launches, by "<kernel>.<mode>": K1 (trace_kernel), K2
+# in its fused, dump and replay modes (grad_kernel), K3 fused and replay
+# (nee_grad_kernel) and K4's replay (ad_grad_kernel); "k3.replay_taped" and
+# "k4.replay_taped" count the replays among K3's and K4's that read a path
+# tape (their host time goes to "k3.replay" and "k4.replay").
+_LAUNCHES = dict.fromkeys(("k1", "k2.fused", "k2.dump", "k2.replay", "k3.fused", "k3.replay",
+                           "k3.replay_taped", "k4.replay", "k4.replay_taped"), 0)
+# the counts and host ns a recording reports: the launches of an inverse step
 LAUNCH_KEYS = ("k1", "k3.replay", "k3.replay_taped", "k4.replay", "k4.replay_taped", "k2.dump")
-_COUNTERS = {}  # key -> the function that reads its wrapper's ``launches``
 
 
 @dataclass
@@ -203,21 +205,26 @@ def launch_clock() -> int:
     return time.time_ns() if _REC.on else 0
 
 
-def add_launch_ns(key: str, start_ns: int) -> None:
-    """Add the host ns since ``start_ns`` (``launch_clock``) to ``key``."""
+def count_launch(key: str, start_ns: int = 0, taped: bool = False) -> None:
+    """Count one launch of ``key`` (a key of the table: any other raises
+    KeyError) and, with ``taped``, one of ``key + "_taped"``; add the host ns
+    since ``start_ns`` (``launch_clock``; 0 adds none) to ``key``."""
+    if taped:
+        _LAUNCHES[key + "_taped"] += 1
+    _LAUNCHES[key] += 1
     if start_ns:
         _REC.launch_ns[key] = _REC.launch_ns.get(key, 0) + time.time_ns() - start_ns
 
 
-def launch_counter(key: str, read: Callable[[], int]) -> None:
-    """Name ``read``, which returns a wrapper's ``launches`` count, as the
-    count of ``key`` (one of ``LAUNCH_KEYS``); the wrapper's module calls it
-    once, when it is imported."""
-    _COUNTERS[key] = read
+def reset_launch_counts() -> None:
+    """Set every launch count of the table to 0."""
+    for key in _LAUNCHES:
+        _LAUNCHES[key] = 0
 
 
-def _launch_counts() -> dict:
-    return {k: _COUNTERS[k]() if k in _COUNTERS else 0 for k in LAUNCH_KEYS}
+def launch_counts() -> dict:
+    """Every launch count of the table, by key (a copy)."""
+    return dict(_LAUNCHES)
 
 
 def start_recording() -> None:
@@ -227,7 +234,7 @@ def start_recording() -> None:
     if rec.open:
         raise RuntimeError("start_recording inside a span")
     rec.spans, rec.last_root, rec.launch_ns = [], None, {}
-    rec.counts = _launch_counts()
+    rec.counts = launch_counts()
     rec.on = True
     rec.start_ns = time.time_ns()
 
@@ -243,7 +250,7 @@ def stop_recording() -> Recording:
         raise RuntimeError("stop_recording inside a span")
     stop = time.time_ns()
     rec.on = False
-    counts = _launch_counts()
+    counts = launch_counts()
     out = Recording(spans=rec.spans, launches={k: counts[k] - rec.counts[k] for k in LAUNCH_KEYS},
                     launch_ns={k: rec.launch_ns.get(k, 0) for k in LAUNCH_KEYS},
                     start_ns=rec.start_ns, stop_ns=stop)

@@ -62,7 +62,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box  # noqa: E402
 from pathtrace_tpu_torch.ops import grad_kernel as gk  # noqa: E402
-from pathtrace_tpu_torch.ops import nee_grad_kernel as nk  # noqa: E402
+from pathtrace_tpu_torch.ops import sweep  # noqa: E402
 from pathtrace_tpu_torch.ops import trace_kernel as tk  # noqa: E402
 from pathtrace_tpu_torch.utils.roofline import OPS_PER_SEGMENT  # noqa: E402
 
@@ -95,7 +95,7 @@ class OpCounter(TorchDispatchMode):
         return out
 
     def sizes(self):
-        return (self.numel, self.numel // nk.LANES)
+        return (self.numel, self.numel // sweep.LANES)
 
 
 def count(fn, numel: int) -> float:
@@ -150,14 +150,14 @@ def count_sweep(brdf: str, nee: bool, aov: bool, size: int = 16, bounces: int = 
         forward = count(lambda: lat.sample(0, cfg, []), numel)
         untaped = count(lambda: lat.sample(0, cfg), numel)
         total = per_sample(
-            lambda spp: nk._sweep_plain(lat, cfg, spp, ct[:3], ct[3:] if aov else None), numel)
+            lambda spp: sweep._sweep_plain(lat, cfg, spp, ct[:3], ct[3:] if aov else None), numel)
         rows.append((forward, untaped, total - forward))
     (f9, u9, s9), (f10, u10, s10) = rows
     n = sb.shape[0]
     forward = kernel_forward((f9, f10), (u9, u10), n, nee or aov, bounces)
-    sweep = without_other_spheres(s9, s10, n)
+    swept = without_other_spheres(s9, s10, n)
     out = dict(forward=forward, forward_plain=f9, forward_untaped=u9, sweep_plain=s9,
-               sweep=sweep, total=forward + sweep, sweep_per_sphere=s10 - s9)
+               sweep=swept, total=forward + swept, sweep_per_sphere=s10 - s9)
     return {k: v / bounces for k, v in out.items()}
 
 
@@ -181,9 +181,9 @@ def count_chain(replay: bool, size: int = 16, bounces: int = 5) -> dict:
     (f9, u9, s9), (f10, u10, s10) = rows
     n = sb.shape[0]
     forward = kernel_forward((f9, f10), (u9, u10), n, False, bounces)
-    sweep = without_other_spheres(s9, s10, n)
+    swept = without_other_spheres(s9, s10, n)
     out = dict(forward=forward, forward_plain=f9, forward_untaped=u9, sweep_plain=s9,
-               sweep=sweep, total=forward + sweep)
+               sweep=swept, total=forward + swept)
     return {k: v / bounces for k, v in out.items()}
 
 

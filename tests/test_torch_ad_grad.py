@@ -51,6 +51,7 @@ from pathtrace_tpu_torch.convert import camera_from_numpy, grads_to_numpy, scene
 from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.scene import Scene
 
@@ -96,8 +97,8 @@ def assert_blocks_close(got: dict, want: dict, geometry_atol=2e-3, names=None):
     close("pitch", 0.0, 5e-2, cam_scale)
 
 
-def assert_agree(got, ref, atol=nk.SUMS_ATOL):
-    checks, _ = ak.agreement(got, ref, "sums", atol)
+def assert_agree(got, ref, atol=sweep.SUMS_ATOL):
+    checks, _ = sweep.agreement(got, ref, "sums", atol)
     failed = [(name, share) for name, share, _, ok in checks if not ok]
     assert not failed, failed
 
@@ -235,14 +236,14 @@ def test_slabs_and_sample_ranges_add_up(state, name):
     ct = np.random.default_rng(2).normal(size=(10, HEIGHT, WIDTH)).astype(np.float32) / SPP
     ct[9] *= 1e-4
     whole = ak.ad_grads_block_slab(scene, cam, cfg, 4, torch.from_numpy(ct), device="cpu")
-    assert whole.shape == (14, nk.BLOCK_COLS)
+    assert whole.shape == (14, sweep.BLOCK_COLS)
     parts = 0
     for row in (0, 8):
         for offset, spp in ((0, 1), (1, 1)):
             parts = parts + ak.ad_grads_block_slab(
                 scene, cam, cfg, 4, torch.from_numpy(ct[:, row:row + 8].copy()), row_offset=row,
                 local_h=8, spp=spp, sample_offset=offset, device="cpu")
-    assert_agree(flat(parts), flat(whole), ak.CROSS_ATOL)
+    assert_agree(flat(parts), flat(whole), sweep.CROSS_ATOL)
 
 
 def test_replay_is_linear_in_the_cotangent(state):
@@ -260,7 +261,7 @@ def test_replay_is_linear_in_the_cotangent(state):
     colour[3:] = 0.0
     aov[:3] = 0.0
     assert_agree(ak.replay(*args, colour, **kw) + ak.replay(*args, aov, **kw), once,
-                 ak.CROSS_ATOL)
+                 sweep.CROSS_ATOL)
     assert once.abs().max() > 0 and once[-1] == 0
     assert not ak.replay(*args, torch.zeros_like(ct), **kw).any()
 
@@ -362,7 +363,7 @@ def test_wrapper_rejects_bad_input(state, bad):
     if bad == "spheres":  # 12 spheres: N + 5 rows do not fit the JAX package's 16-row block
         sb = torch.cat([sb, sb[:3]])
     elif bad == "bounces":
-        cfg = dataclasses.replace(cfg, max_bounces=ak.MAX_BOUNCES + 1)
+        cfg = dataclasses.replace(cfg, max_bounces=sweep.MAX_BOUNCES + 1)
     elif bad == "shape":
         ct = torch.zeros(8, 8, 10)
     elif bad == "dtype":
@@ -382,8 +383,8 @@ def test_largest_scene_and_block_fit_shared_memory(state):
     _, _, scene, cam, _ = state
     cfg = port_cfg("glossy", width=8, height=8, spp=1, block=16)
     sb = torch.cat([scene.packed(), scene.packed()[:2]])
-    assert nk.shared_bytes(11, 16) == 4 * (nk.n_slots(11) * 128 + 256 + 110) == 95672
-    assert nk.shared_bytes(11, 16) <= nk.MAX_SHARED_BYTES
+    assert sweep.shared_bytes(11, 16) == 4 * (sweep.n_slots(11) * 128 + 256 + 110) == 95672
+    assert sweep.shared_bytes(11, 16) <= sweep.MAX_SHARED_BYTES
     out = ak.replay(sb, tk.camera_block(cam, cfg), tk.make_seed_block(cfg), cfg,
                     torch.zeros(10, 8, 8), local_h=8, spp=1)
     assert out.shape == (126,) and not out.any()

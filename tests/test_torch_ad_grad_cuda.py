@@ -6,7 +6,7 @@ without JAX; from the root of a checkout:
 
     python -m pytest tests/test_torch_ad_grad_cuda.py -m cuda --noconftest -o addopts="" -q
 
-Tolerances are those of ``nee_grad_kernel.agreement``, which K4 shares with
+Tolerances are those of ``sweep.agreement``, which K4 shares with
 the NEE kernel, as in chip_smoke.py: every gradient sum within rtol 1e-4
 plus 1e-6 of the largest of its kind (kernel and plain version add each
 lane group's terms in the same order and sum over groups in double); slabs and
@@ -23,7 +23,9 @@ from pathtrace_tpu_torch import grad as grad_lib
 from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
+from pathtrace_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -42,8 +44,8 @@ def _cfg(brdf, nee, **kw):
     return RenderConfig(**{**dict(width=W, height=H, spp=SPP, brdf=brdf, nee=nee), **kw})
 
 
-def _assert_agree(got, ref, atol=nk.SUMS_ATOL):
-    checks, _ = ak.agreement(got, ref, "sums", atol)
+def _assert_agree(got, ref, atol=sweep.SUMS_ATOL):
+    checks, _ = sweep.agreement(got, ref, "sums", atol)
     failed = [(name, share, ceiling) for name, share, ceiling, ok in checks if not ok]
     assert not failed, f"share out of tolerance above its ceiling: {failed}"
 
@@ -71,14 +73,14 @@ def test_kernel_matches_plain(dev, brdf, nee, channels):
     ct = _cotangent(dev, channels)
     seed = tk.make_seed_block(cfg, 2)
     kw = dict(local_h=H, spp=SPP, device=dev)
-    before = dict(ak.CUDA_KERNEL.launches)
+    before = timing.launch_counts()
     got = ak.replay(sb, cb, seed, cfg, ct, **kw)
-    assert ak.CUDA_KERNEL.launches == {**before, "replay": before["replay"] + 1}
+    assert timing.launch_counts() == {**before, "k4.replay": before["k4.replay"] + 1}
     ref = ak.replay_plain(sb, cb, seed, cfg, ct, **kw)
     _assert_agree(got, ref)
     assert got.abs().max() > 0 and got[-1] == 0
     if not nee and channels == (0, 1, 2):  # the colour does not depend on geometry
-        block = ak.block_from_sums(got)
+        block = sweep.block_from_sums(got)
         assert not block[:9, :4].any() and not block[9:, :3].any()
 
 
@@ -101,7 +103,7 @@ def test_offsets_add_up_and_match_plain(dev, brdf, nee):
                                   local_h=32, spp=spp, device=dev)
             _assert_agree(_flat(part), ref)
             parts = parts + part
-    _assert_agree(_flat(parts), _flat(whole), ak.CROSS_ATOL)
+    _assert_agree(_flat(parts), _flat(whole), sweep.CROSS_ATOL)
 
 
 def _flat(block):
@@ -156,8 +158,9 @@ def test_entry_points_launch_the_kernels(dev, nee):
     target = torch.rand(32, 64, 3, generator=torch.Generator().manual_seed(5)).to(dev)
 
     def counts():
-        return (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
-                dict(nk.CUDA_KERNEL.launches), dict(gk.CUDA_KERNEL.launches))
+        n = timing.launch_counts()
+        return (n["k1"], n["k4.replay"],
+                {k: v for k, v in n.items() if k.startswith(("k2.", "k3."))})
 
     before = counts()
     loss, (ds, dc) = grad_lib.render_loss_grads(scene, cam, cfg, 0, target, device=dev)
@@ -169,7 +172,7 @@ def test_entry_points_launch_the_kernels(dev, nee):
     denom = diff.numel()
     ct = ak.pack_cotangents(cfg, 2.0 * diff / denom, device=dev)
     sb, cb = _blocks(cfg)
-    ref = ak.block_from_sums(ak.replay_plain(sb, cb, tk.make_seed_block(cfg, 0), cfg, ct,
+    ref = sweep.block_from_sums(ak.replay_plain(sb, cb, tk.make_seed_block(cfg, 0), cfg, ct,
                                              local_h=32, spp=2, device=dev))
     assert torch.equal(loss, torch.sum(diff * diff) / denom)
     for name, cols in (("radius", 0), ("position", slice(1, 4)), ("emission", slice(4, 7)),
@@ -180,11 +183,11 @@ def test_entry_points_launch_the_kernels(dev, nee):
     assert dc.position.device == dev
 
     before = counts()
-    taped = ak.CUDA_KERNEL.launches["replay_taped"]
+    taped = timing.launch_counts()["k4.replay_taped"]
     loss, d = gk.cross_grads(scene, cam, cfg, 0, target, device=dev)
     after = counts()
     assert after[0] == before[0] + 2 and after[1] == before[1] + 2
-    assert ak.CUDA_KERNEL.launches["replay_taped"] == taped + (2 if nee else 0)
+    assert timing.launch_counts()["k4.replay_taped"] == taped + (2 if nee else 0)
     assert after[2:] == before[2:]
     assert set(d) == {"emission", "color", "position", "radius"}
     assert all(torch.isfinite(g).all() for g in d.values()) and torch.isfinite(loss)
@@ -198,7 +201,7 @@ def test_wrapper_rejects_bad_input(dev, bad):
     if bad == "spheres":
         sb = torch.cat([sb, sb[:3]])
     elif bad == "bounces":
-        cfg = dataclasses.replace(cfg, max_bounces=ak.MAX_BOUNCES + 1)
+        cfg = dataclasses.replace(cfg, max_bounces=sweep.MAX_BOUNCES + 1)
     elif bad == "shape":
         ct = torch.zeros(8, 8, ak.NUM_CT, device=dev)
     elif bad == "device":
@@ -226,7 +229,7 @@ def test_shading_only_instance_equals_the_full_one_and_plain(dev, brdf):
     assert torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw))
     assert torch.equal(got, ak.replay(sb, cb, seed, cfg, only, **kw))
     _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, only, **kw))
-    block = ak.block_from_sums(got)
+    block = sweep.block_from_sums(got)
     assert got.abs().max() > 0
     assert not block[:9, :4].any() and not block[9:, :3].any()
 
@@ -244,7 +247,7 @@ def test_colour_only_cotangent_under_nee(dev, brdf):
     got = ak.replay(sb, cb, seed, cfg, only, **kw)
     assert torch.equal(got, ak.replay(sb, cb, seed, cfg, full, **kw))
     _assert_agree(got, ak.replay_plain(sb, cb, seed, cfg, only, **kw))
-    assert ak.block_from_sums(got)[:9, :4].abs().max() > 0
+    assert sweep.block_from_sums(got)[:9, :4].abs().max() > 0
     if brdf == "diffuse":
         k3 = nk.replay(sb, cb, seed, cfg, only.permute(1, 2, 0).contiguous(), **kw)
         assert torch.equal(got, k3)
@@ -276,14 +279,14 @@ def _assert_taped_is_untaped(sb, cb, seed, cfg, ct, *, local_h, spp, device):
     same bits again."""
     kw = dict(local_h=local_h, spp=spp, device=device)
     retraced = ak.replay(sb, cb, seed, cfg, ct, **kw)
-    tape = nk.PathTape.empty(cfg, local_h, spp, device)
-    before = (tk.CUDA_KERNEL.launches, dict(ak.CUDA_KERNEL.launches))
+    tape = sweep.PathTape.empty(cfg, local_h, spp, device)
+    before = timing.launch_counts()
     color = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
     taped = ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
     torch.cuda.synchronize()
-    assert tape.written and tk.CUDA_KERNEL.launches == before[0] + 1
-    assert ak.CUDA_KERNEL.launches == {"replay": before[1]["replay"] + 1,
-                                       "replay_taped": before[1]["replay_taped"] + 1}
+    assert tape.written and timing.launch_counts() == {
+        **before, "k1": before["k1"] + 1, "k4.replay": before["k4.replay"] + 1,
+        "k4.replay_taped": before["k4.replay_taped"] + 1}
     assert torch.equal(color, tk.trace(sb, cb, seed, cfg, mode="color", **kw))
     assert torch.equal(taped, retraced)
     assert torch.equal(ak.replay(sb, cb, seed, cfg, ct, tape=tape, **kw), taped)
@@ -309,7 +312,7 @@ def test_taped_glossy_replay_at_the_cell_size(dev):
     of 256 rows; the second (1.43 GB of tape) gives the untaped bits in K1
     and in K4."""
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
-    assert nk.slab_rows(cfg) == 256 and nk.tape_bytes(cfg, 256, 32) == 1_426_063_360
+    assert sweep.slab_rows(cfg) == 256 and sweep.tape_bytes(cfg, 256, 32) == 1_426_063_360
     sb, cb = _blocks(cfg)
     g = torch.Generator().manual_seed(9)
     ct = (torch.randn(ak.NUM_CT_COLOR, 256, 512, generator=g) / (512 * 512 * 3 * 32)).to(dev)
@@ -324,8 +327,6 @@ def test_glossy_step_at_the_cell_size_tapes_two_slabs(dev, monkeypatch):
     With ``TAPE_BUDGET`` at 0 it retraces in one slab: the same loss to the
     bit, each gradient within 1e-6 of its field's largest (the slabs' sums
     add in another order)."""
-    from pathtrace_tpu_torch.utils import timing
-
     cfg = RenderConfig(width=512, height=512, spp=32, nee=True, brdf="glossy")
     scene, cam = cornell_box(), Camera.create()
     target = torch.full((512, 512, 3), 0.25, device=dev)
@@ -338,7 +339,7 @@ def test_glossy_step_at_the_cell_size_tapes_two_slabs(dev, monkeypatch):
 
     (loss, d), n = run()
     assert (n["k1"], n["k4.replay"], n["k4.replay_taped"]) == (4, 4, 4)
-    monkeypatch.setattr(nk, "TAPE_BUDGET", 0)
+    monkeypatch.setattr(sweep, "TAPE_BUDGET", 0)
     (re_loss, re_d), n = run()
     assert (n["k1"], n["k4.replay"], n["k4.replay_taped"]) == (2, 2, 0)
     assert torch.equal(loss, re_loss)
@@ -353,7 +354,7 @@ def test_taped_replay_resident_blocks(dev):
     block at N = 9 with the sums), the glossy jitter waits in registers
     (bounded at 128), and no tape lies on the stack."""
     taped = ak.CUDA_KERNEL.occupancy(True, True, False, 8, 9, taped=True)
-    assert taped["shared_bytes"] == nk.shared_bytes(9, 8, taped=True) == 27_752
+    assert taped["shared_bytes"] == sweep.shared_bytes(9, 8, taped=True) == 27_752
     assert taped["local_bytes"] == 0 and taped["registers"] <= 128
     assert taped["blocks_per_sm"] == 8
 
@@ -366,6 +367,6 @@ def test_resident_blocks_an_sm(dev):
     assert len(rows) == 8
     for name, occ in rows.items():
         assert occ["blocks_per_sm"] > 5, (name, occ)
-        assert occ["shared_bytes"] == nk.shared_bytes(9, 8, "shading only" not in name)
+        assert occ["shared_bytes"] == sweep.shared_bytes(9, 8, "shading only" not in name)
         assert occ["registers"] <= 128
     assert ak.CUDA_KERNEL.instances(16, 11)["K4 nee_glossy colour+aov"]["blocks_per_sm"] >= 1

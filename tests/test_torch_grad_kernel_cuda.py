@@ -24,6 +24,7 @@ from pathtrace_tpu_torch import grad as grad_lib
 from pathtrace_tpu_torch import inverse
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import trace_kernel as tk
+from pathtrace_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -54,7 +55,7 @@ def test_mode_matches_plain(dev, mode):
     sb, cb, target = _inputs(dev)
     seed = tk.make_seed_block(CFG, 2)
     kw = dict(local_h=64, spp=4, device=dev)
-    before = gk.CUDA_KERNEL.launches[mode]
+    before = timing.launch_counts()[f"k2.{mode}"]
     if mode == "fused":
         sums, color = gk.fused(sb, cb, seed, CFG, target, **kw)
         ref_sums, ref_color = gk.fused_plain(sb, cb, seed, CFG, target, **kw)
@@ -74,7 +75,7 @@ def test_mode_matches_plain(dev, mode):
         _assert_agree(gk.replay(sb, cb, seed, CFG, ct, **kw),
                       gk.replay_plain(sb, cb, seed, CFG, ct, **kw), "sums")
     torch.cuda.synchronize()
-    assert gk.CUDA_KERNEL.launches[mode] == before + 1
+    assert timing.launch_counts()[f"k2.{mode}"] == before + 1
 
 
 def test_fused_is_deterministic_and_modes_agree(dev):
@@ -137,9 +138,9 @@ def test_inverse_step_runs_the_cross_grads(dev):
     target = torch.rand(32, 64, 3, generator=torch.Generator().manual_seed(3)).to(dev)
     state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target,
                                                   ("emission", "color"), 1e-3, device=dev)
-    before = gk.CUDA_KERNEL.launches["dump"]
+    before = timing.launch_counts()["k2.dump"]
     _, loss = step_fn(state)
-    assert gk.CUDA_KERNEL.launches["dump"] == before + 2
+    assert timing.launch_counts()["k2.dump"] == before + 2
     leaves = {k: getattr(scene, k).to(dev).requires_grad_(True) for k in ("emission", "color")}
     s = inverse.apply_params(scene.to(dev), leaves)
     a = grad_lib.render_color(s, cam.to(dev), cfg, 0)
@@ -158,9 +159,9 @@ def test_render_color_backward_is_the_contraction(dev):
     color = scene.color.clone().requires_grad_(True)
     position = scene.position.clone().requires_grad_(True)
     s = type(scene)(scene.radius, position, emission, color)
-    before = gk.CUDA_KERNEL.launches["dump"]
+    before = timing.launch_counts()["k2.dump"]
     img = gk.render_color(s, cam, cfg, 3)
-    assert gk.CUDA_KERNEL.launches["dump"] == before + 1
+    assert timing.launch_counts()["k2.dump"] == before + 1
     ct = torch.rand(img.shape, generator=torch.Generator().manual_seed(1)).to(dev)
     (img * ct).sum().backward()
     _, acc = gk.render_grad_acc(scene, cam, cfg, 3)
@@ -177,15 +178,15 @@ def test_loss_grads_entry_points_agree(dev):
     scene, cam = cornell_box(), Camera.create()
     cfg = RenderConfig(width=32, height=32, spp=4, seed=5)
     target = torch.rand(32, 32, 3, generator=torch.Generator().manual_seed(2)).to(dev)
-    before = dict(gk.CUDA_KERNEL.launches)
+    before = timing.launch_counts()
     loss, (ds, dc) = grad_lib.render_loss_grads(scene, cam, cfg, 0, target, device=dev)
-    assert gk.CUDA_KERNEL.launches["fused"] == before["fused"] + 1
+    assert timing.launch_counts()["k2.fused"] == before["k2.fused"] + 1
     emission = scene.emission.to(dev).requires_grad_(True)
     color = scene.color.to(dev).requires_grad_(True)
     s = type(scene)(scene.radius.to(dev), scene.position.to(dev), emission, color)
     loss_d = grad_lib.l2_image_loss(grad_lib.render_color(s, cam.to(dev), cfg, 0), target)
     loss_d.backward()
-    assert gk.CUDA_KERNEL.launches["dump"] == before["dump"] + 1
+    assert timing.launch_counts()["k2.dump"] == before["k2.dump"] + 1
     _assert_agree(loss[None], loss_d.detach()[None], "sums")
     _assert_agree(torch.cat([ds.emission, ds.color], 1).reshape(-1),
                   torch.cat([emission.grad, color.grad], 1).reshape(-1), "sums")
@@ -198,15 +199,11 @@ def test_unported_configs_raise_on_cuda(dev, extra):
     """Glossy raised here while K4 was not ported; now it launches the
     forward kernel once and K4 once, and the gradients are finite and reach
     the albedo."""
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-
     cfg = RenderConfig(width=16, height=16, spp=1, **extra)
-    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
-              dict(gk.CUDA_KERNEL.launches))
+    before = timing.launch_counts()
     loss, (ds, dc) = grad_lib.render_loss_grads(cornell_box(), Camera.create(), cfg, device=dev)
-    assert tk.CUDA_KERNEL.launches == before[0] + 1
-    assert ak.CUDA_KERNEL.launches["replay"] == before[1] + 1
-    assert gk.CUDA_KERNEL.launches == before[2]
+    assert timing.launch_counts() == {**before, "k1": before["k1"] + 1,
+                                      "k4.replay": before["k4.replay"] + 1}
     assert torch.isfinite(loss) and loss > 0
     assert torch.isfinite(ds.color).all() and (ds.color != 0).sum() >= 3
     assert ds.color.device == dev and dc.position.device == dev

@@ -21,6 +21,7 @@ import torch
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.render import render_channels
+from pathtrace_tpu_torch.utils import timing
 
 CONFIGS = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"}}
 
@@ -50,10 +51,10 @@ def test_kernel_matches_plain(dev, config, mode):
     cfg = RenderConfig(width=128, height=96, spp=4, **CONFIGS[config])
     sb, cb = _host_blocks(cfg)
     seed = tk.make_seed_block(cfg, 0, 5, 16)
-    before = tk.CUDA_KERNEL.launches
+    before = timing.launch_counts()["k1"]
     got = tk.trace(sb, cb, seed, cfg, local_h=64, spp=4, mode=mode, device=dev)
     torch.cuda.synchronize()
-    assert tk.CUDA_KERNEL.launches == before + 1
+    assert timing.launch_counts()["k1"] == before + 1
     assert got.device == dev and got.shape == (64, 128, tk.MODES[mode])
     ref = tk.trace_plain(sb, cb, seed, cfg, local_h=64, spp=4, mode=mode, device=dev)
     _assert_close(got, ref, mode, 4)
@@ -85,16 +86,16 @@ def test_ragged_edges_and_block_sizes(dev, block):
 
 def test_render_dispatches_to_the_kernel_on_cuda(dev):
     cfg = RenderConfig(width=64, height=32, spp=2)
-    before = tk.CUDA_KERNEL.launches
+    before = timing.launch_counts()["k1"]
     buf = render_channels(cornell_box(), Camera.create(), cfg, device=dev)
-    assert tk.CUDA_KERNEL.launches == before + 1
+    assert timing.launch_counts()["k1"] == before + 1
     assert buf.device == dev and buf.shape == (32, 64, 14)
     sb, cb = _host_blocks(cfg)
     _assert_close(buf, tk.trace_plain(sb, cb, tk.make_seed_block(cfg), cfg, local_h=32, spp=2,
                                       mode="channels", device=dev), "channels", 2)
     torch_buf = render_channels(cornell_box(), Camera.create(),
                                 dataclasses.replace(cfg, backend="torch"), device=dev)
-    assert tk.CUDA_KERNEL.launches == before + 1
+    assert timing.launch_counts()["k1"] == before + 1
     assert (buf[..., 6:9] == torch_buf[..., 6:9]).all(dim=-1).float().mean() >= 0.999
 
 
@@ -152,9 +153,8 @@ def _one_step(made):
 
 
 def _kernel_launches():
-    from pathtrace_tpu_torch.ops import grad_kernel as gk
-
-    return tk.CUDA_KERNEL.launches + sum(gk.CUDA_KERNEL.launches.values())
+    n = timing.launch_counts()
+    return n["k1"] + sum(v for k, v in n.items() if k.startswith("k2."))
 
 
 @pytest.mark.parametrize("name", ["render_aovs", "render_channels", "render_color",

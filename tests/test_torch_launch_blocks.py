@@ -39,7 +39,9 @@ import torch
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
+from pathtrace_tpu_torch.utils import timing
 
 SEEDS = (0, 42, 2**31 + 7, 2**32 + 5)
 OFFSETS = ((0, 0, 0, 0), (3, 5, 16, 0), (987654, 1024, 256, 64))
@@ -164,8 +166,8 @@ def test_grads_from_block_equals_the_host_autograd_pullback(pose, block_seed):
     scene, cam = cornell_box(), Camera.create(*pose)
     n = scene.num_objects
     block = torch.from_numpy(np.random.default_rng(block_seed).normal(
-        size=(n + 5, nk.BLOCK_COLS)).astype(np.float32))
-    d_scene, d_cam = nk.grads_from_block(scene, cam, cfg, block)
+        size=(n + 5, sweep.BLOCK_COLS)).astype(np.float32))
+    d_scene, d_cam = sweep.grads_from_block(scene, cam, cfg, block)
     want = _host_autograd_pullback(cam, cfg, block, n)
     got = (d_cam.position, d_cam.yaw, d_cam.pitch)
     scale = max(float(w.abs().max()) for w in want)
@@ -181,7 +183,7 @@ def test_basis_jacobian_is_the_basis_derivative():
     difference in float64 (the angles in degrees, step 1e-3)."""
     cfg = RenderConfig(width=64, height=48)
     cam = Camera.create((40.0, 45.0, 250.0), -80.0, 7.5)
-    jac = nk.basis_jacobian(cam, cfg)
+    jac = sweep.basis_jacobian(cam, cfg)
     assert tuple(jac.shape) == (2, 12) and jac.dtype == torch.float32
     h = 1e-3
     for row, name in enumerate(("yaw", "pitch")):
@@ -241,20 +243,19 @@ def test_loss_and_grads_zeros_are_made_on_the_loss_device():
 
 
 def test_smoke_resets_and_reports_every_launch_count(monkeypatch):
-    """chip_smoke.py phase 25 sets every wrapper's launch counts to 0 before
-    the main paths run, the taped replays' among them, and reports each by
-    its name in the kernels line."""
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-
+    """chip_smoke.py phase 25 sets the launch counts to 0 before the main
+    paths run through the one reset, which zeroes every key of the table:
+    the taped replays' and the modes outside ``LAUNCH_KEYS`` among them; it
+    reads them back by key, and the kernels of the grid's main path (phase
+    20) are keys of that table."""
     cs = _chip_smoke()
-    for k in (tk, gk, nk, ak):
-        launches = k.CUDA_KERNEL.launches
-        monkeypatch.setattr(k.CUDA_KERNEL, "launches",
-                            dict.fromkeys(launches, 3) if isinstance(launches, dict) else 3)
-    cs.reset_launch_counts(tk, gk, nk, ak)
-    assert nk.CUDA_KERNEL.launches == {"fused": 0, "replay": 0, "replay_taped": 0}
-    counts = cs.kernel_launch_counts(tk, gk, nk, ak)
-    assert counts["nee_grad_kernel[replay_taped]"] == 0 and set(counts.values()) == {0}
+    monkeypatch.setattr(timing, "_LAUNCHES", dict.fromkeys(timing._LAUNCHES, 3))
+    timing.reset_launch_counts()
+    counts = timing.launch_counts()
+    assert set(counts.values()) == {0}
+    assert {"k3.replay_taped", "k4.replay_taped"} <= set(counts)
+    assert set(counts) - set(timing.LAUNCH_KEYS) == {"k2.fused", "k2.replay", "k3.fused"}
+    assert set(cs.GRID_KERNELS) <= set(counts)
 
 
 # -- on the card --------------------------------------------------------------------

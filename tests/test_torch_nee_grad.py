@@ -44,6 +44,7 @@ from pathtrace_tpu_torch.convert import camera_from_numpy, grads_to_numpy, scene
 from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.scene import Scene
 
@@ -53,7 +54,7 @@ CFG = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=BOUNCES, see
 JCFG = JaxConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_bounces=BOUNCES, seed=SEED,
                  backend="jnp", nee=True)
 DENOM = WIDTH * HEIGHT * 3
-CROSS_ATOL = nk.CROSS_ATOL
+CROSS_ATOL = sweep.CROSS_ATOL
 SCENE_FIELDS = ("radius", "position", "emission", "color")
 
 
@@ -82,8 +83,17 @@ def assert_seven_blocks_close(got: dict, want: dict):
     close("pitch", 0.0, 5e-2, cam_scale)
 
 
+def replay_block(scene, cam, frame, ct):
+    """The frame's gradient block against ``ct``, the cotangent of the mean
+    colour [H, W, 3], through ``grad_kernel``'s one replay entry."""
+    sums = gk._replay_sums(scene.packed(), tk.camera_block(cam, CFG),
+                           tk.make_seed_block(CFG, frame), CFG, ct, local_h=HEIGHT, spp=SPP,
+                           device=torch.device("cpu"))
+    return sweep.block_from_sums(sums)
+
+
 def assert_agree(got, ref, atol=None):
-    checks, _ = nk.agreement(got, ref, "sums", nk.SUMS_ATOL if atol is None else atol)
+    checks, _ = sweep.agreement(got, ref, "sums", sweep.SUMS_ATOL if atol is None else atol)
     failed = [(name, share) for name, share, _, ok in checks if not ok]
     assert not failed, failed
 
@@ -123,9 +133,9 @@ def fused_sums(state):
 def test_fused_plain_matches_jnp_ad(state, jax_ref, fused_sums):
     _, _, scene, cam, _ = state
     sums, _ = fused_sums[2]
-    block = nk.block_from_sums(sums) / DENOM
-    loss = block[scene.num_objects, nk.LOSS_COL]
-    got = grads_to_numpy(*nk.grads_from_block(scene, cam, CFG, block))
+    block = sweep.block_from_sums(sums) / DENOM
+    loss = block[scene.num_objects, sweep.LOSS_COL]
+    got = grads_to_numpy(*sweep.grads_from_block(scene, cam, CFG, block))
     np.testing.assert_allclose(float(loss), jax_ref[0], rtol=1e-4)
     assert_seven_blocks_close(got, jax_ref[1])
     assert np.abs(got["position"]).max() > 0 and np.abs(got["radius"]).max() > 0
@@ -140,8 +150,8 @@ def test_loss_grads_entry_points_dispatch_to_the_nee_kernel(state, jax_ref, fuse
                                                  device="cpu")
     loss_k, (ds_k, dc_k) = nk.nee_loss_and_grads(scene, cam, CFG, 0, torch.from_numpy(target),
                                                  device="cpu")
-    block = nk.block_from_sums(fused_sums[2][0]) / DENOM
-    assert torch.equal(loss, loss_k) and torch.equal(loss, block[9, nk.LOSS_COL])
+    block = sweep.block_from_sums(fused_sums[2][0]) / DENOM
+    assert torch.equal(loss, loss_k) and torch.equal(loss, block[9, sweep.LOSS_COL])
     got, want = grads_to_numpy(ds, dc), grads_to_numpy(ds_k, dc_k)
     assert all(np.array_equal(got[k], want[k]) for k in got)
     assert torch.equal(ds.position, block[:9, 1:4])
@@ -176,7 +186,7 @@ def test_slabs_and_sample_ranges_add_up(state):
     _, _, scene, cam, _ = state
     ct = np.random.default_rng(2).normal(size=(3, HEIGHT, WIDTH)).astype(np.float32) / SPP
     whole = nk.nee_grads_block_slab(scene, cam, CFG, 4, torch.from_numpy(ct), device="cpu")
-    assert whole.shape == (14, nk.BLOCK_COLS)
+    assert whole.shape == (14, sweep.BLOCK_COLS)
     parts = 0
     for row in (0, 8):
         for offset, spp in ((0, 1), (1, 1)):
@@ -186,9 +196,8 @@ def test_slabs_and_sample_ranges_add_up(state):
     flat = lambda b: torch.cat([b[:9, :10].reshape(-1), b[9, :3], b[10:14, :3].reshape(-1),  # noqa: E731
                                 b[9, 10:11]])
     assert_agree(flat(parts), flat(whole), CROSS_ATOL)
-    # The whole frame through nee_color_grads: the same launch, 1/spp folded there.
-    again = nk.nee_color_grads(scene, cam, CFG, 4, torch.from_numpy(ct * SPP).permute(1, 2, 0),
-                               device="cpu")
+    # The whole frame through the one replay entry: the same launch, 1/spp folded there.
+    again = replay_block(scene, cam, 4, torch.from_numpy(ct * SPP).permute(1, 2, 0))
     assert torch.equal(again, whole)
 
 
@@ -197,8 +206,8 @@ def test_grads_from_block_matches_jax_vjp(state):
     to the position: against ``jax.vjp`` of the JAX camera (rtol 1e-5 plus
     1e-6 of the largest: the same chain in another framework)."""
     jscene, jcam, scene, cam, _ = state
-    block = np.random.default_rng(5).normal(size=(14, nk.BLOCK_COLS)).astype(np.float32)
-    d_scene, d_cam = nk.grads_from_block(scene, cam, CFG, torch.from_numpy(block))
+    block = np.random.default_rng(5).normal(size=(14, sweep.BLOCK_COLS)).astype(np.float32)
+    d_scene, d_cam = sweep.grads_from_block(scene, cam, CFG, torch.from_numpy(block))
     _, vjp = jax.vjp(lambda c: c.eye_ray_basis(WIDTH, HEIGHT), jcam)
     (want,) = vjp(jnp.asarray(block[10:14, 0:3]))
     got = grads_to_numpy(d_scene, d_cam)
@@ -213,7 +222,7 @@ def test_grads_from_block_matches_jax_vjp(state):
     assert np.array_equal(got["emission"], block[:9, 4:7])
     assert np.array_equal(got["color"], block[:9, 7:10])
     with pytest.raises(ValueError, match="block must be"):
-        nk.grads_from_block(scene, cam, CFG, torch.zeros(16, 128))
+        sweep.grads_from_block(scene, cam, CFG, torch.zeros(16, 128))
 
 
 def test_render_color_backward_is_the_replay(state):
@@ -226,8 +235,8 @@ def test_render_color_backward_is_the_replay(state):
     assert torch.equal(img.detach(), tk.render_color_sums(scene, cam, CFG, 2, device="cpu") / SPP)
     ct = torch.from_numpy(np.random.default_rng(1).normal(size=img.shape).astype(np.float32))
     (img * ct).sum().backward()
-    block = nk.nee_color_grads(scene, cam, CFG, 2, ct, device="cpu")
-    want = grads_to_numpy(*nk.grads_from_block(scene, cam, CFG, block))
+    block = replay_block(scene, cam, 2, ct)
+    want = grads_to_numpy(*sweep.grads_from_block(scene, cam, CFG, block))
     got = {k: v.grad.numpy() for k, v in leaves.items()}
     got.update(cam_position=cam_leaves[0].grad.numpy(), yaw=cam_leaves[1].grad.numpy(),
                pitch=cam_leaves[2].grad.numpy())
@@ -302,20 +311,20 @@ def test_replay_is_linear_in_the_cotangent(state):
 def test_agreement_sees_an_error(fused_sums):
     """The comparison the card runs flags one wrong entry of any kind, and a NaN."""
     ref = fused_sums[2][0]
-    checks, err = nk.agreement(ref.clone(), ref, "sums")
+    checks, err = sweep.agreement(ref.clone(), ref, "sums")
     assert err == 0.0 and all(ok for *_, ok in checks)
-    kinds = nk.entry_kinds(9)
+    kinds = sweep.entry_kinds(9)
     assert len(kinds) == ref.numel() == 106
-    for k, name in enumerate(nk.KINDS):
+    for k, name in enumerate(sweep.KINDS):
         bad = ref.clone()
         bad[int(np.flatnonzero(kinds == k)[0])] += 1e-3 * float(ref[kinds == k].abs().max())
-        failed = {n for n, *_, ok in nk.agreement(bad, ref, "sums")[0] if not ok}
+        failed = {n for n, *_, ok in sweep.agreement(bad, ref, "sums")[0] if not ok}
         assert failed == {name}
     bad = ref.clone()
     bad[0] = float("nan")
-    assert "finite" in {n for n, *_, ok in nk.agreement(bad, ref, "sums")[0] if not ok}
+    assert "finite" in {n for n, *_, ok in sweep.agreement(bad, ref, "sums")[0] if not ok}
     with pytest.raises(ValueError):
-        nk.agreement(ref[:-1], ref[:-1], "sums")
+        sweep.agreement(ref[:-1], ref[:-1], "sums")
 
 
 @pytest.mark.parametrize("bad", ["bounces", "shape", "dtype", "device", "contiguous", "nee",
@@ -326,7 +335,7 @@ def test_wrapper_rejects_bad_input(state, bad):
     target = torch.zeros(8, 8, 3)
     kw = dict(local_h=8, spp=1)
     if bad == "bounces":
-        cfg = dataclasses.replace(cfg, max_bounces=nk.MAX_BOUNCES + 1)
+        cfg = dataclasses.replace(cfg, max_bounces=sweep.MAX_BOUNCES + 1)
     elif bad == "shape":
         target = torch.zeros(8, 7, 3)
     elif bad == "dtype":
@@ -343,7 +352,7 @@ def test_wrapper_rejects_bad_input(state, bad):
         # pair x 128 pairs, a loss float a thread and the sphere table are
         # 131,712 bytes, which fit a block's 227 KB, so no launch is refused
         # for its shared memory; a sphere or a block edge more is refused.
-        assert nk.shared_bytes(16, 16) == 131712 <= nk.MAX_SHARED_BYTES
+        assert sweep.shared_bytes(16, 16) == 131712 <= sweep.MAX_SHARED_BYTES
         cfg16 = dataclasses.replace(cfg, block=16)
         sb16 = torch.cat([sb, sb[:7]])
         sums, _ = nk.fused(sb16, tk.camera_block(cam, cfg16), tk.make_seed_block(cfg16), cfg16,
@@ -361,12 +370,12 @@ def test_block_layout():
     """Flat sums -> the JAX package's block rows and columns."""
     n = 3
     sums = torch.arange(10 * n + 16, dtype=torch.float32)
-    block = nk.block_from_sums(sums)
-    assert block.shape == (n + 5, nk.BLOCK_COLS)
+    block = sweep.block_from_sums(sums)
+    assert block.shape == (n + 5, sweep.BLOCK_COLS)
     assert torch.equal(block[1, :10], sums[10:20])
-    assert torch.equal(block[n, 0:3], sums[30:33]) and block[n, nk.LOSS_COL] == sums[-1]
+    assert torch.equal(block[n, 0:3], sums[30:33]) and block[n, sweep.LOSS_COL] == sums[-1]
     assert torch.equal(block[n + 1:, 0:3].reshape(-1), sums[33:45])
-    assert nk.n_slots(9) == 156 and nk.n_slots(16) == 254
+    assert sweep.n_slots(9) == 156 and sweep.n_slots(16) == 254
 
 
 # -- the path tape: K1's taped colour pass writes it, K3's taped replay reads it ----
@@ -377,12 +386,12 @@ def test_tape_size_and_the_taped_replay_shared_memory():
     whole replay blocks. The taped replay's ring of two bounces a thread
     keeps 8 blocks of 8 x 8 an SM within 228 KB, at 1 KB reserved a block."""
     cfg = RenderConfig(width=256, height=256, spp=16, nee=True)
-    assert nk.tape_shape(cfg, 256, 16) == (16, 1024, 5, nk.TAPE_WORDS["diffuse"], 64)
-    assert nk.tape_bytes(cfg, 256, 16) == 293_601_280
+    assert sweep.tape_shape(cfg, 256, 16) == (16, 1024, 5, sweep.TAPE_WORDS["diffuse"], 64)
+    assert sweep.tape_bytes(cfg, 256, 16) == 293_601_280
     ragged = RenderConfig(width=45, height=37, spp=3, max_bounces=3, nee=True, block=7)
-    assert nk.tape_shape(ragged, 37, 3) == (3, 42, 3, 14, 49)
-    taped = nk.shared_bytes(9, 8, taped=True)
-    assert taped == nk.shared_bytes(9, 8) + 2 * 14 * 64 * 4 == 27_752
+    assert sweep.tape_shape(ragged, 37, 3) == (3, 42, 3, 14, 49)
+    taped = sweep.shared_bytes(9, 8, taped=True)
+    assert taped == sweep.shared_bytes(9, 8) + 2 * 14 * 64 * 4 == 27_752
     assert 8 * (taped + 1024) <= 228 * 1024
 
 
@@ -407,7 +416,7 @@ def test_tape_wrappers_refuse_bad_tapes(state, entry, bad):
         made = dict(cfg=dataclasses.replace(cfg, max_bounces=4) if bad == "bounces" else
                     dataclasses.replace(cfg, block=4) if bad == "block" else cfg,
                     local_h=7 if bad == "height" else 8, spp=2 if bad == "spp" else 1)
-    tape = nk.PathTape.empty(made["cfg"], made["local_h"], made["spp"], "cpu")
+    tape = sweep.PathTape.empty(made["cfg"], made["local_h"], made["spp"], "cpu")
     tape.written = bad != "unwritten"
     words = tape.words
     if bad == "device":
@@ -446,15 +455,15 @@ def test_step_tapes_keep_within_the_budget(monkeypatch, size, spp, bounces, tape
     cfg = RenderConfig(width=size, height=size, spp=spp, max_bounces=bounces, nee=True)
     made = _record_tapes(monkeypatch)
     cuda = torch.device("cuda", 0)
-    rows = nk.slab_rows(cfg)
-    assert (2 * nk.tape_bytes(cfg, size, spp) <= nk.TAPE_BUDGET) == taped == (rows == size)
-    assert 2 * nk.tape_bytes(cfg, rows, spp) <= nk.TAPE_BUDGET
+    rows = sweep.slab_rows(cfg)
+    assert (2 * sweep.tape_bytes(cfg, size, spp) <= sweep.TAPE_BUDGET) == taped == (rows == size)
+    assert 2 * sweep.tape_bytes(cfg, rows, spp) <= sweep.TAPE_BUDGET
     slabs = -(-size // rows)
-    assert all(2 * nk.tape_bytes(cfg, -(-size // n), spp) > nk.TAPE_BUDGET
+    assert all(2 * sweep.tape_bytes(cfg, -(-size // n), spp) > sweep.TAPE_BUDGET
                for n in range(1, slabs))
-    assert nk.step_tapes(cfg, cuda) == (rows, (1, 2))
+    assert sweep.step_tapes(cfg, cuda) == (rows, (1, 2))
     assert made == [(cfg, rows, spp, cuda)] * 2
-    assert nk.step_tapes(cfg, torch.device("cpu")) == (size, (None, None))
+    assert sweep.step_tapes(cfg, torch.device("cpu")) == (size, (None, None))
 
 
 def _record_tapes(monkeypatch) -> list:
@@ -465,7 +474,7 @@ def _record_tapes(monkeypatch) -> list:
         made.append((cfg_, local_h, spp_, device))
         return len(made)
 
-    monkeypatch.setattr(nk.PathTape, "empty", empty)
+    monkeypatch.setattr(sweep.PathTape, "empty", empty)
     return made
 
 
@@ -479,11 +488,11 @@ def test_step_plans_the_slabs_of_each_tape(monkeypatch, brdf, size, spp, rows, w
     tape made for a slab of ``rows`` rows."""
     cfg = RenderConfig(width=size, height=size, spp=spp, nee=True, brdf=brdf)
     made = _record_tapes(monkeypatch)
-    assert nk.step_tapes(cfg, torch.device("cuda", 0)) == (rows, (1, 2))
+    assert sweep.step_tapes(cfg, torch.device("cuda", 0)) == (rows, (1, 2))
     assert [m[1] for m in made] == [rows, rows]
-    assert nk.tape_shape(cfg, rows, spp) == (spp, size // 8 * rows // 8, 5, words, 64)
-    assert nk.tape_bytes(cfg, rows, spp) == tape
-    assert 2 * nk.tape_bytes(cfg, size, spp) > nk.TAPE_BUDGET or rows == size
+    assert sweep.tape_shape(cfg, rows, spp) == (spp, size // 8 * rows // 8, 5, words, 64)
+    assert sweep.tape_bytes(cfg, rows, spp) == tape
+    assert 2 * sweep.tape_bytes(cfg, size, spp) > sweep.TAPE_BUDGET or rows == size
 
 
 @pytest.mark.parametrize("extra", [dict(nee=True, brdf="glossy", width=4096, height=8, spp=512,
@@ -498,8 +507,9 @@ def test_step_retraces_where_no_slab_fits_and_without_nee(monkeypatch, extra):
     cfg = RenderConfig(**extra)
     made = _record_tapes(monkeypatch)
     if cfg.nee:
-        assert nk.slab_rows(cfg) is None and nk.tape_bytes(cfg, 1, cfg.spp) > nk.TAPE_BUDGET
-    assert nk.step_tapes(cfg, torch.device("cuda", 0)) == (cfg.height, (None, None))
+        assert sweep.slab_rows(cfg) is None
+        assert sweep.tape_bytes(cfg, 1, cfg.spp) > sweep.TAPE_BUDGET
+    assert sweep.step_tapes(cfg, torch.device("cuda", 0)) == (cfg.height, (None, None))
     assert made == []
 
 
@@ -509,11 +519,11 @@ def test_a_slab_tape_views_the_step_tape():
     is refused."""
     cfg = RenderConfig(width=16, height=13, spp=2, max_bounces=2, nee=True, brdf="glossy",
                        block=4)
-    tape = nk.PathTape.empty(cfg, 7, 2, "cpu")
+    tape = sweep.PathTape.empty(cfg, 7, 2, "cpu")
     tape.written = True
     short = tape.slab(cfg, 6, 2)
     assert not short.written and short.sizes == (6, 16, 2, 2, 4, 17)
-    assert tuple(short.words.shape) == nk.tape_shape(cfg, 6, 2) == (2, 8, 2, 17, 16)
+    assert tuple(short.words.shape) == sweep.tape_shape(cfg, 6, 2) == (2, 8, 2, 17, 16)
     assert short.words.data_ptr() == tape.words.data_ptr() and short.words.is_contiguous()
     assert tape.slab(cfg, 7, 2).sizes == tape.sizes
     with pytest.raises(ValueError, match="cannot hold"):
@@ -528,7 +538,7 @@ def test_k4_wrapper_refuses_bad_tapes(state, bad):
     the AOV cotangents or under a configuration that has no taped K4."""
     _, _, scene, cam, _ = state
     cfg = dataclasses.replace(CFG, width=8, height=8, spp=1, brdf="glossy")
-    tape = nk.PathTape.empty(dataclasses.replace(cfg, brdf="diffuse") if bad == "words" else cfg,
+    tape = sweep.PathTape.empty(dataclasses.replace(cfg, brdf="diffuse") if bad == "words" else cfg,
                              8, 1, "cpu")
     tape.written = True
     if bad == "diffuse":
@@ -548,15 +558,15 @@ def test_cross_grads_on_the_cpu_takes_no_tape(state, monkeypatch):
     def no_tape(*args, **kwargs):
         raise AssertionError("a path tape on the CPU")
 
-    monkeypatch.setattr(nk.PathTape, "empty", no_tape)
+    monkeypatch.setattr(sweep.PathTape, "empty", no_tape)
     step, t = 2, torch.from_numpy(target)
     loss, d = gk.cross_grads(scene, cam, CFG, step, t, device="cpu")
     a = tk.render_color_sums(scene, cam, CFG, 2 * step, device="cpu") / SPP
     b = tk.render_color_sums(scene, cam, CFG, 2 * step + 1, device="cpu") / SPP
     ra, rb = a - t, b - t
-    block = (nk.nee_color_grads(scene, cam, CFG, 2 * step, rb / ra.numel(), device="cpu")
-             + nk.nee_color_grads(scene, cam, CFG, 2 * step + 1, ra / ra.numel(), device="cpu"))
-    want = nk.scene_grads_from_block(block)
+    block = (replay_block(scene, cam, 2 * step, rb / ra.numel())
+             + replay_block(scene, cam, 2 * step + 1, ra / ra.numel()))
+    want = sweep.scene_grads_from_block(block)
     assert torch.equal(loss, torch.sum(ra * rb) / ra.numel())
     assert set(d) == {"emission", "color", "position", "radius"}
     for name, g in d.items():
@@ -572,7 +582,7 @@ def test_cross_grads_in_row_slabs_is_the_whole_frame(state, monkeypatch, brdf):
     cfg = dataclasses.replace(CFG, brdf=brdf)
     t = torch.from_numpy(target)
     loss, d = gk.cross_grads(scene, cam, cfg, 1, t, device="cpu")
-    monkeypatch.setattr(nk, "step_tapes", lambda cfg_, device: (6, (None, None)))
+    monkeypatch.setattr(sweep, "step_tapes", lambda cfg_, device: (6, (None, None)))
     slab_loss, slab_d = gk.cross_grads(scene, cam, cfg, 1, t, device="cpu")
     assert torch.equal(slab_loss, loss)
     for name, g in d.items():

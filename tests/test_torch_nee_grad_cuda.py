@@ -6,7 +6,7 @@ without JAX; from the root of a checkout:
 
     python -m pytest tests/test_torch_nee_grad_cuda.py -m cuda --noconftest -o addopts="" -q
 
-Tolerances are those of ``nee_grad_kernel.agreement``, as in chip_smoke.py:
+Tolerances are those of ``sweep.agreement``, as in chip_smoke.py:
 every gradient sum within rtol 1e-4 plus 1e-6 of the largest of its kind
 (kernel and plain version add each lane group's terms in the same order and
 sum over groups in double); where two orders of operations meet (replay against
@@ -26,13 +26,15 @@ from pathtrace_tpu_torch import grad as grad_lib
 from pathtrace_tpu_torch import inverse
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.utils import roofline as rf
+from pathtrace_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
 CFG = RenderConfig(width=128, height=64, spp=4, nee=True)
-CROSS_ATOL = nk.CROSS_ATOL
+CROSS_ATOL = sweep.CROSS_ATOL
 
 
 @pytest.fixture
@@ -43,9 +45,15 @@ def dev():
 
 
 def _assert_agree(got, ref, kind="sums", atol=None):
-    checks, _ = nk.agreement(got, ref, kind, nk.SUMS_ATOL if atol is None else atol)
+    checks, _ = sweep.agreement(got, ref, kind, sweep.SUMS_ATOL if atol is None else atol)
     failed = [(name, share, ceiling) for name, share, ceiling, ok in checks if not ok]
     assert not failed, f"share out of tolerance above its ceiling: {failed}"
+
+
+def _moved(before):
+    """The launch counts that moved since ``before``, by key."""
+    now = timing.launch_counts()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
 def _inputs(dev, cfg=CFG, local_h=64):
@@ -61,7 +69,7 @@ def test_mode_matches_plain(dev, mode, offsets):
     sb, cb, target = _inputs(dev, cfg)
     seed = tk.make_seed_block(cfg, *offsets)
     kw = dict(local_h=64, spp=4, device=dev)
-    before = nk.CUDA_KERNEL.launches[mode]
+    before = timing.launch_counts()
     if mode == "fused":
         sums, color = nk.fused(sb, cb, seed, cfg, target, **kw)
         ref_sums, ref_color = nk.fused_plain(sb, cb, seed, cfg, target, **kw)
@@ -72,7 +80,7 @@ def test_mode_matches_plain(dev, mode, offsets):
         _assert_agree(nk.replay(sb, cb, seed, cfg, ct, **kw),
                       nk.replay_plain(sb, cb, seed, cfg, ct, **kw))
     torch.cuda.synchronize()
-    assert nk.CUDA_KERNEL.launches[mode] == before + 1
+    assert _moved(before) == {f"k3.{mode}": 1}
 
 
 def test_fused_is_deterministic_and_modes_agree(dev):
@@ -131,14 +139,12 @@ def _assert_taped_is_untaped(sb, cb, seed, cfg, ct, retraced, *, local_h, spp, d
     launches to the bit, one launch each, the replay counted as a replay and
     as a taped one."""
     kw = dict(local_h=local_h, spp=spp, device=device)
-    tape = nk.PathTape.empty(cfg, local_h, spp, device)
-    before = (tk.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches))
+    tape = sweep.PathTape.empty(cfg, local_h, spp, device)
+    before = timing.launch_counts()
     color = tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
     taped = nk.replay(sb, cb, seed, cfg, ct, tape=tape, **kw)
     torch.cuda.synchronize()
-    assert tape.written and tk.CUDA_KERNEL.launches == before[0] + 1
-    assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 1
-    assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"] + 1
+    assert tape.written and _moved(before) == {"k1": 1, "k3.replay": 1, "k3.replay_taped": 1}
     assert torch.equal(color, tk.trace(sb, cb, seed, cfg, mode="color", **kw))
     assert torch.equal(taped, retraced)
 
@@ -169,10 +175,10 @@ def test_refuses_a_block_beyond_shared_memory(dev):
     kw = dict(local_h=64, spp=4, device=dev)
     sums, _ = nk.fused(sb16, cb, seed, cfg, target, **kw)
     _assert_agree(sums, nk.fused_plain(sb16, cb, seed, cfg, target, **kw)[0])
-    assert nk.shared_bytes(16, 16) <= nk.MAX_SHARED_BYTES
+    assert sweep.shared_bytes(16, 16) <= sweep.MAX_SHARED_BYTES
     with pytest.raises(RuntimeError, match="launch failed"):
         nk.CUDA_KERNEL.launch("fused", sb16, cb, seed, cfg, target,
-                              pad_shared=nk.MAX_SHARED_BYTES, **kw)
+                              pad_shared=sweep.MAX_SHARED_BYTES, **kw)
 
 
 def test_many_blocks_match_plain(dev):
@@ -194,12 +200,9 @@ def test_loss_grads_is_one_fused_launch(dev):
     scene, cam = cornell_box(), Camera.create()
     cfg = RenderConfig(width=64, height=32, spp=4, seed=5, nee=True)
     target = torch.rand(32, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev)
-    before = (dict(nk.CUDA_KERNEL.launches), dict(gk.CUDA_KERNEL.launches),
-              tk.CUDA_KERNEL.launches)
+    before = timing.launch_counts()
     loss, (ds, dc) = grad_lib.render_loss_grads(scene, cam, cfg, 0, target, device=dev)
-    assert nk.CUDA_KERNEL.launches["fused"] == before[0]["fused"] + 1
-    assert nk.CUDA_KERNEL.launches["replay"] == before[0]["replay"]
-    assert gk.CUDA_KERNEL.launches == before[1] and tk.CUDA_KERNEL.launches == before[2]
+    assert _moved(before) == {"k3.fused": 1}
     blocks = [ds.radius, ds.position, ds.emission, ds.color, dc.position, dc.yaw, dc.pitch]
     for g in blocks:
         assert g.device == dev and torch.isfinite(g).all() and g.abs().max() > 0
@@ -209,7 +212,7 @@ def test_loss_grads_is_one_fused_launch(dev):
     img = grad_lib.render_color(type(scene)(*leaves), Camera(*cam_leaves), cfg, 0)
     loss_d = grad_lib.l2_image_loss(img, target)
     loss_d.backward()
-    assert nk.CUDA_KERNEL.launches["replay"] == before[0]["replay"] + 1
+    assert timing.launch_counts()["k3.replay"] == before["k3.replay"] + 1
     torch.testing.assert_close(loss, loss_d.detach(), rtol=1e-5, atol=0)
     for g, leaf in zip(blocks, leaves + cam_leaves):
         torch.testing.assert_close(g, leaf.grad, rtol=1e-3, atol=1e-4 * float(g.abs().max()))
@@ -229,14 +232,9 @@ def test_nee_inverse_step_launches_two_trace_and_two_replay(dev):
         {"position": inverse.exponential_decay(0.5, 2, 0.25)},
         grad_mask={"position": mask}, device=dev)
     for want_lr in (0.5, 0.25):
-        before = (tk.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches),
-                  dict(gk.CUDA_KERNEL.launches))
+        before = timing.launch_counts()
         state, loss = step_fn(state)
-        assert tk.CUDA_KERNEL.launches == before[0] + 2
-        assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 2
-        assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"] + 2
-        assert nk.CUDA_KERNEL.launches["fused"] == before[1]["fused"]
-        assert gk.CUDA_KERNEL.launches == before[2]
+        assert _moved(before) == {"k1": 2, "k3.replay": 2, "k3.replay_taped": 2}
         assert opt.param_groups[0]["lr"] == pytest.approx(want_lr)
         assert torch.isfinite(loss)
     moved = (state.params["position"].detach().cpu() != scene.position).any(dim=1)
@@ -249,13 +247,11 @@ def test_shard_slab_replays_without_a_tape(dev):
     colour pass."""
     scene, cam = cornell_box(), Camera.create()
     ct = torch.rand(3, 16, 128, generator=torch.Generator().manual_seed(4)).to(dev)
-    before = (tk.CUDA_KERNEL.launches, dict(nk.CUDA_KERNEL.launches))
+    before = timing.launch_counts()
     block = nk.nee_grads_block_slab(scene, cam, CFG, 2, ct, row_offset=16, local_h=16, spp=2,
                                     sample_offset=1, device=dev)
     torch.cuda.synchronize()
-    assert nk.CUDA_KERNEL.launches["replay"] == before[1]["replay"] + 1
-    assert nk.CUDA_KERNEL.launches["replay_taped"] == before[1]["replay_taped"]
-    assert tk.CUDA_KERNEL.launches == before[0]
+    assert _moved(before) == {"k3.replay": 1}
     assert torch.isfinite(block).all() and block.abs().max() > 0
 
 
@@ -273,7 +269,7 @@ def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped)
     cfg = RenderConfig(width=size, height=size, spp=spp, nee=True)
     scene, cam = cornell_box(), Camera.create()
     target = torch.full((size, size, 3), 0.25, device=dev)
-    rows = nk.slab_rows(cfg)
+    rows = sweep.slab_rows(cfg)
     slabs = size // rows
     assert (rows == size) == taped and slabs == (1 if taped else 2)
 
@@ -281,18 +277,18 @@ def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        before = dict(nk.CUDA_KERNEL.launches)
+        before = timing.launch_counts()
         out = gk.cross_grads(scene, cam, cfg, 3, target, device=dev)
         torch.cuda.synchronize()
-        n = {k: nk.CUDA_KERNEL.launches[k] - before[k] for k in before}
+        n = {k[3:]: v for k, v in _moved(before).items() if k.startswith("k3.")}
         return out, n, torch.cuda.max_memory_allocated(dev) - base
 
     (loss, d), n, peak = run()
-    assert (n["replay"], n["replay_taped"], n["fused"]) == (2 * slabs, 2 * slabs, 0)
-    assert peak >= 2 * nk.tape_bytes(cfg, rows, spp)
-    monkeypatch.setattr(nk, "TAPE_BUDGET", 0)
+    assert n == {"replay": 2 * slabs, "replay_taped": 2 * slabs}
+    assert peak >= 2 * sweep.tape_bytes(cfg, rows, spp)
+    monkeypatch.setattr(sweep, "TAPE_BUDGET", 0)
     (other_loss, other), n, peak = run()
-    assert (n["replay"], n["replay_taped"]) == (2, 0) and peak < 64 << 20
+    assert n == {"replay": 2} and peak < 64 << 20
     assert torch.equal(loss, other_loss)
     for name, g in d.items():
         if taped:
@@ -301,7 +297,7 @@ def test_cross_grads_tapes_within_the_budget(dev, monkeypatch, size, spp, taped)
             torch.testing.assert_close(g, other[name], rtol=1e-6,
                                        atol=1e-6 * float(other[name].abs().max()), msg=name)
     if not taped:
-        monkeypatch.setattr(nk, "TAPE_BUDGET", 2 * nk.tape_bytes(cfg, size, spp))
+        monkeypatch.setattr(sweep, "TAPE_BUDGET", 2 * sweep.tape_bytes(cfg, size, spp))
         (whole_loss, whole), n, _ = run()
         assert (n["replay"], n["replay_taped"]) == (2, 2)
         assert torch.equal(whole_loss, other_loss)
@@ -318,16 +314,14 @@ def test_cross_grads_in_two_slabs_matches_one(dev, monkeypatch, brdf):
     tapes: the taped replay's counter (``k3.replay_taped`` under diffuse,
     ``k4.replay_taped`` under glossy) reads two a slab, and none where a
     budget of 0 makes the step retrace, with the one taped slab's bits."""
-    from pathtrace_tpu_torch.utils import timing
-
     cfg = RenderConfig(width=64, height=64, spp=4, nee=True, brdf=brdf)
     scene, cam = cornell_box(), Camera.create()
     target = torch.rand(64, 64, 3, generator=torch.Generator().manual_seed(6)).to(dev)
     key = "k4" if brdf == "glossy" else "k3"
-    whole = 2 * nk.tape_bytes(cfg, 64, 4)
+    whole = 2 * sweep.tape_bytes(cfg, 64, 4)
 
     def run(budget):
-        monkeypatch.setattr(nk, "TAPE_BUDGET", budget)
+        monkeypatch.setattr(sweep, "TAPE_BUDGET", budget)
         timing.start_recording()
         out = gk.cross_grads(scene, cam, cfg, 2, target, device=dev)
         torch.cuda.synchronize()
@@ -337,7 +331,7 @@ def test_cross_grads_in_two_slabs_matches_one(dev, monkeypatch, brdf):
     (loss, d), n = run(whole)
     assert n == (2, 2, 2)
     (slab_loss, slab_d), n = run(whole // 2)
-    assert nk.slab_rows(cfg) == 32 and n == (4, 4, 4)
+    assert sweep.slab_rows(cfg) == 32 and n == (4, 4, 4)
     (re_loss, re_d), n = run(0)
     assert n == (2, 2, 0)
     assert torch.equal(slab_loss, loss) and torch.equal(re_loss, loss)
@@ -351,20 +345,17 @@ def test_cross_grads_in_two_slabs_matches_one(dev, monkeypatch, brdf):
 def test_glossy_still_raises_naming_its_kernel(dev, extra):
     """Glossy raised here, naming K4, while that kernel was not ported. Now a
     glossy inverse step launches the forward kernel twice and K4 twice, and
-    neither the NEE kernel nor the product-chain kernel."""
-    from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
-
+    neither the NEE kernel nor the product-chain kernel; under NEE its K4
+    replays read the colour passes' path tapes."""
     cfg = RenderConfig(width=16, height=16, spp=1, **extra)
     scene, cam = cornell_box(), Camera.create()
     target = torch.rand(16, 16, 3, generator=torch.Generator().manual_seed(1)).to(dev)
     state, step_fn, _ = inverse.make_inverse_step(scene, cam, cfg, target,
                                                   ("color", "position"), device=dev)
-    before = (tk.CUDA_KERNEL.launches, ak.CUDA_KERNEL.launches["replay"],
-              dict(nk.CUDA_KERNEL.launches), dict(gk.CUDA_KERNEL.launches))
+    before = timing.launch_counts()
     state, loss = step_fn(state)
-    assert tk.CUDA_KERNEL.launches == before[0] + 2
-    assert ak.CUDA_KERNEL.launches["replay"] == before[1] + 2
-    assert nk.CUDA_KERNEL.launches == before[2] and gk.CUDA_KERNEL.launches == before[3]
+    taped = {"k4.replay_taped": 2} if extra.get("nee") else {}
+    assert _moved(before) == {"k1": 2, "k4.replay": 2, **taped}
     assert torch.isfinite(loss)
     assert (state.params["color"].detach().cpu() != scene.color).any()
 
@@ -439,15 +430,15 @@ def test_resident_blocks_an_sm(dev):
     for mode in nk.MODES:
         occ = nk.CUDA_KERNEL.occupancy(mode, 8, 9)
         assert occ["blocks_per_sm"] > 5, (mode, occ)
-        assert occ["shared_bytes"] == nk.shared_bytes(9, 8)
+        assert occ["shared_bytes"] == sweep.shared_bytes(9, 8)
         assert occ["registers"] <= 128
         assert nk.CUDA_KERNEL.occupancy(mode, 16, 16)["shared_bytes"] == \
-            nk.shared_bytes(16, 16)
+            sweep.shared_bytes(16, 16)
     assert nk.CUDA_KERNEL.occupancy("replay", 8, 9, pad_shared=100000)["blocks_per_sm"] == 1
     # The taped replay's ring of two bounces a thread keeps the blocks, and
     # with no forward it keeps no tape on the stack.
     taped = nk.CUDA_KERNEL.occupancy("replay", 8, 9, taped=True)
-    assert taped["shared_bytes"] == nk.shared_bytes(9, 8, taped=True)
+    assert taped["shared_bytes"] == sweep.shared_bytes(9, 8, taped=True)
     assert taped["registers"] <= 128 and taped["local_bytes"] == 0
     assert taped["blocks_per_sm"] >= nk.CUDA_KERNEL.occupancy("replay", 8, 9)["blocks_per_sm"]
     sb, cb, target = _inputs(dev)

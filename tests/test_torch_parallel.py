@@ -47,6 +47,7 @@ from pathtrace_tpu_torch.convert import grads_to_numpy
 from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.parallel import make_mesh, render_channels_sharded
 from pathtrace_tpu_torch.parallel.launch import choose_backend, launch
@@ -234,9 +235,9 @@ def test_grid_grads_match_jax_mesh(worlds, jax_state, route, backend):
 
 @pytest.mark.parametrize("route", list(GRAD_CFGS))
 def test_grad_slab_launches_are_their_plain_versions(worlds, route):
-    """Each rank's backward launch on (2, 2), with the seed block and
-    cotangent it was given (what chip_smoke.py holds against the plain
-    version on the card): on the CPU the wrapper runs the plain version, so
+    """Each rank's backward launch on (2, 2), with the seed block it was
+    given and the residual its cotangent was made of (what chip_smoke.py
+    holds against the plain version on the card): on the CPU the wrapper runs the plain version, so
     the parent's plain call on those inputs gives the same bits; and the
     ranks' outputs compose into the grid's gradients (rtol 1e-5 plus 1e-7
     of the field's largest entry: the parent adds in another order than the
@@ -261,17 +262,20 @@ def test_grad_slab_launches_are_their_plain_versions(worlds, route):
             d_e, d_c = gk.contract(2.0 * diff / denom * r["scale"], r["acc"])
             g = g + torch.cat([d_e, d_c], dim=1)
             continue
+        # the cotangent of the mean colour, in the layout of the route's kernel
+        ct = 2.0 * r["diff"] / denom
         if route == "nee":
-            sums = nk.replay_plain(sb, cb, r["seed"], cfg, r["ct"].permute(1, 2, 0), **kw)
+            sums = nk.replay_plain(sb, cb, r["seed"], cfg, ct / cfg.spp, **kw)
         else:
-            sums = ak.replay_plain(sb, cb, r["seed"], cfg, r["ct"], **kw)
-        assert torch.equal(r["block"], nk.block_from_sums(sums))
+            sums = ak.replay_plain(sb, cb, r["seed"], cfg,
+                                   ak.pack_cotangents(cfg, ct, local_h=h), **kw)
+        assert torch.equal(r["block"], sweep.block_from_sums(sums))
         g = g + r["block"]
     want = worlds["grads", (2, 2), route, "cuda"][0]["grads"]
     if route == "diffuse":
         got = {"emission": g[:, 0:3].numpy(), "color": g[:, 3:6].numpy()}
     else:
-        got = grads_to_numpy(*nk.grads_from_block(scene, cam, cfg, g))
+        got = grads_to_numpy(*sweep.grads_from_block(scene, cam, cfg, g))
     for k, x in got.items():
         np.testing.assert_allclose(x, want[k], rtol=1e-5,
                                    atol=1e-7 * max(float(np.abs(want[k]).max()), 1e-12),

@@ -8,10 +8,11 @@
   root closed before it.
 - The spans lie on the clock of the profiler's host events: a span inside a
   ``record_function`` lies inside that event.
-- The launch counters (K1, K3's replay, K4's replay, K2's dump mode) are
-  the kernel wrappers' own counts since the recording started, with the host
-  ns added only while recording; each wrapper's module names its counters
-  when it is imported.
+- The launch counts of a recording (K1, K3's replay, K4's replay and their
+  taped replays, K2's dump mode) are the one table's counts since the
+  recording started, with the host ns added only while recording; the
+  table has a key for every mode each wrapper launches, one reset and one
+  reader.
 - Each entry point records its spans and no others: a denoised progressive
   frame, an inverse step on either route, training steps through
   ``loop_epoch``.
@@ -31,10 +32,8 @@ import torch
 from pathtrace_tpu_torch import Camera, RenderConfig, cornell_box, inverse, train
 from pathtrace_tpu_torch.interactive import FrameStepper
 from pathtrace_tpu_torch.models import init_model
-from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
-from pathtrace_tpu_torch.ops import trace_kernel as tk
 from pathtrace_tpu_torch.utils import timing
 
 
@@ -61,7 +60,7 @@ def shape(rec):
 
 # -- the recorder ------------------------------------------------------------------
 
-def test_span_off_is_one_shared_object_that_reads_no_clock(monkeypatch):
+def test_span_off_is_one_shared_object_that_reads_no_clock(monkeypatch, counts):
     def refuse(*args, **kwargs):
         raise AssertionError("called while not recording")
 
@@ -74,7 +73,7 @@ def test_span_off_is_one_shared_object_that_reads_no_clock(monkeypatch):
         with timing.span("frame.render"):
             pass
     assert timing.launch_clock() == 0
-    timing.add_launch_ns("k1", 0)
+    timing.count_launch("k1", 0)
     assert timing.stop_recording().spans == []
 
 
@@ -174,61 +173,74 @@ def test_spans_lie_on_the_profiler_clock():
     assert event.start_ns() <= s <= e <= event.end_ns()
 
 
-# each key's wrapper, and its ``launches`` before a test: a count, or counts by mode
-WRAPPERS = {"k1": (tk, 7), "k3.replay": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
-            "k3.replay_taped": (nk, {"fused": 7, "replay": 7, "replay_taped": 7}),
-            "k4.replay": (ak, {"replay": 7, "replay_taped": 7}),
-            "k4.replay_taped": (ak, {"replay": 7, "replay_taped": 7}),
-            "k2.dump": (gk, {"fused": 7, "dump": 7, "replay": 7})}
+# every kernel and mode a wrapper launches, by the key it counts as
+TABLE = ("k1", "k2.fused", "k2.dump", "k2.replay", "k3.fused", "k3.replay", "k3.replay_taped",
+         "k4.replay", "k4.replay_taped")
 
 
-def test_every_launch_key_is_registered_by_its_wrapper():
-    assert set(WRAPPERS) == set(timing.LAUNCH_KEYS)
-    for key, (module, _) in WRAPPERS.items():
-        launches = module.CUDA_KERNEL.launches
-        want = launches if isinstance(launches, int) else launches[key.split(".")[1]]
-        assert timing._COUNTERS[key]() == want, key
+@pytest.fixture
+def counts(monkeypatch):
+    """The table of launch counts, every count at 7, restored after the test."""
+    monkeypatch.setattr(timing, "_LAUNCHES", dict.fromkeys(timing._LAUNCHES, 7))
 
 
-def test_taped_replays_of_k3_and_k4_have_launch_keys():
-    """Each taped replay kernel has its engagement counter, read from its
-    wrapper's ``launches["replay_taped"]``, beside its replay's."""
+def test_every_launch_key_is_registered_by_its_wrapper(counts):
+    """The table has a key for each mode of each wrapper's ``MODES`` (the
+    modes outside ``LAUNCH_KEYS`` among them) and for the taped replays of K3
+    and K4, and holds every key of ``LAUNCH_KEYS``; the one reset sets every
+    count of the table to 0; a key outside the table cannot be counted."""
+    modes = {"k1"} | {f"k2.{m}" for m in gk.MODES} | {f"k3.{m}" for m in nk.MODES}
+    assert set(timing.launch_counts()) == set(TABLE)
+    assert modes | {"k3.replay_taped", "k4.replay", "k4.replay_taped"} == set(TABLE)
+    assert set(timing.LAUNCH_KEYS) <= set(TABLE)
+    timing.reset_launch_counts()
+    assert timing.launch_counts() == dict.fromkeys(TABLE, 0)
+    for key in ("k3.dump", "k4.fused", "k2.replay_tape"):
+        with pytest.raises(KeyError):
+            timing.count_launch(key)
+    with pytest.raises(KeyError):
+        timing.count_launch("k2.dump", taped=True)
+    assert timing.launch_counts() == dict.fromkeys(TABLE, 0)
+
+
+def test_taped_replays_of_k3_and_k4_have_launch_keys(counts):
+    """Each taped replay kernel has its engagement count beside its replay's:
+    a taped replay counts as a replay and as a taped one."""
     keys = timing.LAUNCH_KEYS
     assert keys.index("k3.replay_taped") == keys.index("k3.replay") + 1
     assert keys.index("k4.replay_taped") == keys.index("k4.replay") + 1
-    assert timing._COUNTERS["k4.replay_taped"]() == ak.CUDA_KERNEL.launches["replay_taped"]
+    timing.count_launch("k4.replay", taped=True)
+    timing.count_launch("k4.replay")
+    assert timing.launch_counts() == {**dict.fromkeys(TABLE, 7), "k4.replay": 9,
+                                      "k4.replay_taped": 8}
 
 
 @pytest.mark.parametrize("key", timing.LAUNCH_KEYS)
-def test_launch_counters_are_the_wrappers_counts(monkeypatch, key):
-    """Each key reads its wrapper's own ``launches`` (K3's replay, not its
-    fused launches; the taped replays among the replays; K2's dump mode, not
-    its fused or replay launches), which its module names when it is
-    imported."""
-    module, before = WRAPPERS[key]
-    kernel = module.CUDA_KERNEL
-
-    def launched(n):
-        if isinstance(before, int):
-            kernel.launches += n
-        else:
-            kernel.launches[key.split(".")[1]] += n
-            if "fused" in kernel.launches:
-                kernel.launches["fused"] += 5
-
-    monkeypatch.setattr(kernel, "launches", before if isinstance(before, int) else dict(before))
-    t0 = timing.launch_clock()
-    timing.add_launch_ns(key, t0)  # not recording: nothing added
+def test_launch_counters_are_the_wrappers_counts(counts, key):
+    """A recording reports each key's own count in the table since it
+    started: not the other modes of the same kernel (K3's and K2's fused
+    launches, K2's replays); a taped replay counts under its replay's key
+    and its own, and its host time goes to its replay's key; host time is
+    added only while recording."""
+    base = key.removesuffix("_taped")
+    taped = base != key
+    kernel = key.split(".")[0]
+    others = [k for k in TABLE if k.startswith(kernel + ".") and k not in (key, base)
+              and not k.endswith("_taped")]
+    timing.count_launch(base, timing.launch_clock(), taped=taped)  # not recording: no time
     timing.start_recording()
     t0 = timing.launch_clock()
     time.sleep(0.001)
-    launched(2)
-    timing.add_launch_ns(key, t0)
+    timing.count_launch(base, t0, taped=taped)
+    timing.count_launch(base, timing.launch_clock(), taped=taped)
+    for other in others:
+        timing.count_launch(other)
     rec = timing.stop_recording()
     assert t0 > 0
-    assert rec.launches == {**dict.fromkeys(timing.LAUNCH_KEYS, 0), key: 2}
-    assert rec.launch_ns[key] >= 1_000_000
-    assert all(rec.launch_ns[k] == 0 for k in timing.LAUNCH_KEYS if k != key)
+    assert rec.launches == {**dict.fromkeys(timing.LAUNCH_KEYS, 0), base: 2, key: 2}
+    assert rec.launch_ns[base] >= 1_000_000
+    assert all(rec.launch_ns[k] == 0 for k in timing.LAUNCH_KEYS if k != base)
+    assert all(timing.launch_counts()[k] == 8 for k in others)
 
 
 # -- the entry points ----------------------------------------------------------------

@@ -4,7 +4,7 @@ instance, the colour-only cotangent and the layout the wrappers check.
 ``csrc/sweep.cuh`` lets ``LANES`` neighbouring threads share one set of
 sums, added to in ordered turns, keeps the geometry sums in double, and has
 an instance without the geometry chain for a colour-only cotangent without
-NEE. ``nee_grad_kernel._sweep_plain`` follows that order, so on the CPU
+NEE. ``sweep._sweep_plain`` follows that order, so on the CPU
 these tests hold
 
 - the shading-only instance to the full one: the same shading sums bit for
@@ -22,13 +22,19 @@ these tests hold
   reverse-mode AD of the JAX package at a block of 3 x 3 threads
   (emission and albedo: rtol 2e-3 plus 5e-4 of the largest, the tolerance
   of tests/test_torch_ad_grad.py);
-- ``n_slots``, ``shared_bytes`` and the wrappers' shared-memory check.
+- ``n_slots``, ``shared_bytes`` and the wrappers' shared-memory check;
+- the import graph of ``ops/``, which points one way (``trace_kernel`` <-
+  ``sweep`` <- the two sweep wrappers <- ``grad_kernel``), and
+  ``grad_kernel``'s one replay entry against the direct calls of K3's and
+  K4's plain replay it replaced: the same bits.
 
 The kernels against this plain version on the card are in
 tests/test_torch_nee_grad_cuda.py and tests/test_torch_ad_grad_cuda.py.
 """
 
+import ast
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +52,7 @@ from pathtrace_tpu_torch.convert import grads_to_numpy
 from pathtrace_tpu_torch.ops import ad_grad_kernel as ak
 from pathtrace_tpu_torch.ops import grad_kernel as gk
 from pathtrace_tpu_torch.ops import nee_grad_kernel as nk
+from pathtrace_tpu_torch.ops import sweep
 from pathtrace_tpu_torch.ops import trace_kernel as tk
 
 CONFIGS = {"diffuse": {}, "nee": {"nee": True}, "glossy": {"brdf": "glossy"},
@@ -71,7 +78,7 @@ def cotangent(cfg, channels=10, seed=0):
 
 
 def geometry_entries(sums):
-    block = ak.block_from_sums(sums)
+    block = sweep.block_from_sums(sums)
     return torch.cat([block[:N, :4].reshape(-1), block[N:, :3].reshape(-1)])
 
 
@@ -89,7 +96,7 @@ def test_shading_only_instance_equals_the_full_one(name, block):
     assert not geometry_entries(only).any() and not geometry_entries(full).any()
     # the plain sweep of the shading-only instance keeps no geometry sums at all
     lat = tk.PlainLattice(*launch_args(cfg)[:3], cfg, cfg.height)
-    shade, geom = nk._sweep_plain(lat, cfg, cfg.spp, list(ct[:3]))
+    shade, geom = sweep._sweep_plain(lat, cfg, cfg.spp, list(ct[:3]))
     assert geom is None and len(shade) == 6 * N
 
 
@@ -121,20 +128,20 @@ def test_lane_groups_against_one_set_of_sums_a_pixel(name, block, width, height)
     aov = None if name in ("glossy", "diffuse") else planes[3:]
     zero = torch.zeros(height, width)
     out = {}
-    for lanes in (nk.LANES, 1):
-        shade, geom = nk._sweep_plain(lat, cfg, cfg.spp, planes[:3], aov, lanes=lanes)
+    for lanes in (sweep.LANES, 1):
+        shade, geom = sweep._sweep_plain(lat, cfg, cfg.spp, planes[:3], aov, lanes=lanes)
         assert shade[0].shape[1] == -(-block * block // lanes)
-        out[lanes] = nk._flat_sums(N, shade, geom, zero)
-    checks, err = nk.agreement(out[nk.LANES], out[1], "sums")
+        out[lanes] = sweep._flat_sums(N, shade, geom, zero)
+    checks, err = sweep.agreement(out[sweep.LANES], out[1], "sums")
     assert all(ok for *_, ok in checks), checks
     assert out[1].abs().max() > 0
 
 
 @pytest.mark.parametrize("block,width,height", [(8, 24, 10), (3, 13, 7), (5, 4, 4), (1, 3, 2)])
 def test_lane_groups_cover_every_pixel_once(block, width, height):
-    groups = nk.LaneGroups(height, width, block, "cpu")
+    groups = sweep.LaneGroups(height, width, block, "cpu")
     n_blocks = -(-height // block) * -(-width // block)
-    assert groups.index.shape == (n_blocks, -(-block * block // nk.LANES), nk.LANES)
+    assert groups.index.shape == (n_blocks, -(-block * block // sweep.LANES), sweep.LANES)
     inside = groups.index[groups.index < height * width]
     assert torch.equal(inside.sort().values, torch.arange(height * width))
     # thread tid of a block: lane tid % LANES of group tid // LANES
@@ -143,23 +150,23 @@ def test_lane_groups_cover_every_pixel_once(block, width, height):
     for tid in range(min(block * block, 6)):
         ty, tx = divmod(tid, block)
         want = float(ty * width + tx) if ty < height and tx < width else -1.0
-        assert float(lanes[tid % nk.LANES][0, tid // nk.LANES]) == want
-    if (block * block) % nk.LANES:  # the last thread is alone in its group
+        assert float(lanes[tid % sweep.LANES][0, tid // sweep.LANES]) == want
+    if (block * block) % sweep.LANES:  # the last thread is alone in its group
         assert bool((lanes[-1][:, -1] == -1.0).all())
 
 
 def test_slots_and_shared_bytes_of_the_layout():
-    assert nk.LANES == 2
-    assert nk.n_slots(9) == 156 and nk.n_slots(9, geom=False) == 54
-    assert nk.n_slots(11) == 184 and nk.n_slots(16) == 254
+    assert sweep.LANES == 2
+    assert sweep.n_slots(9) == 156 and sweep.n_slots(9, geom=False) == 54
+    assert sweep.n_slots(11) == 184 and sweep.n_slots(16) == 254
     # 64 threads in 32 lane pairs: the sums, a loss float a thread, 9 sphere rows
-    assert nk.shared_bytes(9, 8) == 4 * (156 * 32 + 64 + 90) == 20584
-    assert nk.shared_bytes(9, 8, geom=False) == 4 * (54 * 32 + 64 + 90) == 7528
+    assert sweep.shared_bytes(9, 8) == 4 * (156 * 32 + 64 + 90) == 20584
+    assert sweep.shared_bytes(9, 8, geom=False) == 4 * (54 * 32 + 64 + 90) == 7528
     # an odd block: 9 threads in 5 groups
-    assert nk.shared_bytes(9, 3) == 4 * (156 * 5 + 9 + 90)
+    assert sweep.shared_bytes(9, 3) == 4 * (156 * 5 + 9 + 90)
     # the largest block at the all-parameter backward's 11 spheres, and at 16
-    assert nk.shared_bytes(11, 16) == 95672 <= nk.MAX_SHARED_BYTES == 232448
-    assert nk.shared_bytes(16, 16) == 131712 <= nk.MAX_SHARED_BYTES
+    assert sweep.shared_bytes(11, 16) == 95672 <= sweep.MAX_SHARED_BYTES == 232448
+    assert sweep.shared_bytes(16, 16) == 131712 <= sweep.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("kernel", ["nee", "ad"])
@@ -180,7 +187,7 @@ def test_wrappers_check_the_new_layout_against_shared_memory(kernel):
 
     assert run(sb, cfg).shape == (126,)
     most = tk.MAX_SPHERES if kernel == "nee" else ak.MAX_SPHERES
-    assert nk.shared_bytes(most, tk.MAX_BLOCK) <= nk.MAX_SHARED_BYTES == 232448
+    assert sweep.shared_bytes(most, tk.MAX_BLOCK) <= sweep.MAX_SHARED_BYTES == 232448
     with pytest.raises(ValueError, match="spheres"):
         run(torch.cat([sb] * 2)[: most + 1].contiguous(), cfg)
     with pytest.raises(ValueError, match="block edge"):
@@ -266,6 +273,69 @@ def test_block_edge_does_not_change_the_sums_beyond_rounding():
     cfg5 = dataclasses.replace(cfg8, block=5)
     ct = cotangent(cfg8, 3).permute(1, 2, 0).contiguous()
     kw = dict(local_h=8, spp=cfg8.spp)
-    checks, _ = nk.agreement(nk.replay(*launch_args(cfg5), ct, **kw),
+    checks, _ = sweep.agreement(nk.replay(*launch_args(cfg5), ct, **kw),
                              nk.replay(*launch_args(cfg8), ct, **kw), "sums")
     assert all(ok for *_, ok in checks), checks
+
+
+def _ops_imports(tree):
+    """(the ``ops`` modules a module imports at its top level, those it
+    imports inside a function body)."""
+    top, inner = set(), set()
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        for sub in ast.walk(node):
+            inner |= _ops_names(sub)
+    for node in tree.body:
+        top |= _ops_names(node)
+    return top, inner
+
+
+def _ops_names(node):
+    if isinstance(node, ast.ImportFrom) and node.module == "pathtrace_tpu_torch.ops":
+        return {a.name for a in node.names}
+    if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+            "pathtrace_tpu_torch.ops."):
+        return {node.module.rsplit(".", 1)[1]}
+    if isinstance(node, ast.Import):
+        return {a.name.rsplit(".", 1)[1] for a in node.names
+                if a.name.startswith("pathtrace_tpu_torch.ops.")}
+    return set()
+
+
+def test_ops_import_graph_points_one_way():
+    """No module under ``ops/`` imports an ``ops`` module inside a function
+    body; the two sweep wrappers import neither each other nor
+    ``grad_kernel``, and ``sweep`` none of the three (parsed, not
+    imported)."""
+    ops = Path(sweep.__file__).parent
+    top = {}
+    for path in sorted(ops.glob("*.py")):
+        top[path.stem], inner = _ops_imports(ast.parse(path.read_text()))
+        assert not inner, f"{path.name} imports {sorted(inner)} inside a function"
+    wrappers = {"nee_grad_kernel", "ad_grad_kernel", "grad_kernel"}
+    assert not top["nee_grad_kernel"] & wrappers and not top["ad_grad_kernel"] & wrappers
+    assert not top["sweep"] & (wrappers | {"sweep"})
+    assert {"sweep", "trace_kernel"} <= top["nee_grad_kernel"] & top["ad_grad_kernel"]
+    assert {"nee_grad_kernel", "ad_grad_kernel", "sweep"} <= top["grad_kernel"]
+
+
+@pytest.mark.parametrize("name", ["nee", "nee_glossy"])
+def test_one_replay_entry_is_the_kernels_own_replay(name):
+    """``grad_kernel._replay_sums`` against the cotangent of the mean colour
+    gives the bits of the direct calls it replaced: K3's replay with 1/spp
+    folded in by the caller, ``residual / denom / spp``; K4's on
+    ``pack_cotangents(cfg, residual / denom)``."""
+    cfg = cfg_of(name, width=8, height=8, spp=2)
+    sb, cb, seed, _ = launch_args(cfg, frame=3)
+    residual = cotangent(cfg, channels=3, seed=4).permute(1, 2, 0).contiguous()
+    denom = cfg.height * cfg.width * 3
+    kw = dict(local_h=8, spp=2, device=torch.device("cpu"))
+    got = gk._replay_sums(sb, cb, seed, cfg, residual / denom, **kw)
+    if name == "nee":
+        want = nk.replay_plain(sb, cb, seed, cfg, residual / denom / cfg.spp, **kw)
+    else:
+        want = ak.replay_plain(sb, cb, seed, cfg, ak.pack_cotangents(cfg, residual / denom,
+                                                                     **kw), **kw)
+    assert torch.equal(got, want) and got.abs().max() > 0
