@@ -39,7 +39,7 @@
 // warps, its FP64 units and warp-level synchronisation.
 //
 // What the design does about it: one thread a pixel, the sample and bounce
-// loops in the thread; sums shared by lane pairs in ordered turns, the
+// loops in the thread; sums shared by lane pairs, added in one pass, the
 // geometry sums as doubles and the sphere table in dynamic shared memory
 // (sweep.cuh: 20,584 bytes a 64-thread block with the geometry chain at
 // N = 9, 7,528 without), so that registers limit the resident blocks (8 an
@@ -60,7 +60,7 @@
 // segment, and reads the tape's 68 bytes a segment (17 words: the ray and t,
 // the throughput, the cosine sample and the glossy jitter) a bounce ahead of
 // the sweep, the first 14 through sweep.cuh's cp.async ring in shared memory
-// and the jitter into registers: 27,752 bytes a 64-thread block, 111
+// and the jitter into registers: 27,752 bytes a 64-thread block, 110
 // registers, 8 blocks an SM (with the jitter in the ring, 29,288 bytes left
 // 7 and took a fifth longer: PERF.md).
 //
@@ -114,8 +114,8 @@ ad_grad_kernel(const TraceParams p, const float* __restrict__ ct,
   }
   float rows = 0.0f, cols = 0.0f;
   Rng rng = pixel_rng<GLOSSY>(p, row, col, rows, cols);
-  // Every thread of a warp sweeps, so that every lane takes its turns; one
-  // without a pixel has no path and nothing to add.
+  // Every thread of a warp sweeps, so that every lane trades with its
+  // partner; one without a pixel has no path and trades zeros.
   if constexpr (TAPED) {
     // The paths K1 traced: every thread copies its words, inside or not
     // (the tape covers whole blocks), and sweeps them.

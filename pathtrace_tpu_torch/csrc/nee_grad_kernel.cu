@@ -34,11 +34,11 @@
 // sweep's quarter and reads 56 bytes a segment (293.6 MB at 256x256x16, 5
 // bounces: at least 0.088 ms of the card's 3.35 TB/s), which a ring of two
 // bounces a thread in shared memory, filled by cp.async one bounce ahead,
-// keeps behind the sweep: 0.20 ms against REPLAY's 0.50 there (PERF.md).
+// keeps behind the sweep: 0.18 ms against REPLAY's 0.51 there (PERF.md).
 // What the design does about it is sweep.cuh's: with N = 9 spheres a
 // 64-thread block holds 20,584 bytes of shared memory (sums shared by lane
 // pairs, the geometry sums as doubles, the sphere table; 27,752 with
-// REPLAY_TAPED's ring), so that registers (103-105 a thread, at most 128:
+// REPLAY_TAPED's ring), so that registers (102-112 a thread, at most 128:
 // 8 blocks an SM where one set of sums a thread allowed 5), not shared
 // memory, limit the resident blocks; the kernel is bounded for the block
 // it is launched with. No matrix product and no bulk tile: wgmma has
@@ -112,8 +112,8 @@ nee_grad_kernel(const TraceParams p, const float* __restrict__ in_px,
       }
     }
   }
-  // Every thread of a warp sweeps, so that every lane takes its turns; one
-  // without a pixel has no path and nothing to add.
+  // Every thread of a warp sweeps, so that every lane trades with its
+  // partner; one without a pixel has no path and trades zeros.
   if constexpr (MODE == kReplayTaped) {
     // The paths K1 traced: every thread copies its words, inside or not
     // (the tape covers whole blocks), and sweeps them.

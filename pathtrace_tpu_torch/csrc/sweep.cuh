@@ -49,8 +49,8 @@
 // 64-thread blocks an SM and flattens from there (PERF.md). Where K1 has
 // traced the paths already (the inverse step under NEE), K3 (diffuse) and
 // K4 (glossy) sweep the path tape K1 wrote (PathTapeLayout, TapeRing) and
-// run the sweep's quarter alone (K3: 0.20 ms a 256x256x16 launch against
-// 0.50 retracing); its 56 bytes a segment (68 under GLOSSY) come from
+// run the sweep's quarter alone (K3: 0.18 ms a 256x256x16 launch against
+// 0.51 retracing); its 56 bytes a segment (68 under GLOSSY) come from
 // device memory behind the sweep. What the design does about that:
 //   * a block's dynamic shared memory holds only the sums (T threads, N
 //     spheres, G = ceil(T / kLanes) groups):
@@ -58,17 +58,30 @@
 //         shading sums   [6N][G] floats
 //         loss           [T] floats
 //         sphere table   [N][10] floats
-//     kLanes = 2 neighbouring threads (tid / kLanes) share one set of sums
-//     and add into it in ordered turns, lowest lane first, a __syncwarp
-//     between turns: the order is fixed, so two launches give the same
-//     bits, and no atomics. All adds of a bounce go in one turn. Every lane
-//     of a warp runs every turn: the bounce loop runs to the warp's longest
-//     path, and an escaped or outside lane takes its turn with nothing to
-//     add. A block's last thread is alone in its group when kLanes does not
-//     divide T. At N = 9 a 64-thread block holds 20,584 bytes (7,528
-//     without GEOM) where one set a thread took 39,936, so registers (at
-//     most 128 a thread: 8 blocks an SM), not shared memory, limit the
-//     resident blocks. 4 lanes serialise more than they gain;
+//     kLanes = 2 neighbouring threads (tid / kLanes) share one set of sums.
+//     Each slot has one owner in the pair for the whole launch, by the
+//     parity of its place within its sphere or the camera (Acc), and the
+//     pair adds a bounce's terms in one pass: the lanes trade the terms the
+//     partner owns (__shfl_xor_sync, 10 a bounce under NEE) and each owner
+//     loads its slots, adds both lanes' terms and stores them. A slot takes
+//     lane 0's terms, then lane 1's, each lane's in its program order: the
+//     order of the plain version (ops/sweep.py), so the bits are its bits,
+//     two launches give the same bits, and there are no atomics and no
+//     __syncwarp, since no slot has two writers. Every lane of a warp trades
+//     every bounce: the bounce loop runs to the warp's longest path, and an
+//     escaped or outside lane trades zeros. A block's last thread is alone
+//     in its group when kLanes does not divide T, owns all of it and adds
+//     its terms in program order. The pass issues about as many
+//     instructions as two turns, lane 0's adds and then lane 1's, would
+//     (~166 a taped bounce against ~165: the trades and their selects take
+//     the second turn's place), but a turn is one chain of 17
+//     read-modify-writes through slots that may alias, where the pass loads
+//     a slot kind's three slots at once and adds along chains of at most 7:
+//     measured, the taped replays take 12-13% less time than with turns
+//     (PERF.md). At N = 9 a 64-thread block holds 20,584 bytes
+//     (7,528 without GEOM) where one set a thread took 39,936, so registers
+//     (at most 128 a thread: 8 blocks an SM), not shared memory, limit the
+//     resident blocks. 4 lanes serialised more than they gained;
 //   * a geometry sum is one double (the sums cancel heavily: walls of
 //     radius 1e5), where a float and its Kahan compensation term took the
 //     same 8 bytes and four dependent adds: as fast, and no less accurate;
@@ -116,7 +129,7 @@ constexpr int kMaxBounces = 16;
 constexpr int kLanes = 2;                // threads that share one set of sums
 constexpr int kSmallThreads = 64;        // the default 8 x 8 block
 constexpr int kSmallMinBlocks = 8;        // resident blocks an SM it is bounded for
-static_assert(kLanes >= 1 && 32 % kLanes == 0, "a group must lie in one warp");
+static_assert(kLanes == 2, "a group is a lane pair, which trades by __shfl_xor_sync(.., 1)");
 
 // 4-byte words a taped bounce: the decisions and the throughput before the
 // bounce; with GEOM between them the ray and t, and after them the cosine
@@ -307,32 +320,214 @@ __device__ __forceinline__ void tape_store(TapeT& tape, int b, const BounceTape&
   }
 }
 
-// This thread's view of its group's sums. The adds of a bounce are made
-// inside turns(): lane `turn` of every group, then a __syncwarp.
+// A slot's terms of one bounce or sample: lane 0's and lane 1's.
+struct Terms {
+  float t0, t1;
+};
+
+// This thread's view of its pair's sums. Each slot is owned by one lane of
+// the pair for the whole launch, by the parity of its place within its
+// sphere or the camera: geometry slot 4 i + q by lane q % 2, shading slot
+// 6 i + k by lane k % 2, camera slot 4N + a by lane a % 2. The owner adds
+// both lanes' terms, lane 0's first, so that no slot has two writers (no
+// __syncwarp) and every slot takes the plain version's order (the bits).
 struct Acc {
   double* geom_;    // slot j at geom_[j * groups]
   float* shade_;    // slot k at shade_[k * groups]
-  int groups, turn;
-  unsigned mask;  // the warp's threads
-  __device__ __forceinline__ void shade(int k, float v) const { shade_[k * groups] += v; }
+  int groups, lane;  // lane: 0 or 1, the parity of the slots it owns
+  bool alone;        // the block's last thread without a partner: it owns all
+  unsigned mask;     // the warp's threads
+  __device__ __forceinline__ float& shade(int k) const { return shade_[k * groups]; }
   // Geometry slot j: sphere i, parameter q (0 radius, 1..3 position) at
   // 4 i + q; eye axis a at 4N + a; corner c axis a at 4N + 3 + 3 c + a.
-  __device__ __forceinline__ void geom(int j, float v) const {
-    geom_[j * groups] += (double)v;
+  __device__ __forceinline__ double& geom(int j) const { return geom_[j * groups]; }
+  // Of a term each lane holds for the slots of either parity: both lanes'
+  // terms for the slot of this lane's parity. Each lane hands its partner
+  // the term of the partner's parity. Every lane of the warp calls it.
+  __device__ __forceinline__ Terms trade(float even, float odd) const {
+    const float theirs = __shfl_xor_sync(mask, lane ? even : odd, 1);
+    return lane ? Terms{theirs, odd} : Terms{even, theirs};
   }
-  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
   // The longest path among the warp's lanes: every lane sweeps that many
-  // bounces, so that every lane reaches every turn.
+  // bounces, so that every lane reaches every trade.
   __device__ __forceinline__ int longest(int n_hit) const {
     return (int)__reduce_max_sync(mask, (unsigned)n_hit);
   }
 };
 
+// The owner's adds of one slot kind, each slot loaded once and stored once.
+// Slots a (the light's), b (lane 0's winner's) and c (lane 1's winner's)
+// may be one and the same: the chain of a shared slot then takes every term
+// that reaches it, in order, and the stores end with it. Adding a zero
+// term changes no bits (a sum is never -0).
+//
+// Lane 0's x (then z) to b, lane 1's to c.
+template <bool Z, class T>
+__device__ __forceinline__ void add_winners(T* b, T* c, bool bc, Terms x, Terms z) {
+  const T x0 = x.t0, x1 = x.t1, z0 = z.t0, z1 = z.t1;
+  T vb = *b, vc = *c;
+  vb += x0;
+  if (Z) vb += z0;
+  if (bc) {
+    vb += x1;
+    if (Z) vb += z1;
+  }
+  vc += x1;
+  if (Z) vc += z1;
+  *c = vc;
+  *b = vb;
+}
+
+// The geometry's order: lane 0's l to a and s to b, then lane 1's l to
+// a and s to c.
+template <class T>
+__device__ __forceinline__ void add_light_first(T* a, T* b, T* c, bool ab, bool ac, bool bc,
+                                                Terms l, Terms s) {
+  const T l0 = l.t0, l1 = l.t1, s0 = s.t0, s1 = s.t1;
+  T va = *a, vb = *b, vc = *c;
+  va += l0;
+  if (ab) va += s0;
+  va += l1;
+  if (ac) va += s1;
+  vb += s0;
+  if (bc) vb += s1;
+  vc += s1;
+  *c = vc;
+  *b = vb;
+  *a = va;
+}
+
+// The shading's order: lane 0's x (then z) to b and y to a, then lane
+// 1's x (then z) to c and y to a.
+template <bool Z, class T>
+__device__ __forceinline__ void add_winner_first(T* a, T* b, T* c, bool ab, bool ac, bool bc,
+                                                 Terms x, Terms y, Terms z) {
+  const T x0 = x.t0, x1 = x.t1, y0 = y.t0, y1 = y.t1, z0 = z.t0, z1 = z.t1;
+  T va = *a, vb = *b, vc = *c;
+  if (ab) {
+    va += x0;
+    if (Z) va += z0;
+  }
+  va += y0;
+  if (ac) {
+    va += x1;
+    if (Z) va += z1;
+  }
+  va += y1;
+  vb += x0;
+  if (Z) vb += z0;
+  if (bc) {
+    vb += x1;
+    if (Z) vb += z1;
+  }
+  vc += x1;
+  if (Z) vc += z1;
+  *c = vc;
+  *b = vb;
+  *a = va;
+}
+
+// What one bounce adds to the pair's sums, in one pass. live, idx: this
+// lane's bounce and winner; li the light. lg, sg: the light's and the
+// winner's geometry; ae, ac: the winner's emission and albedo; al: the
+// light's emission; with AOV at the first bounce, aov[3..5] follow ac into
+// the albedo slots. A slot kind of each lane: geometry q = 2 j + lane (j < 2),
+// shading k = 2 j + lane (j < 3), so lane 0 takes the emission's r and b and
+// the albedo's g, lane 1 the rest.
+template <bool NEE, bool AOV>
+__device__ __forceinline__ void bounce_adds(const Acc& acc, bool live, int idx, int li,
+                                            bool first, const float (&lg)[4],
+                                            const float (&sg)[4], const float (&ae)[3],
+                                            const float (&ac)[3], const float (&al)[3],
+                                            const float (&aov)[7]) {
+  constexpr bool GEOM = NEE || AOV;
+  const int theirs = __shfl_xor_sync(acc.mask, live ? idx : -1, 1);  // -1: adds nothing
+  float z[3] = {0.0f, 0.0f, 0.0f};
+  if (AOV && first && live) {
+    z[0] = aov[3];
+    z[1] = aov[4];
+    z[2] = aov[5];
+  }
+  Terms lt[2] = {}, st[2] = {}, xt[3], yt[2] = {}, zt[3] = {};
+  if (GEOM) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (NEE) lt[j] = acc.trade(lg[2 * j], lg[2 * j + 1]);
+      st[j] = acc.trade(sg[2 * j], sg[2 * j + 1]);
+    }
+  }
+  xt[0] = acc.trade(ae[0], ae[1]);
+  xt[1] = acc.trade(ae[2], ac[0]);
+  xt[2] = acc.trade(ac[1], ac[2]);
+  if (NEE) {
+    yt[0] = acc.trade(al[0], al[1]);
+    yt[1] = acc.trade(al[2], 0.0f);
+  }
+  if (AOV) {
+    zt[1] = acc.trade(0.0f, z[0]);
+    zt[2] = acc.trade(z[1], z[2]);
+  }
+
+  if (acc.alone) {  // its own terms, in program order
+    if (live) {
+      if (NEE) {
+        acc.geom(4 * li + 1) += (double)lg[1];
+        acc.geom(4 * li + 2) += (double)lg[2];
+        acc.geom(4 * li + 3) += (double)lg[3];
+        acc.geom(4 * li + 0) += (double)lg[0];
+      }
+      if (GEOM) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc.geom(4 * idx + q) += (double)sg[q];
+      }
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) {
+        acc.shade(6 * idx + ch) += ae[ch];
+        acc.shade(6 * idx + 3 + ch) += ac[ch];
+        if (NEE) acc.shade(6 * li + ch) += al[ch];
+        if (AOV) acc.shade(6 * idx + 3 + ch) += z[ch];
+      }
+    }
+    return;
+  }
+  if (!live && theirs < 0) return;
+  const int other = theirs < 0 ? 0 : theirs;  // a lane that adds nothing adds zeros
+  const int i0 = acc.lane ? other : idx, i1 = acc.lane ? idx : other;
+  // where the slots of a kind coincide: a winner is the light, or one sphere
+  const bool light0 = i0 == li, light1 = i1 == li, one = i0 == i1;
+  const int own = acc.lane;
+  if (GEOM) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = 2 * j + own;
+      double* b = &acc.geom(4 * i0 + q);
+      double* c = &acc.geom(4 * i1 + q);
+      if (NEE)
+        add_light_first(&acc.geom(4 * li + q), b, c, light0, light1, one, lt[j], st[j]);
+      else
+        add_winners<false>(b, c, one, st[j], Terms{});
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int k = 2 * j + own;
+    float* b = &acc.shade(6 * i0 + k);
+    float* c = &acc.shade(6 * i1 + k);
+    // j 0: emission; j 1: lane 0's emission b, lane 1's albedo r (y zero);
+    // j 2: albedo
+    if (NEE && j < 2)
+      add_winner_first<AOV>(&acc.shade(6 * li + k), b, c, light0, light1, one, xt[j], yt[j],
+                            zt[j]);
+    else
+      add_winners<AOV>(b, c, one, xt[j], zt[j]);
+  }
+}
+
 // The reverse sweep of one sample over its n_hit taped bounces, against the
 // sample's colour cotangent g and, with AOV, the cotangents of its bounce-0
 // AOVs: aov[0..2] the (flipped) normal, aov[3..5] the albedo, aov[6] the
 // depth. sph: the block's sphere table in shared memory. inside: the thread
-// has a pixel (else n_hit is 0 and it only keeps the warp's turns). Without
+// has a pixel (else n_hit is 0 and it only trades zeros). Without
 // NEE p.light_index is not read. tape: a Tape that forward filled, or the
 // path tape's TapeRing, which brings n_hit with the last bounce's words.
 template <bool GLOSSY, bool NEE, bool AOV, class TapeT>
@@ -612,49 +807,46 @@ __device__ __forceinline__ void reverse_sweep(const TraceParams& p, const Sphere
       }
     }
 
-    // -- the bounce's adds, one lane of each group at a time
-#pragma unroll
-    for (int turn = 0; turn < kLanes; ++turn) {
-      if (live && acc.turn == turn) {
-        if (NEE) {
-          acc.geom(4 * li + 1, lg[1]);
-          acc.geom(4 * li + 2, lg[2]);
-          acc.geom(4 * li + 3, lg[3]);
-          acc.geom(4 * li + 0, lg[0]);
-        }
-        if (GEOM) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc.geom(4 * idx + q, sg[q]);
-        }
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          acc.shade(6 * idx + ch, ae[ch]);
-          acc.shade(6 * idx + 3 + ch, ac[ch]);
-          if (NEE) acc.shade(6 * li + ch, al[ch]);
-          if (AOV && first) acc.shade(6 * idx + 3 + ch, aov[3 + ch]);
-        }
-      }
-      acc.sync();
-    }
+    // -- the bounce's adds, both lanes' in one pass
+    bounce_adds<NEE, AOV>(acc, live, idx, li, first, lg, sg, ae, ac, al, aov);
   }
 
   if (GEOM) {
-    // camera: o_0 is the eye; d_0 the bilinear blend of the corner rays
+    // camera: o_0 is the eye; d_0 the bilinear blend of the corner rays. A
+    // lane without a pixel never swept a bounce: its terms are zeros.
     float u = 0.0f, v = 0.0f;
     if (inside) primary_uv(p, rng, rows, cols, u, v);
     const float w[4] = {(1.0f - u) * (1.0f - v), u * (1.0f - v), (1.0f - u) * v, u * v};
+    float cam[16];
 #pragma unroll
-    for (int turn = 0; turn < kLanes; ++turn) {
-      if (inside && acc.turn == turn) {
+    for (int a = 0; a < 3; ++a) cam[a] = oh[a];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) acc.geom(n4 + a, oh[a]);
+    for (int c = 0; c < 4; ++c) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+      for (int a = 0; a < 3; ++a) cam[3 + 3 * c + a] = w[c] * dh[a];
+    }
+    cam[15] = 0.0f;  // no slot
+    Terms t[8];
 #pragma unroll
-          for (int a = 0; a < 3; ++a) acc.geom(n4 + 3 + 3 * c + a, w[c] * dh[a]);
-        }
+    for (int j = 0; j < 8; ++j) t[j] = acc.trade(cam[2 * j], cam[2 * j + 1]);
+    if (acc.alone) {
+#pragma unroll
+      for (int a = 0; a < 15; ++a) acc.geom(n4 + a) += (double)cam[a];
+    } else {
+      // slot 4N + 2 j + lane; lane 1 has no eighth
+      const bool eighth = acc.lane == 0;
+      double s[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j] = j < 7 || eighth ? acc.geom(n4 + 2 * j + acc.lane) : 0.0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j] += (double)t[j].t0;
+        s[j] += (double)t[j].t1;
       }
-      acc.sync();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < 7 || eighth) acc.geom(n4 + 2 * j + acc.lane) = s[j];
+      }
     }
   }
 }
@@ -708,7 +900,7 @@ struct SweepBlock {
     __syncthreads();
     const int group = tid / kLanes;
     acc = {static_cast<double*>(smem) + group, words + lay.shade_off + group, lay.groups,
-           tid % kLanes, mask};
+           tid % kLanes, tid % kLanes == 0 && tid + 1 == threads, mask};
     sph = reinterpret_cast<const Sphere*>(words + lay.sph_off);
     loss = words + lay.loss_off + tid;
   }

@@ -8,13 +8,16 @@ share: the Python side of their reverse sweep, ``csrc/sweep.cuh``.
   (d_scene, d_camera) by ``grads_from_block``; ``agreement`` holds two of
   them against each other by kind of entry.
 - The plain sweep ``_sweep_plain``, the kernels' order of operations over
-  [h, W] tensors: ``LANES`` neighbouring threads share one set of sums and
-  add to it in ordered turns (``LaneGroups``); the geometry sums, which
-  cancel heavily (walls of radius 1e5), are kept and summed in double.
+  [h, W] tensors: ``LANES`` neighbouring threads share one set of sums, to
+  which each slot takes lane 0's terms, then lane 1's (``LaneGroups``; the
+  kernels add both in one pass, each slot by its owner); the geometry sums,
+  which cancel heavily (walls of radius 1e5), are kept and summed in double.
 - A launch's shared memory (``shared_bytes``) and the path tape: K1's taped
   colour pass writes a slab's paths into a ``PathTape`` and the taped
   replay of K3 or K4 sweeps them instead of tracing them again, with the
-  same bits; ``step_tapes`` plans an inverse step's row slabs.
+  same bits; ``step_tapes`` plans an inverse step's row slabs;
+  ``lane_pair_shares`` reads from a tape how often a pair's two lanes add
+  to one slot.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ LANES = 2  # csrc/sweep.cuh's kLanes: threads that share one set of sums
 # path tape, by ``cfg.brdf`` (the glossy jitter takes three more)
 TAPE_WORDS = {"diffuse": 14, "glossy": 17}
 RING_WORDS = 14  # csrc/sweep.cuh's kRingWords: those of a bounce a taped replay's ring holds
+HIT_SHIFT = 8  # csrc/sweep.cuh's kHitShift: a flags word's hit count lies above it
 
 
 def n_slots(num_spheres: int, geom: bool = True) -> int:
@@ -176,6 +180,33 @@ class PathTape:
 
 def _tape_sizes(cfg: RenderConfig, local_h: int, spp: int) -> tuple:
     return (local_h, cfg.width, spp, cfg.max_bounces, cfg.block, TAPE_WORDS[cfg.brdf])
+
+
+def lane_pair_shares(words: torch.Tensor, light_index: int) -> dict:
+    """What the sweep's pass of a bounce meets, read from the flags words of
+    a path tape ``words`` [spp, blocks, bounces, words a bounce, threads]
+    (``PathTape.words``, of blocks inside the frame) -> by bounce, the lane
+    pairs (threads 2 g and 2 g + 1; a block's lone last thread has no
+    partner) in which a lane has a hit (``pairs``), and the share of them
+    whose two lanes add to one slot: both hit the same sphere (``same``), or
+    a lane's winner is the light (``light``), whose slots both lanes' light
+    terms reach; ``either`` is their union."""
+    flags = words[:, :, :, 0].contiguous().view(torch.int32)
+    flags = flags[..., :flags.shape[-1] // LANES * LANES]
+    bounce = torch.arange(flags.shape[2], device=flags.device)[:, None]
+    live = (bounce < flags[:, :, -1:] >> HIT_SHIFT).unflatten(-1, (-1, LANES))
+    idx = (flags & 15).unflatten(-1, (-1, LANES))
+    l0, l1, i0, i1 = live[..., 0], live[..., 1], idx[..., 0], idx[..., 1]
+    runs = l0 | l1
+    same = l0 & l1 & (i0 == i1)
+    light = (l0 & (i0 == light_index)) | (l1 & (i1 == light_index))
+    pairs = runs.sum((0, 1, 3))
+
+    def share(x):
+        return (x & runs).sum((0, 1, 3)) / pairs.clamp(min=1)
+
+    return {"pairs": pairs, "same": share(same), "light": share(light),
+            "either": share(same | light)}
 
 
 # -- a colour pass, then a replay -------------------------------------------------

@@ -253,11 +253,11 @@ def test_colour_only_cotangent_under_nee(dev, brdf):
         assert torch.equal(got, k3)
 
 
-@pytest.mark.parametrize("block", [3, 5, 16])
+@pytest.mark.parametrize("block", [3, 5, 7, 16])
 @pytest.mark.parametrize("brdf,nee,channels", [("glossy", False, 3), ("glossy", True, 10)])
 def test_lane_groups_at_other_blocks_and_ragged_frames(dev, brdf, nee, channels, block):
     """Lane pairs at block edges that leave the last thread without a
-    partner (3 x 3, 5 x 5), at the largest block, and on a frame whose last
+    partner (3 x 3, 5 x 5, 7 x 7), at the largest block, and on a frame whose last
     blocks hang over both edges: the plain version follows the kernel's
     groups."""
     cfg = RenderConfig(width=123, height=61, spp=SPP, brdf=brdf, nee=nee, block=block)
@@ -293,7 +293,7 @@ def _assert_taped_is_untaped(sb, cb, seed, cfg, ct, *, local_h, spp, device):
 
 
 @pytest.mark.parametrize("row_offset, local_h", [(0, 37), (11, 19)], ids=["frame", "slab"])
-@pytest.mark.parametrize("block", [3, 5, 8, 16])
+@pytest.mark.parametrize("block", [3, 5, 7, 8, 16])
 def test_taped_glossy_replay_is_the_retracing_replay(dev, block, row_offset, local_h):
     """On a ragged frame (45 x 37: blocks hang over both edges at 3, 5 and
     16) and on a slab of 19 rows at row 11, the taped NEE glossy colour pass
@@ -346,6 +346,59 @@ def test_glossy_step_at_the_cell_size_tapes_two_slabs(dev, monkeypatch):
     for name, g in d.items():
         torch.testing.assert_close(g, re_d[name], rtol=1e-6,
                                    atol=1e-6 * float(re_d[name].abs().max()), msg=name)
+
+
+# Views in which a pair's two lanes add to one slot at every first bounce
+# (the winner's share of ``sweep.lane_pair_shares`` there): close to the back
+# wall every primary ray hits it; under the light, facing up, half of them
+# hit the light, whose slots both lanes' light terms reach.
+VIEWS = {"wall": (dict(position=(50.0, 40.0, 3.0)), "same", 1.0),
+         "light": (dict(position=(20.0, 40.0, 81.6), pitch=89.0), "light", 0.3)}
+
+
+@pytest.mark.parametrize("block", [7, 8])
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_owner_pass_where_the_lanes_meet_in_a_slot(dev, view, block):
+    """Where both lanes of most pairs hit one sphere, or one of them the
+    light, K4's NEE glossy pass adds both lanes' terms (and the light's) to
+    one slot in turn order; at 7 x 7 each block's last thread owns its group
+    alone. The retracing and the taped replay equal the plain version bit
+    for bit."""
+    pose, share, least = VIEWS[view]
+    cfg = RenderConfig(width=56, height=56, spp=SPP, nee=True, brdf="glossy", block=block)
+    sb, cb = cornell_box().packed(), tk.camera_block(Camera.create(**pose), cfg)
+    seed = tk.make_seed_block(cfg, 6)
+    g = torch.Generator().manual_seed(block)
+    ct = torch.randn(ak.NUM_CT_COLOR, 56, 56, generator=g).to(dev)
+    kw = dict(local_h=56, spp=SPP, device=dev)
+    tape = sweep.PathTape.empty(cfg, 56, SPP, dev)
+    tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
+    assert float(sweep.lane_pair_shares(tape.words, cfg.light_index)[share][0]) >= least
+    retraced = ak.replay(sb, cb, seed, cfg, ct, **kw)
+    assert torch.equal(retraced, ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    assert sweep.block_from_sums(retraced)[8, :7].abs().min() > 0  # the light's slots took terms
+    _assert_taped_is_untaped(sb, cb, seed, cfg, ct, local_h=56, spp=SPP, device=dev)
+
+
+@pytest.mark.parametrize("block", [7, 8])
+@pytest.mark.parametrize("brdf,nee,channels", [("glossy", False, 3), ("diffuse", False, 10),
+                                               ("glossy", True, 10)],
+                         ids=["shading-only", "aov", "nee-aov"])
+def test_owner_pass_at_bounce_0(dev, brdf, nee, channels, block):
+    """One bounce: the shading-only instance's pass (six shading slots a
+    bounce, no geometry) and the AOV instances', where the albedo cotangent
+    of the first hit follows the albedo term into its slot, lane 0's two
+    before lane 1's; at 7 x 7 each block's last thread owns its group alone.
+    The kernel equals the plain version bit for bit."""
+    cfg = RenderConfig(width=61, height=37, spp=SPP, brdf=brdf, nee=nee, max_bounces=1,
+                       block=block)
+    sb, cb = _blocks(cfg)
+    seed = tk.make_seed_block(cfg, 8)
+    ct = _cotangent(dev, range(channels), seed=8)[:channels, :37, :61].contiguous()
+    kw = dict(local_h=37, spp=SPP, device=dev)
+    got = ak.replay(sb, cb, seed, cfg, ct, **kw)
+    assert torch.equal(got, ak.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    assert sweep.block_from_sums(got)[:9, 4:10].abs().max() > 0
 
 
 def test_taped_replay_resident_blocks(dev):

@@ -398,11 +398,11 @@ def test_probe_readings_are_plausible(dev):
 
 # -- the lane groups and the resident blocks --------------------------------------
 
-@pytest.mark.parametrize("block", [3, 5, 16])
+@pytest.mark.parametrize("block", [3, 5, 7, 16])
 @pytest.mark.parametrize("mode", ["fused", "replay"])
 def test_lane_groups_at_other_blocks_and_ragged_frames(dev, mode, block):
     """Lane pairs at block edges that leave the last thread without a
-    partner (3 x 3, 5 x 5), at the largest block, and on a frame whose last
+    partner (3 x 3, 5 x 5, 7 x 7), at the largest block, and on a frame whose last
     blocks hang over both edges: the plain version follows the kernel's
     groups, and two launches give the same bits."""
     cfg = RenderConfig(width=123, height=61, spp=4, nee=True, block=block)
@@ -421,6 +421,38 @@ def test_lane_groups_at_other_blocks_and_ragged_frames(dev, mode, block):
         again = nk.replay(sb, cb, seed, cfg, ct, **kw)
     _assert_agree(sums, ref_sums)
     assert torch.equal(sums, again)
+
+
+# Views in which a pair's two lanes add to one slot at every first bounce
+# (the winner's share of ``sweep.lane_pair_shares`` there): close to the back
+# wall every primary ray hits it; under the light, facing up, half of them
+# hit the light, whose slots both lanes' light terms reach.
+VIEWS = {"wall": (dict(position=(50.0, 40.0, 3.0)), "same", 1.0),
+         "light": (dict(position=(20.0, 40.0, 81.6), pitch=89.0), "light", 0.3)}
+
+
+@pytest.mark.parametrize("block", [7, 8])
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_owner_pass_where_the_lanes_meet_in_a_slot(dev, view, block):
+    """Where both lanes of most pairs hit one sphere, or one of them the
+    light, the pair's pass adds both lanes' terms (and the light's) to one
+    slot in turn order; at 7 x 7 each block's last thread owns its group
+    alone. The retracing and the taped replay equal the plain version bit
+    for bit."""
+    pose, share, least = VIEWS[view]
+    cfg = RenderConfig(width=56, height=56, spp=4, nee=True, block=block)
+    sb, cb = cornell_box().packed(), tk.camera_block(Camera.create(**pose), cfg)
+    seed = tk.make_seed_block(cfg, 6)
+    g = torch.Generator().manual_seed(block)
+    ct = ((torch.rand(56, 56, 3, generator=g) - 0.5) / 4).to(dev)
+    kw = dict(local_h=56, spp=4, device=dev)
+    tape = sweep.PathTape.empty(cfg, 56, 4, dev)
+    tk.trace(sb, cb, seed, cfg, mode="color", tape=tape, **kw)
+    assert float(sweep.lane_pair_shares(tape.words, cfg.light_index)[share][0]) >= least
+    retraced = nk.replay(sb, cb, seed, cfg, ct, **kw)
+    assert torch.equal(retraced, nk.replay_plain(sb, cb, seed, cfg, ct, **kw))
+    assert sweep.block_from_sums(retraced)[8, :7].abs().min() > 0  # the light's slots took terms
+    _assert_taped_is_untaped(sb, cb, seed, cfg, ct, retraced, **kw)
 
 
 def test_resident_blocks_an_sm(dev):

@@ -2,7 +2,8 @@
 instance, the colour-only cotangent and the layout the wrappers check.
 
 ``csrc/sweep.cuh`` lets ``LANES`` neighbouring threads share one set of
-sums, added to in ordered turns, keeps the geometry sums in double, and has
+sums, each slot taking lane 0's terms, then lane 1's (in one pass, each slot
+added by the lane that owns it), keeps the geometry sums in double, and has
 an instance without the geometry chain for a colour-only cotangent without
 NEE. ``sweep._sweep_plain`` follows that order, so on the CPU
 these tests hold
@@ -23,6 +24,9 @@ these tests hold
   (emission and albedo: rtol 2e-3 plus 5e-4 of the largest, the tolerance
   of tests/test_torch_ad_grad.py);
 - ``n_slots``, ``shared_bytes`` and the wrappers' shared-memory check;
+- ``lane_pair_shares`` (how often a pair's two lanes add to one slot) on a
+  hand-made path tape, and the bounce loop that
+  ``scripts/torch_sweep_occupancy.py`` finds in a hand-made SASS listing;
 - the import graph of ``ops/``, which points one way (``trace_kernel`` <-
   ``sweep`` <- the two sweep wrappers <- ``grad_kernel``), and
   ``grad_kernel``'s one replay entry against the direct calls of K3's and
@@ -34,6 +38,7 @@ tests/test_torch_nee_grad_cuda.py and tests/test_torch_ad_grad_cuda.py.
 
 import ast
 import dataclasses
+import importlib.util
 from pathlib import Path
 
 import jax
@@ -153,6 +158,64 @@ def test_lane_groups_cover_every_pixel_once(block, width, height):
         assert float(lanes[tid % sweep.LANES][0, tid // sweep.LANES]) == want
     if (block * block) % sweep.LANES:  # the last thread is alone in its group
         assert bool((lanes[-1][:, -1] == -1.0).all())
+
+
+def test_lane_pair_shares_read_the_flags_words():
+    """A hand-made path tape of 3 bounces and 5 threads (two lane pairs and
+    a block's lone last thread, which has no pair): a lane counts below the
+    hit count that the last bounce's flags word carries, whatever its dead
+    bounces' words hold; the flags' other bits are masked off."""
+    hits = torch.tensor([3, 3, 1, 0, 2], dtype=torch.int32)
+    flags = torch.tensor([[2 | 16, 2 | 32, 8, 8, 1],     # one winner; the light; a dead 8
+                          [3, 8 | 48, 8, 4, 1],          # the light in lane 1; pair 2 dead
+                          [5, 6, 7, 7, 7]], dtype=torch.int32)  # two winners
+    flags[2] = torch.where(hits > 2, flags[2], 0) | hits << sweep.HIT_SHIFT
+    words = torch.zeros(1, 1, 3, sweep.TAPE_WORDS["diffuse"], 5)
+    words[0, 0, :, 0] = flags.view(torch.float32)
+    got = sweep.lane_pair_shares(words, 8)
+    assert got["pairs"].tolist() == [2, 1, 1]
+    assert got["same"].tolist() == [0.5, 0.0, 0.0]
+    assert got["light"].tolist() == [0.5, 1.0, 0.0]
+    assert got["either"].tolist() == [1.0, 1.0, 0.0]
+    # two samples of it count each pair's bounce twice: the same shares
+    twice = sweep.lane_pair_shares(torch.cat([words, words]), 8)
+    assert twice["pairs"].tolist() == [4, 2, 2] and twice["either"].tolist() == [1.0, 1.0, 0.0]
+
+
+SASS = """
+        Function : _ZN4anon15nee_grad_kernelILi2ELb1EEEvN2pt11TraceParamsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDGSTS.E [R2], desc[UR4][R4.64] ;
+        /*0020*/                   LDS R3, [R2] ;
+        /*0030*/                   LDGSTS.E [R2], desc[UR4][R4.64] ;
+        /*0040*/                   SHFL.BFLY PT, R5, R5, 0x1, 0x1f ;
+        /*0050*/                   STS [R2], R3 ;
+        /*0060*/              @P0 BRA 0x30 ;
+        /*0070*/                   DADD R6, R6, R8 ;
+        /*0080*/              @P1 BRA P2, 0x20 ;
+        /*0090*/                   LDS R7, [R9] ;
+        /*00a0*/              @P3 BRA 0x90 ;
+        /*00b0*/                   EXIT ;
+        Function : _ZN4anon14ad_grad_kernelILb1ELb1ELb0ELb1ELb0EEEvN2pt11TraceParamsE
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_occupancy_script_finds_the_bounce_loop():
+    """``scripts/torch_sweep_occupancy.py`` counts over the innermost loop
+    (a branch back, predicated or not, to its target) that holds the ring's
+    ``LDGSTS``, in the taped instances alone, on a hand-made listing."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_sweep_occupancy.py"
+    spec = importlib.util.spec_from_file_location("torch_sweep_occupancy", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    listing = script.sass_listing(SASS)
+    assert [len(v) for v in listing.values()] == [12, 1]
+    assert script.bounce_loop(list(listing.values())[0]) == [
+        "LDGSTS.E [R2], desc[UR4][R4.64]", "SHFL.BFLY PT, R5, R5, 0x1, 0x1f", "STS [R2], R3",
+        "@P0 BRA 0x30"]
+    assert script.loop_counts(listing) == {"K3 replay taped": dict(
+        LDS=0, STS=1, DADD=0, SHFL=1, WARPSYNC=0, BSYNC=0, instructions=4)}
 
 
 def test_slots_and_shared_bytes_of_the_layout():
